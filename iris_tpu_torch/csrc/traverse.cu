@@ -1,0 +1,347 @@
+// Closest-hit BVH traversal kernels for Hopper (sm_90a), plain C ABI.
+//
+// Built by iris_tpu_torch/geometry/cuda_intersect.py with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
+//        -shared -Xcompiler -fPIC
+// and called through ctypes. Every entry point launches on the caller's
+// stream, allocates nothing, and returns cudaGetLastError().
+//
+// Both kernels compute what the Pallas kernels of
+// iris_tpu/geometry/pallas_intersect.py compute: per ray, the closest hit
+// (t, u, v, face_id) with face_id = -1 for a miss. The TPU walks one
+// traversal cursor per tile of rays (the union of the tile's paths, every
+// lane a vector op); here one thread walks one ray, which is the natural
+// unit on an SM and visits a subset of the tile's nodes with the same hits.
+//
+// --fmad=false: no multiply-add contraction, so t/u/v round exactly as the
+// plain PyTorch versions (and the JAX package) round them; the kernels are
+// held against those versions at zero error on the card.
+//
+// What bounds them on this card: each visit reads a node (32 B) or a pair
+// row (64 B used) and each leaf reads leaf_size triangle rows (48 B), all
+// from a tree small enough to stay in the 50 MB L2, then spends ~24 FP32
+// operations per slab test and ~55 per Moller-Trumbore test. Both counts
+// depend on the data (how deep each ray walks). The walks are latency
+// bound (a dependent load per step) and divergent (neighbouring rays walk
+// different paths); the designs below shorten the dependent chain (shared
+// memory, float4 rows) and leave warp coherence to the caller's ray order.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kTMiss = 3e37f;   // pallas_intersect.py:30
+constexpr float kMtEps = 1e-9f;   // pallas_intersect.py:31
+constexpr int kThreads = 256;
+// Per-thread stack of the paired walk. The host refuses trees whose
+// stack need (_auto_stack_depth) exceeds it instead of truncating.
+constexpr int kStackCap = 128;
+// The union kernel stages the whole tree in shared memory up to this size
+// (the default dynamic shared-memory limit; no opt-in attribute needed).
+constexpr int kStageBytes = 48 * 1024;
+// float4s per 128-float row of the paired layout (pallas_intersect.py:621)
+constexpr int kRow4 = 32;
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, ix, iy, iz;
+};
+
+struct Hit {
+  float t, u, v;
+  int face;
+};
+
+// Safe reciprocal direction (pallas_intersect.py:52-53): |d| < 1e-12 -> 1e-12.
+__device__ __forceinline__ float safe_rcp(float d) {
+  return 1.0f / (fabsf(d) < 1e-12f ? 1e-12f : d);
+}
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ orig,
+                                        const float* __restrict__ dirs,
+                                        int i) {
+  Ray r;
+  r.ox = __ldg(orig + 3 * i);
+  r.oy = __ldg(orig + 3 * i + 1);
+  r.oz = __ldg(orig + 3 * i + 2);
+  r.dx = __ldg(dirs + 3 * i);
+  r.dy = __ldg(dirs + 3 * i + 1);
+  r.dz = __ldg(dirs + 3 * i + 2);
+  r.ix = safe_rcp(r.dx);
+  r.iy = safe_rcp(r.dy);
+  r.iz = safe_rcp(r.dz);
+  return r;
+}
+
+// AABB slab test against the ray's current best t (pallas_intersect.py:61-83).
+__device__ __forceinline__ bool slab(const Ray& r, float n0, float n1,
+                                     float n2, float n3, float n4, float n5,
+                                     float t_best, float* tlo_out) {
+  const float tx0 = (n0 - r.ox) * r.ix;
+  const float tx1 = (n3 - r.ox) * r.ix;
+  const float ty0 = (n1 - r.oy) * r.iy;
+  const float ty1 = (n4 - r.oy) * r.iy;
+  const float tz0 = (n2 - r.oz) * r.iz;
+  const float tz1 = (n5 - r.oz) * r.iz;
+  const float tlo =
+      fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
+  const float thi =
+      fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
+  *tlo_out = tlo;
+  return thi >= fmaxf(tlo, 0.0f) && tlo <= t_best;
+}
+
+// Moller-Trumbore on one triangle row [v0, e1, e2, face_id, pad, pad]
+// (three float4s), folded into the best hit with a strict t < t_best, so
+// the first of equal-t hits in visiting order wins (pallas_intersect.py:86-114).
+// Padding rows carry face_id < 0 and never hit.
+__device__ __forceinline__ void mt_fold(const Ray& r, float4 a, float4 b,
+                                        float4 c, Hit& h) {
+  const float v0x = a.x, v0y = a.y, v0z = a.z, e1x = a.w;
+  const float e1y = b.x, e1z = b.y, e2x = b.z, e2y = b.w;
+  const float e2z = c.x, fid = c.y;
+  const float px = r.dy * e2z - r.dz * e2y;
+  const float py = r.dz * e2x - r.dx * e2z;
+  const float pz = r.dx * e2y - r.dy * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  const bool ok_det = fabsf(det) > kMtEps;
+  const float inv_det = ok_det ? 1.0f / det : 0.0f;
+  const float tx = r.ox - v0x;
+  const float ty = r.oy - v0y;
+  const float tz = r.oz - v0z;
+  const float u = (tx * px + ty * py + tz * pz) * inv_det;
+  const float qx = ty * e1z - tz * e1y;
+  const float qy = tz * e1x - tx * e1z;
+  const float qz = tx * e1y - ty * e1x;
+  const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
+  const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+  if (ok_det && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f &&
+      fid >= 0.0f && t < h.t) {
+    h.t = t;
+    h.u = u;
+    h.v = v;
+    h.face = static_cast<int>(fid);
+  }
+}
+
+template <bool kStaged>
+__device__ __forceinline__ float4 ld4(const float4* p) {
+  if constexpr (kStaged) {
+    return *p;
+  } else {
+    return __ldg(p);
+  }
+}
+
+__device__ __forceinline__ void store_hit(const Hit& h, int i,
+                                          float* __restrict__ t_out,
+                                          float* __restrict__ u_out,
+                                          float* __restrict__ v_out,
+                                          int* __restrict__ f_out) {
+  t_out[i] = h.t;
+  u_out[i] = h.u;
+  v_out[i] = h.v;
+  f_out[i] = h.face;
+}
+
+// trace_union — replaces pallas_ray_trace / _kernel
+// (pallas_intersect.py:176, 240). Stackless preorder skip-pointer walk over
+// nodes (N, 8) and tris (P, 12): descend to desc on a slab hit, otherwise
+// jump to skip; a hit leaf (desc <= 0) tests leaf_size rows from -desc.
+// The TPU's tile-union walk visits a superset of this ray's nodes; the
+// extra visits are misses for this lane (child boxes nest in parent boxes
+// and t_best only shrinks), and triangles are met in the same preorder, so
+// the hits and their tie-breaking are the same.
+// Design: the TPU kernel keeps the tree VMEM-resident; here a tree of up to
+// kStageBytes (the flagship scene's is 39 KB) is staged into shared memory
+// once per block, so every dependent node/triangle load in the walk is a
+// shared-memory read. Rows are read as float4s (2 per node, 3 per
+// triangle). Bigger trees are read through the read-only cache.
+template <bool kStaged>
+__global__ void __launch_bounds__(kThreads)
+    trace_union_kernel(const float4* __restrict__ nodes_g, int n_nodes,
+                       const float4* __restrict__ tris_g, int n_tri_rows,
+                       int leaf_size, const float* __restrict__ orig,
+                       const float* __restrict__ dirs, int n_rays,
+                       float* __restrict__ t_out, float* __restrict__ u_out,
+                       float* __restrict__ v_out, int* __restrict__ f_out) {
+  extern __shared__ float4 stage[];
+  const float4* nodes = nodes_g;
+  const float4* tris = tris_g;
+  if constexpr (kStaged) {
+    const int nn = 2 * n_nodes;
+    const int nt = 3 * n_tri_rows;
+    for (int k = threadIdx.x; k < nn; k += blockDim.x) stage[k] = __ldg(nodes_g + k);
+    for (int k = threadIdx.x; k < nt; k += blockDim.x) stage[nn + k] = __ldg(tris_g + k);
+    __syncthreads();
+    nodes = stage;
+    tris = stage + nn;
+  }
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_rays) return;
+  const Ray r = load_ray(orig, dirs, i);
+  Hit h{kTMiss, 0.0f, 0.0f, -1};
+  // a walk of a well-formed tree visits each node at most once; the cap
+  // only keeps a corrupt tree from hanging the card
+  const int max_steps = 2 * n_nodes + 2;
+  int cur = 1;
+  for (int step = 0; cur > 0 && step < max_steps; ++step) {
+    const int node = min(max(cur - 1, 0), n_nodes - 1);
+    const float4 a = ld4<kStaged>(nodes + 2 * node);
+    const float4 b = ld4<kStaged>(nodes + 2 * node + 1);
+    float tlo;
+    const bool hit = slab(r, a.x, a.y, a.z, a.w, b.x, b.y, h.t, &tlo);
+    const float desc = b.w;
+    const bool leaf = desc <= 0.0f;
+    if (hit && leaf) {
+      const int base = static_cast<int>(-desc);
+      for (int k = 0; k < leaf_size; ++k) {
+        const int row = min(max(base + k, 0), n_tri_rows - 1);
+        const float4* tr = tris + 3 * row;
+        mt_fold(r, ld4<kStaged>(tr), ld4<kStaged>(tr + 1),
+                ld4<kStaged>(tr + 2), h);
+      }
+    }
+    cur = (hit && !leaf) ? static_cast<int>(desc) : static_cast<int>(b.z);
+  }
+  store_hit(h, i, t_out, u_out, v_out, f_out);
+}
+
+__device__ __forceinline__ void leaf_hits(const Ray& r,
+                                          const float4* __restrict__ leaves,
+                                          int lrow, int n_leaf_rows,
+                                          int leaf_size, Hit& h) {
+  lrow = min(max(lrow, 0), n_leaf_rows - 1);
+  const float4* lf = leaves + static_cast<size_t>(lrow) * kRow4;
+  for (int k = 0; k < leaf_size; ++k) {
+    mt_fold(r, __ldg(lf + 3 * k), __ldg(lf + 3 * k + 1),
+            __ldg(lf + 3 * k + 2), h);
+  }
+}
+
+// trace_paired — replaces pallas_ray_trace_paired / _kernel_paired
+// (pallas_intersect.py:675, 782) over the _pack_paired rows (:621): pair
+// row r holds both children of internal node r (lanes 0-5 left box, 6 its
+// desc', 8-13 right box, 14 its desc'); desc' > 0 is an internal child
+// whose pair row is desc'-1, desc' <= 0 a leaf child whose leaf row is
+// -desc'. Leaf rows hold a whole leaf (leaf_size x 12 floats).
+// Near-child-first: pop a pair row, slab-test both children against the
+// current t_best, intersect leaf children in place (left, then right) so
+// their hits prune the pushes, then push the far internal child and the
+// near one. Near/far is this ray's own entry distance, where the TPU used
+// the tile's mean (:735-741), so equal-t ties may pick another face.
+// Design: the tree stays in global memory (the 102K-face scene's paired
+// layout is 32 MB of 128-float rows, which the 50 MB L2 holds); each pop is 4 float4 loads and each
+// leaf 3 per triangle. The stack is per thread, indexed dynamically, so
+// it lives in local memory (L1-cached); its depth is checked on the host.
+__global__ void __launch_bounds__(kThreads)
+    trace_paired_kernel(const float4* __restrict__ pairs, int n_pairs,
+                        const float4* __restrict__ leaves, int n_leaf_rows,
+                        int leaf_size, int stack_depth,
+                        const float* __restrict__ orig,
+                        const float* __restrict__ dirs, int n_rays,
+                        float* __restrict__ t_out, float* __restrict__ u_out,
+                        float* __restrict__ v_out, int* __restrict__ f_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_rays) return;
+  const Ray r = load_ray(orig, dirs, i);
+  Hit h{kTMiss, 0.0f, 0.0f, -1};
+  int stack[kStackCap];
+  stack[0] = 0;  // the root's pair row
+  int sp = 1;
+  // each internal node is pushed at most once per walk; the cap only keeps
+  // a corrupt tree from hanging the card
+  const int max_steps = 2 * n_pairs + 2;
+  for (int step = 0; sp > 0 && step < max_steps; ++step) {
+    const int row_id = stack[--sp];
+    const float4* row = pairs + static_cast<size_t>(row_id) * kRow4;
+    const float4 a = __ldg(row);
+    const float4 b = __ldg(row + 1);
+    const float4 c = __ldg(row + 2);
+    const float4 d = __ldg(row + 3);
+    float tlo_l, tlo_r;
+    const bool hit_l = slab(r, a.x, a.y, a.z, a.w, b.x, b.y, h.t, &tlo_l);
+    const bool hit_r = slab(r, c.x, c.y, c.z, c.w, d.x, d.y, h.t, &tlo_r);
+    const float dl = b.z;
+    const float dr = d.z;
+    const bool l_leaf = dl <= 0.0f;
+    const bool r_leaf = dr <= 0.0f;
+    if (hit_l && l_leaf) {
+      leaf_hits(r, leaves, static_cast<int>(-dl), n_leaf_rows, leaf_size, h);
+    }
+    if (hit_r && r_leaf) {
+      leaf_hits(r, leaves, static_cast<int>(-dr), n_leaf_rows, leaf_size, h);
+    }
+    const bool want_l = hit_l && !l_leaf;
+    const bool want_r = hit_r && !r_leaf;
+    const int pid_l = min(max(static_cast<int>(dl) - 1, 0), n_pairs - 1);
+    const int pid_r = min(max(static_cast<int>(dr) - 1, 0), n_pairs - 1);
+    const bool l_near = (want_l && want_r) ? (tlo_l <= tlo_r) : want_l;
+    const int far_id = l_near ? pid_r : pid_l;
+    const int near_id = l_near ? pid_l : pid_r;
+    const bool push_far = want_l && want_r;
+    const bool push_near = want_l || want_r;
+    // same clamped pushes as the TPU kernel (:745-757); with the host's
+    // stack_depth >= depth + 4 the clamp is never reached
+    if (push_far) stack[min(sp, stack_depth - 1)] = far_id;
+    const int sp3 = sp + (push_far ? 1 : 0);
+    if (push_near) stack[min(sp3, stack_depth - 1)] = near_id;
+    sp = min(sp3 + (push_near ? 1 : 0), stack_depth);
+  }
+  store_hit(h, i, t_out, u_out, v_out, f_out);
+}
+
+inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+
+}  // namespace
+
+extern "C" {
+
+int iris_paired_stack_cap() { return kStackCap; }
+
+int iris_trace_union(const void* nodes, int n_nodes, const void* tris,
+                     int n_tri_rows, int leaf_size, const void* orig,
+                     const void* dirs, int n_rays, void* t_out, void* u_out,
+                     void* v_out, void* f_out, void* stream) {
+  if (n_rays <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t stage_bytes = static_cast<size_t>(n_nodes) * 32 +
+                             static_cast<size_t>(n_tri_rows) * 48;
+  const auto* n4 = static_cast<const float4*>(nodes);
+  const auto* t4 = static_cast<const float4*>(tris);
+  const auto* o = static_cast<const float*>(orig);
+  const auto* d = static_cast<const float*>(dirs);
+  auto* t = static_cast<float*>(t_out);
+  auto* u = static_cast<float*>(u_out);
+  auto* v = static_cast<float*>(v_out);
+  auto* f = static_cast<int*>(f_out);
+  if (stage_bytes <= static_cast<size_t>(kStageBytes)) {
+    trace_union_kernel<true><<<blocks_for(n_rays), kThreads, stage_bytes, s>>>(
+        n4, n_nodes, t4, n_tri_rows, leaf_size, o, d, n_rays, t, u, v, f);
+  } else {
+    trace_union_kernel<false><<<blocks_for(n_rays), kThreads, 0, s>>>(
+        n4, n_nodes, t4, n_tri_rows, leaf_size, o, d, n_rays, t, u, v, f);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int iris_trace_paired(const void* pairs, int n_pairs, const void* leaves,
+                      int n_leaf_rows, int leaf_size, int stack_depth,
+                      const void* orig, const void* dirs, int n_rays,
+                      void* t_out, void* u_out, void* v_out, void* f_out,
+                      void* stream) {
+  if (n_rays <= 0) return 0;
+  if (stack_depth < 1 || stack_depth > kStackCap) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  trace_paired_kernel<<<blocks_for(n_rays), kThreads, 0, s>>>(
+      static_cast<const float4*>(pairs), n_pairs,
+      static_cast<const float4*>(leaves), n_leaf_rows, leaf_size, stack_depth,
+      static_cast<const float*>(orig), static_cast<const float*>(dirs), n_rays,
+      static_cast<float*>(t_out), static_cast<float*>(u_out),
+      static_cast<float*>(v_out), static_cast<int*>(f_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,0 +1,143 @@
+"""Ray-mesh intersection: the single geometry choke point (counterpart of
+iris_tpu/geometry/intersect.py; reference utils/path_tracing.py:17-48).
+
+ray_intersect returns (positions, normals, uvs, idx, valid) with normals
+unit length and flipped toward the ray origin, idx == -1 for misses. The
+traversal itself carries no gradients.
+
+Which traversal runs (the port's replacement for _pallas_mode,
+intersect.py:383; the table is in geometry/cuda_intersect.py):
+
+- a tree with n_faces < 5000, or a heap (Morton) layout: trace_union;
+- a preorder tree with >= 5000 faces and leaf_size * 12 <= 128:
+  trace_paired;
+- any other tree: trace_union, which walks every layout.
+
+On a CUDA tensor every call launches that kernel; on a CPU tensor the same
+choice takes the kernel's plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from iris_tpu_torch.core.vecmath import double_sided, normalize
+from iris_tpu_torch.geometry import cuda_intersect
+from iris_tpu_torch.geometry.bvh import Tracer
+
+T_MISS = cuda_intersect.T_MISS
+_MT_EPS = cuda_intersect._MT_EPS
+
+
+def uses_paired(tracer: Tracer) -> bool:
+    """True when ray_intersect sends this tree to trace_paired."""
+    return (tracer.n_faces >= 5000 and tracer.layout == "preorder"
+            and tracer.leaf_size * 12 <= 128 and tracer.n_nodes > 1)
+
+
+def ray_trace(tracer: Tracer, origins: torch.Tensor, dirs: torch.Tensor):
+    """Closest hit per ray by the dispatched kernel: (t, u, v, face)."""
+    origins = origins.detach().float().contiguous()
+    dirs = dirs.detach().float().contiguous()
+    if uses_paired(tracer):
+        return cuda_intersect.trace_paired(tracer, origins, dirs)
+    return cuda_intersect.trace_union(tracer, origins, dirs)
+
+
+def _spread8(v: torch.Tensor) -> torch.Tensor:
+    """Interleave the low 8 bits of v into every 3rd bit (Morton spread);
+    int64 arithmetic, equal to the JAX package's uint32 version."""
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    v = (v | (v << 2)) & 0x09249249
+    return v
+
+
+def spatial_sort_perm(tracer: Tracer, xs: torch.Tensor, ds: torch.Tensor
+                      ) -> torch.Tensor:
+    """Ray-coherence permutation (intersect.py:362-380): direction octant
+    (3 bits) then an 8-bit-per-axis origin Morton code. Secondary rays
+    arrive scrambled; sorted, neighbouring threads walk similar paths."""
+    lo = tracer.nodes[0, 0:3]
+    hi = tracer.nodes[0, 3:6]
+    key = torch.zeros(xs.shape[0], dtype=torch.int64, device=xs.device)
+    octant = torch.zeros_like(key)
+    for c in range(3):
+        o = torch.clamp((xs[:, c] - lo[c])
+                        / torch.clamp(hi[c] - lo[c], min=1e-9), 0.0, 1.0)
+        key = key | (_spread8((o * 255.0).to(torch.int64)) << c)
+        octant = octant | ((ds[:, c] > 0).to(torch.int64) << c)
+    return torch.argsort((octant << 24) | key, stable=True)
+
+
+def ray_intersect(tracer: Tracer, xs: torch.Tensor, ds: torch.Tensor,
+                  sort: bool = False):
+    """Reference-parity intersection (utils/path_tracing.py:17-48).
+
+    Args:
+        xs: (B, 3) ray origins.  ds: (B, 3) ray directions.
+        sort: hint that the rays are spatially incoherent (secondary /
+            bounce rays); big trees (>= 5000 faces) then trace them in
+            spatial_sort_perm order, as the JAX package does (:489).
+    Returns:
+        positions (B,3), normals (B,3) unit & viewer-facing, uvs (B,2),
+        idx (B,) original face index (-1 = miss), valid (B,) bool.
+    """
+    perm = None
+    if sort and tracer.n_faces >= 5000:
+        perm = spatial_sort_perm(tracer, xs, ds)
+        xs_t, ds_t = xs[perm], ds[perm]
+    else:
+        xs_t, ds_t = xs, ds
+    t, u, v, face = ray_trace(tracer, xs_t, ds_t)
+    if perm is not None:
+        inv = torch.empty_like(perm)
+        inv[perm] = torch.arange(perm.shape[0], device=perm.device)
+        t, u, v, face = t[inv], u[inv], v[inv], face[inv]
+    face = face.to(torch.int64)
+    valid = face >= 0
+    n = tracer.face_normals[torch.clamp(face, 0,
+                                        tracer.face_normals.shape[0] - 1)]
+    n = double_sided(-ds, n)
+    vm = valid[:, None]
+    n = torch.where(vm, n, 0.0)
+    pos = torch.where(vm, xs + t[:, None] * ds, 0.0)
+    uv = torch.where(vm, torch.stack([u, v], -1), 0.0)
+    idx = torch.where(valid, face, -1)
+    return pos, n, uv, idx, valid
+
+
+def ray_intersect_brute(triangles: torch.Tensor, xs: torch.Tensor,
+                        ds: torch.Tensor):
+    """O(B*F) reference intersector for tests: triangles (F, 3, 3)."""
+    v0 = triangles[:, 0]
+    e1 = triangles[:, 1] - triangles[:, 0]
+    e2 = triangles[:, 2] - triangles[:, 0]
+    o, d = xs[:, None, :], ds[:, None, :]
+    pvec = torch.linalg.cross(d.expand(-1, e2.shape[0], -1),
+                              e2[None].expand(d.shape[0], -1, -1), dim=-1)
+    det = torch.sum(e1[None] * pvec, -1)
+    ok_det = torch.abs(det) > _MT_EPS
+    inv_det = torch.where(ok_det, 1.0 / det, 0.0)
+    tvec = o - v0[None]
+    u = torch.sum(tvec * pvec, -1) * inv_det
+    qvec = torch.linalg.cross(tvec, e1[None].expand(d.shape[0], -1, -1),
+                              dim=-1)
+    v = torch.sum(d * qvec, -1) * inv_det
+    t = torch.sum(e2[None] * qvec, -1) * inv_det
+    hit = ok_det & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0)
+    t = torch.where(hit, t, T_MISS)
+    k = torch.argmin(t, dim=-1)
+    t_k = torch.gather(t, 1, k[:, None])[:, 0]
+    valid = torch.gather(hit, 1, k[:, None])[:, 0]
+    u_k = torch.gather(u, 1, k[:, None])[:, 0]
+    v_k = torch.gather(v, 1, k[:, None])[:, 0]
+    n = normalize(torch.linalg.cross(e1, e2, dim=-1))[k]
+    n = double_sided(-ds, n)
+    vm = valid[:, None]
+    n = torch.where(vm, n, 0.0)
+    pos = torch.where(vm, xs + t_k[:, None] * ds, 0.0)
+    idx = torch.where(valid, k, -1)
+    uv = torch.where(vm, torch.stack([u_k, v_k], -1), 0.0)
+    return pos, n, uv, idx, valid
