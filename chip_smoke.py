@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of iris_tpu_torch, the PyTorch/CUDA port.
 
-    python3 chip_smoke.py [--seed 0] [--rounds 4]
+    python3 chip_smoke.py [--seed 0] [--rounds 2]
 
 Needs one NVIDIA card (sm_90a: H100/H200), nvcc and g++. It builds the
 traversal kernels from iris_tpu_torch/csrc/traverse.cu and the SAH builder
@@ -9,22 +9,40 @@ from csrc/bvh_builder.cpp, then:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the kernels and prints the build time and ptxas' report;
-3. holds each kernel against its plain PyTorch version on the card
-   (trace_union on the flagship tree, trace_paired on the 102,014-face
-   clutter tree; 16,384 camera rays and 16,384 random rays each);
-4. renders the flagship frame (398 faces, camera_rays(90) = 8,100 pixels)
-   at the production width — 4-level x 16-feature x 2^19 row-mode hash
-   grid (a 128 MB table), MLP 64-64-64-5, 3-basis EMoR CRF, 64^3 SLF
-   seeded with nonzero radiance — at spp 8 and indir_depth 5, for
-   --rounds rounds after one warm-up round (a cut of the 64 rounds that
-   SPP=512 takes), with the AOV pass and CRF to LDR; and holds a small
-   render on the card against the same render on the CPU;
-5. renders one round of the 102,014-face clutter scene the same way;
-6. prints one JSON line {"kernels": [...]} with each kernel's launches on
-   the main path, its error against the plain version, its time, the plain
-   version's time and its roofline bound, measured on the inputs the
-   render gave the kernel;
-7. prints the card line again and, last, the run's JSON verdict.
+3. holds each of the four kernels against its plain PyTorch version on the
+   card, on 16,384 camera rays and 16,384 random rays: trace_union on the
+   flagship tree (398 faces), trace_paired and trace_paired_streamed on the
+   102,014-face clutter tree, trace_ordered on a 6,014-face tree built with
+   leaf_size 16 (its leaf row is too wide for the paired layout);
+4. renders the flagship frame (camera_rays(90) = 8,100 pixels) at the
+   production width — 4-level x 16-feature x 2^19 row-mode hash grid (a
+   128 MB table), MLP 64-64-64-5, 3-basis EMoR CRF, 64^3 SLF seeded with
+   nonzero radiance — at spp 8 and indir_depth 5, for --rounds rounds
+   after one warm-up round (a cut of the 64 rounds that SPP=512 takes),
+   with the AOV pass and CRF to LDR; and holds a small render on the card
+   against the same render on the CPU;
+5. renders one round of the 102,014-face scene the same way
+   (trace_paired_streamed), and one round at depth 2 of the 6,014-face
+   scene with leaf_size 16 (trace_ordered) and with leaf_size 4
+   (trace_paired);
+6. trains at full width: the benchmark step (fwd+bwd of
+   crf_forward(path_tracing_single) against 0.5 at 8,100 rays x spp 32 =
+   259,200 camera samples, gradients into the hash grid and MLP, the
+   emitter radiance and the CRF weights, Adam) through make_train_step,
+   1 warm-up + 5 timed steps on the flagship scene and 1 + 3 on the
+   102,014-face scene, with the trainers' estimator settings (stochastic
+   forward and backward, one level block per step, compact bf16 scatter);
+7. takes 3 steps each of the three stage losses (initialize,
+   train_emitter, brdf_crf with and without part segmentation) on a
+   4,096-pixel demo batch;
+8. holds a small train step on the card against the same step on the CPU
+   under the same draws;
+9. prints one JSON line {"kernels": [...]} with each kernel's launches on
+   the main paths, its error against the plain version, its time, the
+   plain version's time and its roofline bound, measured on the largest
+   input a main path gave the kernel (and, for trace_paired_streamed,
+   trace_paired's time on the same input);
+10. prints the card line again and, last, the run's JSON verdict.
 
 Any failed check raises, and the script then exits non-zero with no
 verdict line. It imports nothing of JAX or of the JAX package.
@@ -47,7 +65,13 @@ FP32_FLOPS_PER_S = 67e12
 
 FLAGSHIP_CLUTTER = 32          # 398 faces
 CLUTTER_102K = 8500            # 102,014 faces
+CLUTTER_6K = 500               # 6,014 faces
+WIDE_LEAF = 16                 # leaf row of 192 floats: past the paired layout
 SPP = 8
+TRAIN_SPP = 32                 # the trainers' per-round spp
+STAGE_BATCH_SIDE = 64          # 4,096-pixel batch of the stage losses
+KERNELS = ("trace_union", "trace_paired", "trace_paired_streamed",
+           "trace_ordered")
 INDIR_DEPTH = 5
 CAMERA_SIDE = 90               # 8,100 pixels
 CHECK_RAYS_SIDE = 128          # 16,384 rays per comparison set
@@ -118,23 +142,79 @@ def compare_hits(got, want):
     return max_err, int(same)
 
 
+def test_flops(counts):
+    """FP32 operations of a walk's counted slab and triangle tests."""
+    from iris_tpu_torch.geometry import cuda_intersect as ci
+
+    return counts["slab"] * ci.SLAB_FLOPS + counts["mt"] * ci.MT_FLOPS
+
+
 def roofline(tracer, counts, n_rays, paired):
-    """Least time for the walk this run's data needed: each ray read and
-    each hit written once, the tree's useful bytes read once, and the slab
-    and triangle tests the plain walk counted at the FP32 peak."""
+    """Least time for the closest hits of this run's rays: each ray read
+    and each hit written once, the tree's useful bytes read once (compact
+    pair and leaf rows for the paired walks, nodes (N, 8) and tris (P, 12)
+    for the union and ordered walks), and the slab and triangle tests in
+    `counts` at the FP32 peak. `counts` is the least work known to give
+    these hits on this tree: the kernel's own plain walk for the per-ray
+    kernels; for the packet walk the per-ray near-first walk over the same
+    rows, which finds the same hits with fewer tests (a packet visits the
+    union of its rays' paths, and that extra is the kernel's cost, not the
+    function's need)."""
     from iris_tpu_torch.geometry import cuda_intersect as ci
 
     if paired:
-        _, _, n_pairs, n_leaf_rows = ci.pack_paired(tracer)
+        _, _, n_pairs, n_leaf_rows = ci.pack_paired_compact(tracer)
         tree = n_pairs * 16 * 4 + n_leaf_rows * tracer.leaf_size * 48
     else:
         tree = tracer.n_nodes * 32 + tracer.tris.shape[0] * 48
     nbytes = n_rays * (24 + 16) + tree
-    ops = counts["slab"] * ci.SLAB_FLOPS + counts["mt"] * ci.MT_FLOPS
+    ops = test_flops(counts)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_FLOPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations"), nbytes, ops
+
+
+def reset_launches():
+    from iris_tpu_torch.geometry import cuda_intersect as ci
+
+    for name in KERNELS:
+        getattr(ci, name).launches = 0
+
+
+def read_launches():
+    from iris_tpu_torch.geometry import cuda_intersect as ci
+
+    return {name: getattr(ci, name).launches for name in KERNELS}
+
+
+class record_largest_trace:
+    """While active, keeps the largest (origins, directions) batch that
+    geometry.intersect.ray_trace is given, as the kernel receives it (after
+    the spatial sort)."""
+
+    def __init__(self):
+        self.captured = {}
+
+    def __enter__(self):
+        from iris_tpu_torch.geometry import intersect
+
+        self._intersect = intersect
+        self._ray_trace = ray_trace = intersect.ray_trace
+        captured = self.captured
+
+        def recording(tr, xs, ds):
+            if xs.shape[0] > captured.get("n", 0):
+                captured.update(n=xs.shape[0],
+                                o=xs.detach().float().contiguous().clone(),
+                                d=ds.detach().float().contiguous().clone())
+            return ray_trace(tr, xs, ds)
+
+        intersect.ray_trace = recording
+        return captured
+
+    def __exit__(self, *exc):
+        self._intersect.ray_trace = self._ray_trace
 
 
 def time_ms(fn, reps, flush):
@@ -176,49 +256,32 @@ def frame_rays(dev):
     return torch.from_numpy(rays).to(dev)
 
 
-def render_scene(label, tracer, em, mat_fn, crf, rays, n_rounds, seed):
+def render_scene(label, tracer, em, mat_fn, crf, rays, n_rounds, seed,
+                 depth=INDIR_DEPTH):
     """Warm-up round (recording the largest traversal input), then
     n_rounds timed rounds through render_frame with launch counts reset
     just before and read just after. Returns (stats, captured input)."""
+    import numpy as np
     import torch
 
-    from iris_tpu_torch.geometry import cuda_intersect as ci
-    from iris_tpu_torch.geometry import intersect
     from iris_tpu_torch.models.crf import crf_forward
     from iris_tpu_torch.pipeline.render import make_render_fns, render_frame
 
-    render_chunk, aov_chunk = make_render_fns(tracer, em, mat_fn, SPP,
-                                              INDIR_DEPTH)
+    render_chunk, aov_chunk = make_render_fns(tracer, em, mat_fn, SPP, depth)
     gen = torch.Generator(device=rays.device).manual_seed(seed)
-    captured = {}
-    ray_trace = intersect.ray_trace
-
-    def recording(tr, xs, ds):
-        if xs.shape[0] > captured.get("n", 0):
-            captured.update(n=xs.shape[0], o=xs.detach().float().clone(),
-                            d=ds.detach().float().clone())
-        return ray_trace(tr, xs, ds)
-
-    intersect.ray_trace = recording
-    try:
+    with record_largest_trace() as captured:
         render_chunk(rays, gen)
         aov_chunk(rays, gen)
         torch.cuda.synchronize()
-    finally:
-        intersect.ray_trace = ray_trace
 
-    ci.trace_union.launches = 0
-    ci.trace_paired.launches = 0
+    reset_launches()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     l_img, aovs = render_frame(render_chunk, aov_chunk, rays, n_rounds, gen)
     end.record()
     end.synchronize()
-    launches = {"trace_union": ci.trace_union.launches,
-                "trace_paired": ci.trace_paired.launches}
-
-    import numpy as np
+    launches = read_launches()
 
     ms = start.elapsed_time(end) / n_rounds
     samples = rays.shape[0] * SPP
@@ -233,10 +296,38 @@ def render_scene(label, tracer, em, mat_fn, crf, rays, n_rounds, seed):
           ldr.max() <= 1, f"{label}: LDR out of [0, 1]")
     stats = {"ms_per_round": ms, "camera_samples_per_round": samples,
              "rays_per_s": samples / (ms / 1e3), "rounds": n_rounds,
-             "launches": launches, "hdr_mean": l_img.mean(0).tolist(),
+             "depth": depth, "launches": launches,
+             "hdr_mean": l_img.mean(0).tolist(),
              "ldr_mean": ldr.mean(0).tolist(),
              "largest_trace_rays": captured["n"]}
     return stats, captured
+
+
+def only_launched(launches, name, n=None):
+    """True when `name` was launched (n times, when given) and no other
+    traversal kernel was."""
+    ok = launches[name] > 0 if n is None else launches[name] == n
+    return ok and all(v == 0 for k, v in launches.items() if k != name)
+
+
+def move(obj, d):
+    """A copy of a (nested) dataclass / dict / list of tensors on device
+    d."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.to(d)
+    if isinstance(obj, dict):
+        return {k: move(v, d) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [move(v, d) for v in obj]
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: move(getattr(obj, f.name), d)
+            for f in dataclasses.fields(obj) if f.init})
+    return obj
 
 
 def small_reference_check(tracer, em, ngp, dev, seed):
@@ -246,8 +337,6 @@ def small_reference_check(tracer, em, ngp, dev, seed):
     within rtol 2e-3 / atol 1e-4 on >= 95% of values, and AOVs within
     rtol 1e-2 / atol 1e-3: bf16 rounding of MLP sums taken in another
     order can move a path now and then (tests/test_torch_slice.py)."""
-    import dataclasses
-
     import numpy as np
     import torch
 
@@ -268,27 +357,14 @@ def small_reference_check(tracer, em, ngp, dev, seed):
                       "s1b": u(depth, n), "s2b": u(depth, n, 2)}}
     s_aov = {"dudv": u(2, b, spp, 1), "s2": u(n, 2)}
 
-    def to(obj, d):
-        if isinstance(obj, torch.Tensor):
-            return obj.to(d)
-        if isinstance(obj, dict):
-            return {k: to(v, d) for k, v in obj.items()}
-        if isinstance(obj, list):
-            return [to(v, d) for v in obj]
-        if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-            return dataclasses.replace(obj, **{
-                f.name: to(getattr(obj, f.name), d)
-                for f in dataclasses.fields(obj) if f.init})
-        return obj
-
     out = []
     for d in (dev, torch.device("cpu")):
-        tr, e, g = to(tracer, d), to(em, d), to(ngp, d)
+        tr, e, g = move(tracer, d), move(em, d), move(ngp, d)
         tr.paired = None
         rc, ac = make_render_fns(tr, e, demo_mat_fn(g), spp, depth)
-        out.append((rc(rays.to(d), samples=to(s, d)).cpu().numpy(),
+        out.append((rc(rays.to(d), samples=move(s, d)).cpu().numpy(),
                     [a.cpu().numpy() for a in
-                     ac(rays.to(d), samples=to(s_aov, d))]))
+                     ac(rays.to(d), samples=move(s_aov, d))]))
     (lg, ag), (lc, ac_) = out
     close = np.abs(lg - lc) <= 1e-4 + 2e-3 * np.abs(lc)
     check(close.mean() >= 0.95,
@@ -299,10 +375,286 @@ def small_reference_check(tracer, em, ngp, dev, seed):
     return float(close.mean()), float(np.abs(lg - lc).max())
 
 
+def train_config(ngp, scatter="bfloat16"):
+    """A copy of the field (own table and MLP tensors: training updates
+    them in place) with the trainers' estimator settings
+    (pipeline/config.py:70-100 of the JAX package): stochastic forward and
+    backward, auto level-block subsampling, compact scatter."""
+    import dataclasses
+
+    from iris_tpu_torch.models.hashgrid import auto_bwd_level_sample
+
+    cfg = dataclasses.replace(
+        ngp.cfg, stochastic_fwd=True, stochastic_bwd=True,
+        bwd_level_sample=auto_bwd_level_sample(ngp.cfg.n_levels),
+        bwd_compact_scatter=True, bwd_scatter_dtype=scatter)
+    return dataclasses.replace(
+        ngp, cfg=cfg, table=ngp.table.clone(),
+        mlp={k: [t.clone() for t in v] for k, v in ngp.mlp.items()})
+
+
+def bench_params(em, ngp, crf, scatter="bfloat16"):
+    return {"material": train_config(ngp, scatter),
+            "radiance": em.radiance.clone(), "crf_w": crf.weight.clone()}
+
+
+def make_bench_loss(tracer, em, crf, rays, spp):
+    """The benchmark's train loss (bench.py:91-100 of the JAX package):
+    MSE of crf_forward(path_tracing_single(...)) to 0.5, one stochastic
+    material query at the first hit, params {"material", "radiance",
+    "crf_w"}. Without samples every step jitters the ray origins by a
+    fresh 1e-6 draw, as the benchmark does."""
+    import dataclasses
+    import functools
+
+    import torch
+
+    from iris_tpu_torch.models.brdf import ngp_brdf_apply
+    from iris_tpu_torch.models.crf import crf_forward
+    from iris_tpu_torch.render.integrator import (
+        draw_uniform, path_tracing_single)
+
+    o, d, dxdu, dydv = (rays[:, i:i + 3] for i in (0, 3, 6, 9))
+
+    def loss_fn(p, batch, gen, samples=None):
+        em2 = dataclasses.replace(em, radiance=p["radiance"])
+        crf2 = dataclasses.replace(crf, weight=p["crf_w"])
+        mat_fn = functools.partial(
+            ngp_brdf_apply, p["material"], gen=gen,
+            samples=None if samples is None else samples["mat"])
+        o_step = o if samples is not None else \
+            o + draw_uniform(gen, (1, 3), o.device) * 1e-6
+        l = path_tracing_single(
+            gen, tracer, em2, mat_fn, o_step, d, dxdu, dydv, spp,
+            samples=None if samples is None else samples["render"])
+        ldr = crf_forward(crf2, l, 1.0)
+        loss = torch.mean((ldr - 0.5) ** 2)
+        return loss, {"loss": loss}
+
+    return loss_fn
+
+
+def check_bench_grads(label, grads, n_levels, bwd_k):
+    """Every gradient leaf finite; table, MLP, radiance and CRF gradients
+    each nonzero; exactly bwd_k level blocks of the table gradient
+    nonzero."""
+    import torch
+
+    for name, g in grads.items():
+        check(bool(torch.isfinite(g).all()), f"{label}: gradient {name} "
+              "is not finite")
+    for name in ("material.table", "material.mlp.w.0", "material.mlp.w.2",
+                 "material.mlp.b.2", "radiance", "crf_w"):
+        check(name in grads and float(grads[name].abs().sum()) > 0,
+              f"{label}: gradient {name} is missing or zero")
+    blocks = grads["material.table"].abs().reshape(n_levels, -1).sum(1) > 0
+    check(int(blocks.sum()) == bwd_k, f"{label}: {int(blocks.sum())} level "
+          f"blocks of the table gradient are nonzero, expected {bwd_k}")
+
+
+def train_scene(label, kernel, tracer, em, ngp, crf, rays, n_steps, seed):
+    """The benchmark step through make_train_step: one gradient (checked)
+    and one warm-up step, then n_steps timed steps with launch counts
+    reset just before and read just after. Returns (stats, the largest
+    traversal input of a step)."""
+    import torch
+
+    from iris_tpu_torch.train.loop import make_train_step, value_and_grad
+    from iris_tpu_torch.train.optim import make_optimizer, named_leaves
+
+    params = bench_params(em, ngp, crf)
+    cfg = params["material"].cfg
+    loss_fn = make_bench_loss(tracer, em, crf, rays, TRAIN_SPP)
+    opt = make_optimizer(learning_rate=1e-3)
+    state = opt.init(params)
+    step = make_train_step(loss_fn, opt)
+    gen = torch.Generator(device=rays.device).manual_seed(seed)
+
+    torch.cuda.reset_peak_memory_stats()
+    with record_largest_trace() as captured:
+        loss0, _, grads = value_and_grad(loss_fn, params, {}, gen)
+    check(bool(torch.isfinite(loss0)), f"{label}: loss is not finite")
+    check_bench_grads(label, grads, cfg.n_levels, cfg.bwd_level_sample)
+    del grads
+    start_leaves = {n: t.clone() for n, t in named_leaves(params)}
+    step(params, state, {}, gen)                          # warm-up
+    torch.cuda.synchronize()
+
+    reset_launches()
+    losses = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(n_steps):
+        params, state, loss, _ = step(params, state, {}, gen)
+        losses.append(loss)
+    end.record()
+    end.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    launches = read_launches()
+
+    losses = [float(x) for x in losses]
+    check(all(x == x and abs(x) != float("inf") for x in losses),
+          f"{label}: a step's loss is not finite")
+    check(only_launched(launches, kernel, 2 * n_steps),
+          f"{label}: expected {2 * n_steps} launches of {kernel} alone, "
+          f"got {launches}")
+    for name, t in named_leaves(params):
+        check(bool(torch.isfinite(t).all()), f"{label}: {name} not finite")
+        check(bool((t != start_leaves[name]).any()),
+              f"{label}: {name} did not move")
+    ms = start.elapsed_time(end) / n_steps
+    samples = rays.shape[0] * TRAIN_SPP
+    stats = {"ms_per_step": ms, "host_ms_per_step": wall_ms,
+             "camera_samples_per_step": samples,
+             "camera_samples_per_s": samples / (ms / 1e3), "steps": n_steps,
+             "launches": launches, "first_loss": float(loss0),
+             "losses": losses, "largest_trace_rays": captured["n"],
+             "peak_memory_mb": torch.cuda.max_memory_allocated() / 2 ** 20}
+    return stats, captured
+
+
+def stage_losses(tracer, em, ngp, crf, dev, seed, n_steps=3):
+    """Three optimizer steps of each stage loss on a 4,096-pixel demo
+    batch; the brdf_crf batch gets diffuse (B, 3) and specular0/1
+    (B, 6, 3) shadings drawn from the seed. Checks: losses finite, and the
+    leaves a stage freezes take no gradient. Returns per-stage stats."""
+    import numpy as np
+    import torch
+
+    from iris_tpu_torch.demo import make_demo_batch
+    from iris_tpu_torch.train.loop import make_train_step, value_and_grad
+    from iris_tpu_torch.train.optim import make_optimizer, named_leaves
+    from iris_tpu_torch.train.steps import (
+        LossConfig, make_brdf_crf_loss, make_initialize_loss,
+        make_train_emitter_loss)
+
+    batch = make_demo_batch(n_side=STAGE_BATCH_SIDE, device=dev)
+    b = batch["rays"].shape[0]
+    rng = np.random.default_rng(seed + 5)
+    for name, shape in (("diffuse", (b, 3)), ("specular0", (b, 6, 3)),
+                        ("specular1", (b, 6, 3))):
+        batch[name] = torch.from_numpy(
+            rng.uniform(0, 1, shape).astype(np.float32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 6)
+    mat = train_config(ngp)
+
+    def run(label, loss_fn, params):
+        opt = make_optimizer(learning_rate=1e-3)
+        state = opt.init(params)
+        step = make_train_step(loss_fn, opt)
+        step(params, state, batch, gen)                   # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(n_steps):
+            _, _, loss, _ = step(params, state, batch, gen)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        losses = [float(x) for x in losses]
+        check(all(np.isfinite(losses)), f"{label}: loss not finite")
+        for name, t in named_leaves(params):
+            check(bool(torch.isfinite(t).all()), f"{label}: {name}")
+        return {"ms_per_step": ms, "losses": losses, "pixels": b}
+
+    out = {}
+    # initialize: the render's gradient must not reach the material
+    cfg = LossConfig()
+    loss_fn = make_initialize_loss(tracer, em, crf, cfg)
+    params = {"material": train_config(ngp), "radiance": em.radiance.clone()}
+    leaves = named_leaves(params)
+    for _, t in leaves:
+        t.requires_grad_(True)
+    _, aux = loss_fn(params, batch, gen)
+    render_grads = torch.autograd.grad(aux["loss_c"], [t for _, t in leaves],
+                                       allow_unused=True)
+    for (name, t), g in zip(leaves, render_grads):
+        t.requires_grad_(False)
+        frozen = name.startswith("material")
+        check((g is None or not bool(g.any())) if frozen
+              else (g is not None and bool(g.any())),
+              f"initialize: render gradient of {name}")
+    del render_grads, aux
+    out["initialize"] = run("initialize", loss_fn, params)
+
+    # train_emitter: the radiance is the only leaf; the material is frozen
+    loss_fn = make_train_emitter_loss(tracer, em, mat, crf, cfg)
+    params = {"radiance": em.radiance.clone()}
+    _, _, grads = value_and_grad(loss_fn, params, batch, gen)
+    check(set(grads) == {"radiance"} and bool(grads["radiance"].any()),
+          "train_emitter: gradient leaves")
+    check(not mat.table.requires_grad and mat.table.grad is None,
+          "train_emitter: the frozen material took a gradient")
+    out["train_emitter"] = run("train_emitter", loss_fn, params)
+
+    for has_part in (True, False):
+        label = f"brdf_crf(has_part={has_part})"
+        loss_fn = make_brdf_crf_loss(
+            tracer, crf, LossConfig(has_part=has_part, la=0.1), -0.1, 2.1)
+        params = {"material": train_config(ngp),
+                  "crf_weight": crf.weight.clone()}
+        _, _, grads = value_and_grad(loss_fn, params, batch, gen)
+        for name in ("material.table", "material.mlp.w.0", "crf_weight"):
+            check(name in grads and bool(torch.isfinite(grads[name]).all())
+                  and bool(grads[name].any()), f"{label}: gradient {name}")
+        del grads
+        out[label] = run(label, loss_fn, params)
+    return out
+
+
+def train_reference_check(tracer, em, ngp, crf, dev, seed):
+    """One small train step's loss and gradients (64 rays, spp 2, float32
+    compact scatter) on the card and on the CPU under the same draws. Bar:
+    loss within rtol 2e-3, every gradient leaf's cosine >= 0.999 (the bf16
+    MLP sums round alike only on average, see small_reference_check)."""
+    import numpy as np
+    import torch
+
+    from iris_tpu_torch.train.loop import value_and_grad
+
+    rays = frame_rays(dev)[::127][:64]
+    b, spp = rays.shape[0], 2
+    n = b * spp
+    rng = np.random.default_rng(seed + 3)
+
+    def u(*shape):
+        return torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32))
+
+    n_levels = ngp.cfg.n_levels
+    samples = {
+        "render": {"dudv": u(2, b, spp, 1) - 0.5, "s1": u(n), "s2": u(n, 2),
+                   "s1b": u(n), "s2b": u(n, 2)},
+        "mat": {"u3": u(3, n * n_levels), "phase": int(rng.integers(
+            0, n_levels))}}
+    out = []
+    for d in (dev, torch.device("cpu")):
+        tr, e, g, c = (move(x, d) for x in (tracer, em, ngp, crf))
+        tr.paired = None
+        loss_fn = make_bench_loss(tr, e, c, rays.to(d), spp)
+        loss, _, grads = value_and_grad(
+            loss_fn, bench_params(e, g, c, scatter="float32"), {}, None,
+            move(samples, d))
+        out.append((float(loss), {k: v.double().cpu() for k, v in
+                                  grads.items()}))
+    (l_card, g_card), (l_cpu, g_cpu) = out
+    check(abs(l_card - l_cpu) <= 2e-3 * abs(l_cpu),
+          f"card vs CPU train loss: {l_card} vs {l_cpu}")
+    check(set(g_card) == set(g_cpu), "card vs CPU gradient leaves differ")
+    worst = 1.0
+    for name, a in g_card.items():
+        c = g_cpu[name]
+        cos = float((a * c).sum() / (a.norm() * c.norm()).clamp(min=1e-300))
+        check(cos >= 0.999, f"card vs CPU gradient {name}: cosine {cos}")
+        worst = min(worst, cos)
+    return l_card, l_cpu, worst, len(g_card)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--rounds", type=int, default=4,
+    ap.add_argument("--rounds", type=int, default=2,
                     help="timed flagship rounds (SPP=512 would be 64)")
     args = ap.parse_args(argv)
 
@@ -317,6 +669,8 @@ def main(argv=None) -> int:
     import iris_tpu_torch
     from iris_tpu_torch.demo import demo_mat_fn, make_demo_scene
     from iris_tpu_torch.geometry import cuda_intersect as ci
+    from iris_tpu_torch.geometry.bvh import build_bvh
+    from iris_tpu_torch.geometry.intersect import kernel_for
     from iris_tpu_torch.geometry.procedural import camera_rays, random_rays
 
     dev = torch.device(DEVICE)
@@ -336,24 +690,42 @@ def main(argv=None) -> int:
         print(f"  ptxas: {ln}")
 
     # scenes at production width
-    def scene(n_clutter):
+    def scene(n_clutter, leaf_size=4):
         t0 = time.perf_counter()
         tracer, em, ngp, crf, mesh = make_demo_scene(
             n_clutter=n_clutter, slf_res=64, hash_levels=4, log2_table=19,
             hash_features=16, per_level_scale=-1.0, seed=args.seed,
-            device=dev)
+            leaf_size=leaf_size, device=dev)
         seed_slf(em, args.seed, dev)
-        print(f"scene n_clutter={n_clutter}: {mesh.n_faces} faces, "
-              f"{tracer.n_nodes} nodes, depth {tracer.depth}, "
-              f"layout {tracer.layout}, built in "
+        print(f"scene n_clutter={n_clutter} leaf_size={leaf_size}: "
+              f"{mesh.n_faces} faces, {tracer.n_nodes} nodes, depth "
+              f"{tracer.depth}, layout {tracer.layout}, kernel "
+              f"{kernel_for(tracer).__name__}, built in "
               f"{time.perf_counter() - t0:.1f} s")
+        check(mesh.n_faces == 12 * (n_clutter + 1) + 2, "scene face count")
         return tracer, em, ngp, crf, mesh
 
     flag = scene(FLAGSHIP_CLUTTER)
     big = scene(CLUTTER_102K)
-    for n_clutter, (_, _, _, _, mesh) in ((FLAGSHIP_CLUTTER, flag),
-                                          (CLUTTER_102K, big)):
-        check(mesh.n_faces == 12 * (n_clutter + 1) + 2, "scene face count")
+    wide = scene(CLUTTER_6K, WIDE_LEAF)
+    # the same 6,014 faces with 4-triangle leaves: inside the paired gate
+    mid_tracer = build_bvh(wide[4].triangles(), leaf_size=4, device=dev)
+    check(kernel_for(flag[0]) is ci.trace_union, "flagship dispatch")
+    check(kernel_for(big[0]) is ci.trace_paired_streamed, "102K dispatch")
+    check(kernel_for(wide[0]) is ci.trace_ordered, "wide-leaf dispatch")
+    check(kernel_for(mid_tracer) is ci.trace_paired, "6K dispatch")
+    # the wide-leaf tree is where the JAX package runs its ordered kernel:
+    # leaf row past the paired layout, (N, 8)/(P, 12) rows (each padded to
+    # 128 lanes there) inside the 10 MB resident gate
+    resident = (-(-wide[0].nodes.shape[0] // 8) * 8
+                + -(-wide[0].tris.shape[0] // 8) * 8) * 128 * 4
+    check(wide[0].leaf_size * 12 > 128 and resident <= 10 << 20,
+          f"wide-leaf tree: leaf row {wide[0].leaf_size * 12} floats, "
+          f"resident layout {resident} B")
+    print(f"paired layout bytes: 102K tree {ci.paired_layout_bytes(big[0])}"
+          f", 6K tree {ci.paired_layout_bytes(mid_tracer)} (split at "
+          f"{ci.PAIRED_RESIDENT_BYTES}); wide-leaf tree's (N,8)/(P,12) "
+          f"rows padded to 128 lanes: {resident} B")
     table_mb = flag[2].table.numel() * 4 / 2 ** 20
     print(f"model: hash grid {flag[2].cfg.n_levels}L x "
           f"{flag[2].cfg.n_features}F x 2^{flag[2].cfg.log2_table_size} "
@@ -366,16 +738,25 @@ def main(argv=None) -> int:
     n_check = CHECK_RAYS_SIDE ** 2
     o_rnd, d_rnd = random_rays(n_check, seed=args.seed + 1)
     ray_sets = {"camera": (o_cam, d_cam), "random": (o_rnd, d_rnd)}
-    kernel_specs = [
-        ("trace_union", ci.trace_union, ci.trace_union_plain, flag[0],
-         "pallas_ray_trace (iris_tpu/geometry/pallas_intersect.py:240, "
-         "_kernel :176)"),
-        ("trace_paired", ci.trace_paired, ci.trace_paired_plain, big[0],
-         "pallas_ray_trace_paired (iris_tpu/geometry/pallas_intersect.py"
-         ":782, _kernel_paired :675)"),
-    ]
+    src = "iris_tpu/geometry/pallas_intersect.py"
+    kernel_specs = {
+        "trace_union": (
+            ci.trace_union, ci.trace_union_plain, flag[0], False,
+            f"pallas_ray_trace ({src}:240, _kernel :176)"),
+        "trace_paired": (
+            ci.trace_paired, ci.trace_paired_plain, big[0], True,
+            f"pallas_ray_trace_paired ({src}:782, _kernel_paired :675)"),
+        "trace_paired_streamed": (
+            ci.trace_paired_streamed, ci.trace_paired_streamed_plain,
+            big[0], True,
+            f"pallas_ray_trace_paired_streamed ({src}:989, "
+            "_kernel_paired_streamed :833)"),
+        "trace_ordered": (
+            ci.trace_ordered, ci.trace_ordered_plain, wide[0], False,
+            f"pallas_ray_trace_ordered ({src}:579, _kernel_ordered :436)"),
+    }
     max_err = {}
-    for name, kernel, plain, tracer, _ in kernel_specs:
+    for name, (kernel, plain, tracer, _, _) in kernel_specs.items():
         for label, (o, d) in ray_sets.items():
             o_t = torch.from_numpy(np.ascontiguousarray(o)).to(dev)
             d_t = torch.from_numpy(np.ascontiguousarray(d)).to(dev)
@@ -387,42 +768,107 @@ def main(argv=None) -> int:
                   f"{int((got[3] >= 0).sum())}, bit-equal {same}/{n_check},"
                   f" max |t| error {err:.3e}")
 
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def add_launches(stats):
+        for k, v in stats["launches"].items():
+            launches[k] += v
+
+    def report_render(label, stats, note=""):
+        print(f"{label}: {stats['rounds']} round(s){note} of "
+              f"{stats['camera_samples_per_round']} camera samples, depth "
+              f"{stats['depth']}: {stats['ms_per_round']:.2f} ms/round, "
+              f"{stats['rays_per_s']:.0f} rays/s; launches "
+              f"{stats['launches']}; mean HDR "
+              f"{[round(x, 4) for x in stats['hdr_mean']]}, mean LDR "
+              f"{[round(x, 4) for x in stats['ldr_mean']]}")
+
     # 4. the flagship frame
-    flag_stats, flag_in = render_scene(
-        "flagship", flag[0], flag[1], demo_mat_fn(flag[2]), flag[3],
-        frame_rays(dev), args.rounds, args.seed)
-    check(flag_stats["launches"]["trace_union"] > 0,
-          "flagship render launched no trace_union")
-    print(f"flagship: {args.rounds} rounds (cut from SPP=512's 64) of "
-          f"{flag_stats['camera_samples_per_round']} camera samples: "
-          f"{flag_stats['ms_per_round']:.2f} ms/round, "
-          f"{flag_stats['rays_per_s']:.0f} rays/s; launches "
-          f"{flag_stats['launches']}; mean HDR "
-          f"{[round(x, 4) for x in flag_stats['hdr_mean']]}, mean LDR "
-          f"{[round(x, 4) for x in flag_stats['ldr_mean']]}")
+    rays = frame_rays(dev)
+    flag_stats, _ = render_scene(
+        "flagship", flag[0], flag[1], demo_mat_fn(flag[2]), flag[3], rays,
+        args.rounds, args.seed)
+    check(only_launched(flag_stats["launches"], "trace_union"),
+          "flagship render: launches of trace_union alone expected")
+    add_launches(flag_stats)
+    report_render("flagship", flag_stats, " (cut from SPP=512's 64)")
     frac, worst = small_reference_check(flag[0], flag[1], flag[2], dev,
                                         args.seed)
     print(f"flagship card vs CPU (64 px, spp 2): {frac:.4f} of radiance "
           f"values within rtol 2e-3/atol 1e-4, max |diff| {worst:.3e}")
 
-    # 5. one round of the 102K-face scene
-    big_stats, big_in = render_scene(
-        "clutter102k", big[0], big[1], demo_mat_fn(big[2]), big[3],
-        frame_rays(dev), 1, args.seed)
-    check(big_stats["launches"]["trace_paired"] > 0,
-          "102K render launched no trace_paired")
-    print(f"clutter102k: 1 round of {big_stats['camera_samples_per_round']}"
-          f" camera samples: {big_stats['ms_per_round']:.2f} ms/round, "
-          f"{big_stats['rays_per_s']:.0f} rays/s; launches "
-          f"{big_stats['launches']}; tree depth {big[0].depth}, stack "
+    # 5. one round of the 102K-face scene and of the two 6K-face trees
+    big_stats, _ = render_scene(
+        "clutter102k", big[0], big[1], demo_mat_fn(big[2]), big[3], rays, 1,
+        args.seed)
+    check(only_launched(big_stats["launches"], "trace_paired_streamed"),
+          "102K render: launches of trace_paired_streamed alone expected")
+    add_launches(big_stats)
+    report_render("clutter102k", big_stats)
+    print(f"clutter102k tree depth {big[0].depth}, stack "
           f"{ci.auto_stack_depth(big[0])}")
+    wide_stats, wide_in = render_scene(
+        "clutter6k_leaf16", wide[0], wide[1], demo_mat_fn(wide[2]), wide[3],
+        rays, 1, args.seed, depth=2)
+    check(only_launched(wide_stats["launches"], "trace_ordered"),
+          "6K wide-leaf render: launches of trace_ordered alone expected")
+    add_launches(wide_stats)
+    report_render("clutter6k_leaf16", wide_stats)
+    mid_stats, mid_in = render_scene(
+        "clutter6k_leaf4", mid_tracer, wide[1], demo_mat_fn(wide[2]),
+        wide[3], rays, 1, args.seed, depth=2)
+    check(only_launched(mid_stats["launches"], "trace_paired"),
+          "6K render: launches of trace_paired alone expected")
+    add_launches(mid_stats)
+    report_render("clutter6k_leaf4", mid_stats)
 
-    # 6. each kernel on the inputs the render gave it
+    # 6. training at full width
+    def report_train(label, st):
+        print(f"train {label}: {st['steps']} steps of "
+              f"{st['camera_samples_per_step']} camera samples "
+              f"(fwd+bwd+Adam): {st['ms_per_step']:.2f} ms/step "
+              f"({st['host_ms_per_step']:.2f} ms on the host clock), "
+              f"{st['camera_samples_per_s']:.0f} camera samples/s; largest "
+              f"trace {st['largest_trace_rays']} rays; launches "
+              f"{st['launches']}; losses {st['first_loss']:.6f} -> "
+              f"{[round(x, 6) for x in st['losses']]}; peak memory "
+              f"{st['peak_memory_mb']:.0f} MB")
+
+    flag_train, flag_in = train_scene(
+        "flagship train", "trace_union", flag[0], flag[1], flag[2], flag[3],
+        rays, 5, args.seed)
+    add_launches(flag_train)
+    report_train("flagship", flag_train)
+    big_train, big_in = train_scene(
+        "clutter102k train", "trace_paired_streamed", big[0], big[1],
+        big[2], big[3], rays, 3, args.seed)
+    add_launches(big_train)
+    report_train("clutter102k", big_train)
+
+    # 7. the stage losses
+    stages = stage_losses(flag[0], flag[1], flag[2], flag[3], dev, args.seed)
+    for label, st in stages.items():
+        print(f"stage {label}: 3 steps of {st['pixels']} pixels: "
+              f"{st['ms_per_step']:.2f} ms/step (host clock), losses "
+              f"{[round(x, 6) for x in st['losses']]}")
+
+    # 8. a small train step on the card and on the CPU
+    l_card, l_cpu, cos, n_leaves = train_reference_check(
+        flag[0], flag[1], flag[2], flag[3], dev, args.seed)
+    print(f"train step card vs CPU (64 rays, spp 2): loss {l_card:.6f} vs "
+          f"{l_cpu:.6f}; {n_leaves} gradient leaves, least cosine "
+          f"{cos:.6f}")
+
+    # 9. each kernel on the largest input a main path gave it
     flush = torch.empty(64 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
+    inputs = {"trace_union": flag_in, "trace_paired": mid_in,
+              "trace_paired_streamed": big_in, "trace_ordered": wide_in}
+    trees = {"trace_paired": mid_tracer}
     rows = []
-    for (name, kernel, plain, tracer, replaces), captured, stats in zip(
-            kernel_specs, (flag_in, big_in), (flag_stats, big_stats)):
-        o, d = captured["o"], captured["d"]
+    for name, (kernel, plain, tracer, paired, replaces) in \
+            kernel_specs.items():
+        tracer = trees.get(name, tracer)
+        o, d = inputs[name]["o"], inputs[name]["d"]
         got = kernel(tracer, o, d)
         torch.cuda.synchronize()
         counts = {}
@@ -430,27 +876,60 @@ def main(argv=None) -> int:
         max_err[name] = max(max_err[name], err)
         ms = time_ms(lambda: kernel(tracer, o, d), 20, flush)
         plain_ms = time_ms(lambda: plain(tracer, o, d), 3, flush)
-        bound_ms, bound_by, nbytes, ops = roofline(
-            tracer, counts, o.shape[0], name == "trace_paired")
-        print(f"{name} on the render's {o.shape[0]}-ray trace: {ms:.4f} ms "
-              f"(plain {plain_ms:.2f} ms, bound {bound_ms:.5f} ms by "
-              f"{bound_by}: {nbytes} B, {ops} FP32 ops from "
-              f"{counts['slab']} slab + {counts['mt']} triangle tests); "
-              f"bit-equal {same}/{o.shape[0]}")
+        need, extra = counts, ""
+        if name == "trace_paired_streamed":
+            # the bound takes the per-ray walk's counts where they are the
+            # smaller; the packet's own work is printed beside it
+            per_ray = {}
+            ci.trace_paired_plain(tracer, o, d, counts=per_ray)
+            need = min(per_ray, counts, key=test_flops)
+            extra = ("; the packet walk itself did "
+                     + ", ".join(f"{k} {v}" for k, v in counts.items())
+                     + f" = {test_flops(counts)} FP32 ops")
+        bound_ms, bound_by, nbytes, ops = roofline(tracer, need, o.shape[0],
+                                                   paired)
+        print(f"{name} on its path's {o.shape[0]}-ray trace "
+              f"({tracer.n_faces} faces): {ms:.4f} ms (plain "
+              f"{plain_ms:.2f} ms, bound {bound_ms:.5f} ms by {bound_by}: "
+              f"{nbytes} B, {ops} FP32 ops from {need['slab']} slab + "
+              f"{need['mt']} triangle tests{extra}); bit-equal "
+              f"{same}/{o.shape[0]}")
         rows.append({
             "name": name, "route": "cuda",
             "source": "iris_tpu_torch/csrc/traverse.cu",
-            "replaces": replaces,
-            "launches": stats["launches"][name],
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
+    # the two paired kernels on the same 102K-face inputs, in turns
+    o, d = big_in["o"], big_in["d"]
+    err, same = compare_hits(ci.trace_paired(big[0], o, d),
+                             ci.trace_paired_streamed(big[0], o, d))
+    turns = []
+    for kernel in (ci.trace_paired, ci.trace_paired_streamed,
+                   ci.trace_paired_streamed, ci.trace_paired):
+        turns.append((kernel.__name__,
+                      time_ms(lambda: kernel(big[0], o, d), 20, flush)))
+    print(f"102K tree, {o.shape[0]} rays, in turns: "
+          + ", ".join(f"{n} {t:.4f} ms" for n, t in turns)
+          + f"; hits bit-equal on {same}/{o.shape[0]} rays, max |t| "
+          f"difference {err:.3e}")
+    # trace_paired's time on the streamed kernel's input, beside its row
+    next(r for r in rows if r["name"] == "trace_paired_streamed")[
+        "trace_paired_ms_same_input"] = statistics.median(
+        t for n, t in turns if n == "trace_paired")
     print("run: " + json.dumps({
         "flagship": flag_stats, "clutter102k": big_stats,
+        "clutter6k_leaf16": wide_stats, "clutter6k_leaf4": mid_stats,
+        "train_flagship": flag_train, "train_clutter102k": big_train,
+        "stages": stages, "paired_on_102k_ms": turns,
         "build_s": build_s, "total_s": time.perf_counter() - t_run}))
+    for row in rows:
+        check(row["launches"] > 0, f"{row['name']} was never launched on a "
+              "main path")
     print(json.dumps({"kernels": rows}))
 
-    # 7. verdict
+    # 10. verdict
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

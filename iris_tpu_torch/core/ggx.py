@@ -1,6 +1,7 @@
 """GGX microfacet BRDF math (counterpart of iris_tpu/core/ggx.py; formula
 parity with reference utils/ops.py G1_GGX_Schlick :46, G_Smith :56,
-fresnelSchlick :64, fresnelSchlick_sep :69, D_GGX :74)."""
+fresnelSchlick :64, fresnelSchlick_sep :69, D_GGX :74, lerp_specular
+:99)."""
 
 from __future__ import annotations
 
@@ -44,3 +45,23 @@ def d_ggx(noh: torch.Tensor, roughness: torch.Tensor) -> torch.Tensor:
     alpha2 = alpha * alpha
     denom = noh * noh * (alpha2 - 1.0) + 1.0
     return alpha2 / (PI * denom * denom)
+
+
+def lerp_specular(specular: torch.Tensor, roughness: torch.Tensor
+                  ) -> torch.Tensor:
+    """Interpolate (..., R, 3) cached specular shadings at roughness
+    (..., 1), remapped from [0.02, 1.0] to the R cached levels (reference
+    utils/ops.py:99-119)."""
+    r_min, r_max = 0.02, 1.0
+    r_num = specular.shape[-2]
+    r = (roughness - r_min) / (r_max - r_min) * (r_num - 1)
+    r = torch.clamp(r, 0.0, float(r_num - 1))
+    r0 = torch.floor(r).to(torch.int64)
+    r1 = torch.ceil(r).to(torch.int64)
+    frac = r - r0.to(r.dtype)
+    pick = (specular.shape[-1],)
+    s0 = torch.gather(specular, -2, r0[..., None].expand(
+        *r0.shape[:-1], 1, *pick))[..., 0, :]
+    s1 = torch.gather(specular, -2, r1[..., None].expand(
+        *r1.shape[:-1], 1, *pick))[..., 0, :]
+    return s0 * (1.0 - frac) + s1 * frac

@@ -6,12 +6,15 @@
 // and called through ctypes. Every entry point launches on the caller's
 // stream, allocates nothing, and returns cudaGetLastError().
 //
-// Both kernels compute what the Pallas kernels of
-// iris_tpu/geometry/pallas_intersect.py compute: per ray, the closest hit
+// Every kernel computes what its Pallas kernel of
+// iris_tpu/geometry/pallas_intersect.py computes: per ray, the closest hit
 // (t, u, v, face_id) with face_id = -1 for a miss. The TPU walks one
 // traversal cursor per tile of rays (the union of the tile's paths, every
-// lane a vector op); here one thread walks one ray, which is the natural
-// unit on an SM and visits a subset of the tile's nodes with the same hits.
+// lane a vector op). trace_union, trace_paired and trace_ordered walk one
+// ray per thread, which is the natural unit on an SM and visits a subset of
+// the tile's nodes with the same hits; trace_paired_streamed keeps the
+// TPU's shared cursor, one per warp of 32 rays, and stages the rows it
+// reads through shared-memory windows.
 //
 // --fmad=false: no multiply-add contraction, so t/u/v round exactly as the
 // plain PyTorch versions (and the JAX package) round them; the kernels are
@@ -22,9 +25,10 @@
 // from a tree small enough to stay in the 50 MB L2, then spends ~24 FP32
 // operations per slab test and ~55 per Moller-Trumbore test. Both counts
 // depend on the data (how deep each ray walks). The walks are latency
-// bound (a dependent load per step) and divergent (neighbouring rays walk
-// different paths); the designs below shorten the dependent chain (shared
-// memory, float4 rows) and leave warp coherence to the caller's ray order.
+// bound (a dependent load per step) and, one ray per thread, divergent
+// (neighbouring rays walk different paths); the designs below shorten the
+// dependent chain (shared memory, float4 rows, one coalesced window load
+// per warp) and leave warp coherence to the caller's ray order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,14 +38,28 @@ namespace {
 constexpr float kTMiss = 3e37f;   // pallas_intersect.py:30
 constexpr float kMtEps = 1e-9f;   // pallas_intersect.py:31
 constexpr int kThreads = 256;
-// Per-thread stack of the paired walk. The host refuses trees whose
-// stack need (_auto_stack_depth) exceeds it instead of truncating.
+// Stack entries of the near-first walks (per thread, or per warp in the
+// packet walk). The host refuses trees whose stack need
+// (_auto_stack_depth) exceeds it instead of truncating.
 constexpr int kStackCap = 128;
 // The union kernel stages the whole tree in shared memory up to this size
 // (the default dynamic shared-memory limit; no opt-in attribute needed).
 constexpr int kStageBytes = 48 * 1024;
 // float4s per 128-float row of the paired layout (pallas_intersect.py:621)
 constexpr int kRow4 = 32;
+// float4s of the 16 useful floats of a pair row (the compact (R, 16) view)
+constexpr int kPair4 = 4;
+// Warps (ray packets) per block of the packet walk: each owns a stack and
+// two windows in shared memory, so fewer warps leave room for wider leaves.
+constexpr int kPacketWarps = 4;
+// Rows per shared-memory window of the packet walk: 32 compact pair rows
+// (2 KB) and 8 whole leaf rows (1.5 KB at leaf_size 4). The only sizes
+// measured so far; cuda_intersect.py's PAIR_WIN/LEAF_WIN count reloads of
+// the same windows.
+constexpr int kPairWin = 32;
+constexpr int kLeafWin = 8;
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kSharedLimit = 48 * 1024;
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz;
@@ -291,6 +309,234 @@ __global__ void __launch_bounds__(kThreads)
   store_hit(h, i, t_out, u_out, v_out, f_out);
 }
 
+// trace_ordered — replaces pallas_ray_trace_ordered / _kernel_ordered
+// (pallas_intersect.py:436, 579). Near-child-first walk with pop-time
+// pruning over the unpaired nodes (N, 8) and tris (P, 12) of a preorder
+// tree: pop a node and slab-test it against the CURRENT t_best; a hit leaf
+// tests its leaf_size triangle rows; a hit internal node slab-tests both
+// children (left = desc, right = the left child's skip pointer, the
+// preorder invariant of :498-502) and pushes the far one, then the near
+// one. Any leaf_size, so it takes the trees whose leaf row is too wide for
+// the paired layout. Near/far is this ray's own entry distance, where the
+// TPU used the tile's mean (:507-513), so equal-t ties may pick another
+// face.
+// Design: one ray per thread, as trace_paired; the tree stays in global
+// memory and each row is read as float4s (2 per node, 3 per triangle)
+// through the read-only cache; a visited internal node costs three
+// dependent node reads (itself, left child, right child), which is what
+// the paired layout folds into one. The per-thread stack lives in local
+// memory; its depth is checked on the host.
+__global__ void __launch_bounds__(kThreads)
+    trace_ordered_kernel(const float4* __restrict__ nodes, int n_nodes,
+                         const float4* __restrict__ tris, int n_tri_rows,
+                         int leaf_size, int stack_depth,
+                         const float* __restrict__ orig,
+                         const float* __restrict__ dirs, int n_rays,
+                         float* __restrict__ t_out, float* __restrict__ u_out,
+                         float* __restrict__ v_out, int* __restrict__ f_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_rays) return;
+  const Ray r = load_ray(orig, dirs, i);
+  Hit h{kTMiss, 0.0f, 0.0f, -1};
+  int stack[kStackCap];
+  stack[0] = 0;  // the root node, 0-based
+  int sp = 1;
+  // each node is pushed at most once per walk; the cap only keeps a
+  // corrupt tree from hanging the card
+  const int max_steps = 2 * n_nodes + 2;
+  for (int step = 0; sp > 0 && step < max_steps; ++step) {
+    const int node = stack[--sp];
+    const float4 a = __ldg(nodes + 2 * node);
+    const float4 b = __ldg(nodes + 2 * node + 1);
+    float tlo;
+    if (!slab(r, a.x, a.y, a.z, a.w, b.x, b.y, h.t, &tlo)) continue;
+    const float desc = b.w;
+    if (desc <= 0.0f) {
+      const int base = static_cast<int>(-desc);
+      for (int k = 0; k < leaf_size; ++k) {
+        const int row = min(max(base + k, 0), n_tri_rows - 1);
+        const float4* tr = tris + 3 * row;
+        mt_fold(r, __ldg(tr), __ldg(tr + 1), __ldg(tr + 2), h);
+      }
+      continue;
+    }
+    const int child_l = min(max(static_cast<int>(desc) - 1, 0), n_nodes - 1);
+    const float4 la = __ldg(nodes + 2 * child_l);
+    const float4 lb = __ldg(nodes + 2 * child_l + 1);
+    const int child_r = min(max(static_cast<int>(lb.z) - 1, 0), n_nodes - 1);
+    const float4 ra = __ldg(nodes + 2 * child_r);
+    const float4 rb = __ldg(nodes + 2 * child_r + 1);
+    float tlo_l, tlo_r;
+    const bool hit_l = slab(r, la.x, la.y, la.z, la.w, lb.x, lb.y, h.t, &tlo_l);
+    const bool hit_r = slab(r, ra.x, ra.y, ra.z, ra.w, rb.x, rb.y, h.t, &tlo_r);
+    const bool l_near = (hit_l && hit_r) ? (tlo_l <= tlo_r) : hit_l;
+    const int far_id = l_near ? child_r : child_l;
+    const int near_id = l_near ? child_l : child_r;
+    const bool push_far = hit_l && hit_r;
+    const bool push_near = hit_l || hit_r;
+    // same clamped pushes as the TPU kernel (:519-531)
+    if (push_far) stack[min(sp, stack_depth - 1)] = far_id;
+    const int sp3 = sp + (push_far ? 1 : 0);
+    if (push_near) stack[min(sp3, stack_depth - 1)] = near_id;
+    sp = min(sp3 + (push_near ? 1 : 0), stack_depth);
+  }
+  store_hit(h, i, t_out, u_out, v_out, f_out);
+}
+
+// Butterfly sum over the warp: every lane gets
+// ((a_i + a_i^16) + (a_i^8 + a_i^24)) + ..., the halving order the plain
+// PyTorch version repeats, so both round the mean alike.
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1) {
+    v += __shfl_xor_sync(kFullMask, v, off);
+  }
+  return v;
+}
+
+// One leaf of the packet walk: make sure the warp's leaf window holds row
+// lrow (one coalesced load of up to kLeafWin whole leaf rows when it does
+// not), then every lane whose ray entered the leaf's box folds the leaf's
+// triangles, read from shared memory.
+__device__ __forceinline__ void packet_leaf(
+    const Ray& r, bool hit, int lrow, const float4* __restrict__ leaves,
+    int n_leaf_rows, int leaf_size, int& lwin, float4* lbuf,
+    int lane, Hit& h) {
+  const int leaf4 = 3 * leaf_size;
+  lrow = min(max(lrow, 0), n_leaf_rows - 1);
+  const int tgt = lrow / kLeafWin;
+  if (tgt != lwin) {  // warp-uniform
+    __syncwarp();     // every lane is done with the old window
+    const int base = tgt * kLeafWin;
+    const int n4 = min(kLeafWin, n_leaf_rows - base) * leaf4;
+    const float4* src = leaves + static_cast<size_t>(base) * leaf4;
+    for (int k = lane; k < n4; k += 32) lbuf[k] = __ldg(src + k);
+    __syncwarp();
+    lwin = tgt;
+  }
+  if (hit) {
+    const float4* lf = lbuf + (lrow - tgt * kLeafWin) * leaf4;
+    for (int k = 0; k < leaf_size; ++k) {
+      mt_fold(r, lf[3 * k], lf[3 * k + 1], lf[3 * k + 2], h);
+    }
+  }
+}
+
+// trace_paired_streamed — replaces pallas_ray_trace_paired_streamed /
+// _kernel_paired_streamed (pallas_intersect.py:833, 989): the near-first
+// paired walk with ONE cursor and ONE stack for a packet of rays, and the
+// pair and leaf rows fetched through windows of consecutive rows that are
+// reloaded when the cursor leaves them. Pop a pair row; every lane
+// slab-tests both children against its own t_best and the packet votes
+// (any lane); leaf children are intersected at once (left, then right) by
+// the lanes that entered their box, so t_best shrinks before the pushes;
+// the far internal child is pushed, then the near one, ordered by the
+// MEAN entry distance of the lanes that hit each child (:937-947).
+// Design: the TPU tile of 8,192 lanes becomes one warp of 32 consecutive
+// rays (spatially sorted by the caller on big trees), votes are
+// __ballot_sync, means are warp_sum. The stack and both windows are per
+// warp in shared memory: a window load is one coalesced read of kPairWin
+// compact 64-byte pair rows (the (R, 16) view: the (R, 128) rows are 7/8
+// padding) or of kLeafWin whole leaf rows (leaf_size x 48 bytes, the
+// tris array itself), after which every row read of the walk is a
+// shared-memory broadcast. Windows are aligned (window = row / win) as on
+// the TPU; in a preorder tree the left child's pair row is the next row,
+// so descents reuse the window and a reload happens mostly at far pops.
+// A packet visits the union of its rays' paths, so it does more slab
+// tests than trace_paired and fewer, wider memory reads.
+__global__ void __launch_bounds__(kPacketWarps * 32)
+    trace_paired_streamed_kernel(
+        const float4* __restrict__ pairs16, int n_pairs,
+        const float4* __restrict__ leaves, int n_leaf_rows, int leaf_size,
+        int stack_depth, const float* __restrict__ orig, const float* __restrict__ dirs,
+        int n_rays, float* __restrict__ t_out, float* __restrict__ u_out,
+        float* __restrict__ v_out, int* __restrict__ f_out) {
+  extern __shared__ float4 packet_smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int first = blockIdx.x * blockDim.x + warp * 32;
+  if (first >= n_rays) return;  // the whole packet is past the end
+  const int per_warp4 =
+      kStackCap / 4 + kPairWin * kPair4 + kLeafWin * 3 * leaf_size;
+  float4* mine = packet_smem + warp * per_warp4;
+  int* stack = reinterpret_cast<int*>(mine);
+  float4* pbuf = mine + kStackCap / 4;
+  float4* lbuf = pbuf + kPairWin * kPair4;
+
+  const int i = first + lane;
+  const bool live = i < n_rays;  // lanes past the end never vote
+  const Ray r = load_ray(orig, dirs, live ? i : n_rays - 1);
+  Hit h{kTMiss, 0.0f, 0.0f, -1};
+  if (lane == 0) stack[0] = 0;  // the root's pair row
+  __syncwarp();
+  int sp = 1;
+  int pwin = -1;  // no window loaded
+  int lwin = -1;
+  const int max_steps = 2 * n_pairs + 2;
+  for (int step = 0; sp > 0 && step < max_steps; ++step) {
+    const int row_id = stack[--sp];  // the same for every lane
+    const int tgt = row_id / kPairWin;
+    if (tgt != pwin) {
+      __syncwarp();
+      const int base = tgt * kPairWin;
+      const int n4 = min(kPairWin, n_pairs - base) * kPair4;
+      const float4* src = pairs16 + static_cast<size_t>(base) * kPair4;
+      for (int k = lane; k < n4; k += 32) pbuf[k] = __ldg(src + k);
+      __syncwarp();
+      pwin = tgt;
+    }
+    const float4* row = pbuf + (row_id - tgt * kPairWin) * kPair4;
+    const float4 a = row[0];
+    const float4 b = row[1];
+    const float4 c = row[2];
+    const float4 d = row[3];
+    float tlo_l, tlo_r;
+    const bool hit_l =
+        slab(r, a.x, a.y, a.z, a.w, b.x, b.y, h.t, &tlo_l) && live;
+    const bool hit_r =
+        slab(r, c.x, c.y, c.z, c.w, d.x, d.y, h.t, &tlo_r) && live;
+    const unsigned m_l = __ballot_sync(kFullMask, hit_l);
+    const unsigned m_r = __ballot_sync(kFullMask, hit_r);
+    const float dl = b.z;
+    const float dr = d.z;
+    const bool l_leaf = dl <= 0.0f;
+    const bool r_leaf = dr <= 0.0f;
+    if (m_l != 0u && l_leaf) {
+      packet_leaf(r, hit_l, static_cast<int>(-dl), leaves, n_leaf_rows,
+                  leaf_size, lwin, lbuf, lane, h);
+    }
+    if (m_r != 0u && r_leaf) {
+      packet_leaf(r, hit_r, static_cast<int>(-dr), leaves, n_leaf_rows,
+                  leaf_size, lwin, lbuf, lane, h);
+    }
+    const bool want_l = m_l != 0u && !l_leaf;
+    const bool want_r = m_r != 0u && !r_leaf;
+    const int pid_l = min(max(static_cast<int>(dl) - 1, 0), n_pairs - 1);
+    const int pid_r = min(max(static_cast<int>(dr) - 1, 0), n_pairs - 1);
+    bool l_near = want_l;
+    if (want_l && want_r) {
+      const float mean_l = warp_sum(hit_l ? tlo_l : 0.0f) /
+                           fmaxf(static_cast<float>(__popc(m_l)), 1.0f);
+      const float mean_r = warp_sum(hit_r ? tlo_r : 0.0f) /
+                           fmaxf(static_cast<float>(__popc(m_r)), 1.0f);
+      l_near = mean_l <= mean_r;
+    }
+    const int far_id = l_near ? pid_r : pid_l;
+    const int near_id = l_near ? pid_l : pid_r;
+    const bool push_far = want_l && want_r;
+    const bool push_near = want_l || want_r;
+    const int sp3 = sp + (push_far ? 1 : 0);
+    __syncwarp();  // every lane has read its pop before the pushes land
+    if (lane == 0) {
+      // same clamped pushes as the TPU kernel (:949-961)
+      if (push_far) stack[min(sp, stack_depth - 1)] = far_id;
+      if (push_near) stack[min(sp3, stack_depth - 1)] = near_id;
+    }
+    __syncwarp();
+    sp = min(sp3 + (push_near ? 1 : 0), stack_depth);
+  }
+  if (live) store_hit(h, i, t_out, u_out, v_out, f_out);
+}
+
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 }  // namespace
@@ -337,6 +583,52 @@ int iris_trace_paired(const void* pairs, int n_pairs, const void* leaves,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   trace_paired_kernel<<<blocks_for(n_rays), kThreads, 0, s>>>(
       static_cast<const float4*>(pairs), n_pairs,
+      static_cast<const float4*>(leaves), n_leaf_rows, leaf_size, stack_depth,
+      static_cast<const float*>(orig), static_cast<const float*>(dirs), n_rays,
+      static_cast<float*>(t_out), static_cast<float*>(u_out),
+      static_cast<float*>(v_out), static_cast<int*>(f_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int iris_trace_ordered(const void* nodes, int n_nodes, const void* tris,
+                       int n_tri_rows, int leaf_size, int stack_depth,
+                       const void* orig, const void* dirs, int n_rays,
+                       void* t_out, void* u_out, void* v_out, void* f_out,
+                       void* stream) {
+  if (n_rays <= 0) return 0;
+  if (stack_depth < 1 || stack_depth > kStackCap || n_nodes < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  trace_ordered_kernel<<<blocks_for(n_rays), kThreads, 0, s>>>(
+      static_cast<const float4*>(nodes), n_nodes,
+      static_cast<const float4*>(tris), n_tri_rows, leaf_size, stack_depth,
+      static_cast<const float*>(orig), static_cast<const float*>(dirs), n_rays,
+      static_cast<float*>(t_out), static_cast<float*>(u_out),
+      static_cast<float*>(v_out), static_cast<int*>(f_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int iris_trace_paired_streamed(const void* pairs16, int n_pairs,
+                               const void* leaves, int n_leaf_rows,
+                               int leaf_size, int stack_depth,
+                               const void* orig, const void* dirs, int n_rays,
+                               void* t_out, void* u_out, void* v_out,
+                               void* f_out, void* stream) {
+  if (n_rays <= 0) return 0;
+  // every warp's stack and two windows; refused past the default 48 KB
+  const long long shared =
+      16LL * kPacketWarps *
+      (kStackCap / 4 + kPairWin * kPair4 + 3LL * kLeafWin * leaf_size);
+  if (stack_depth < 1 || stack_depth > kStackCap || n_pairs < 1 ||
+      n_leaf_rows < 1 || leaf_size < 1 || shared > kSharedLimit) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int threads = kPacketWarps * 32;
+  const int blocks = (n_rays + threads - 1) / threads;
+  trace_paired_streamed_kernel<<<blocks, threads, shared, s>>>(
+      static_cast<const float4*>(pairs16), n_pairs,
       static_cast<const float4*>(leaves), n_leaf_rows, leaf_size, stack_depth,
       static_cast<const float*>(orig), static_cast<const float*>(dirs), n_rays,
       static_cast<float*>(t_out), static_cast<float*>(u_out),

@@ -45,6 +45,10 @@ class Tracer:
     depth: int = 0
     # paired-layout re-pack (cuda_intersect.pack_paired), built on demand
     paired: tuple | None = field(default=None, repr=False, compare=False)
+    # the 16 useful floats of each pair row, (n_pairs, 16)
+    # (cuda_intersect.pack_paired_compact), built on demand
+    pairs16: torch.Tensor | None = field(default=None, repr=False,
+                                         compare=False)
 
 
 def _expand_bits(x: np.ndarray) -> np.ndarray:

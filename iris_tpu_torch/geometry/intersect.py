@@ -9,9 +9,11 @@ Which traversal runs (the port's replacement for _pallas_mode,
 intersect.py:383; the table is in geometry/cuda_intersect.py):
 
 - a tree with n_faces < 5000, or a heap (Morton) layout: trace_union;
-- a preorder tree with >= 5000 faces and leaf_size * 12 <= 128:
-  trace_paired;
-- any other tree: trace_union, which walks every layout.
+- a preorder tree with >= 5000 faces whose leaf row fits the paired layout
+  (leaf_size * 12 <= 128): trace_paired while the paired layout is at most
+  cuda_intersect.PAIRED_RESIDENT_BYTES (the JAX package's 10 MB gate),
+  trace_paired_streamed above (the 102K-face scene);
+- a preorder tree with >= 5000 faces and a wider leaf row: trace_ordered.
 
 On a CUDA tensor every call launches that kernel; on a CPU tensor the same
 choice takes the kernel's plain version.
@@ -29,19 +31,24 @@ T_MISS = cuda_intersect.T_MISS
 _MT_EPS = cuda_intersect._MT_EPS
 
 
-def uses_paired(tracer: Tracer) -> bool:
-    """True when ray_intersect sends this tree to trace_paired."""
-    return (tracer.n_faces >= 5000 and tracer.layout == "preorder"
-            and tracer.leaf_size * 12 <= 128 and tracer.n_nodes > 1)
+def kernel_for(tracer: Tracer):
+    """The traversal wrapper ray_intersect sends this tree to."""
+    if (tracer.n_faces < 5000 or tracer.layout != "preorder"
+            or tracer.n_nodes <= 1):
+        return cuda_intersect.trace_union
+    if tracer.leaf_size * 12 > 128:
+        return cuda_intersect.trace_ordered
+    if (cuda_intersect.paired_layout_bytes(tracer)
+            <= cuda_intersect.PAIRED_RESIDENT_BYTES):
+        return cuda_intersect.trace_paired
+    return cuda_intersect.trace_paired_streamed
 
 
 def ray_trace(tracer: Tracer, origins: torch.Tensor, dirs: torch.Tensor):
     """Closest hit per ray by the dispatched kernel: (t, u, v, face)."""
     origins = origins.detach().float().contiguous()
     dirs = dirs.detach().float().contiguous()
-    if uses_paired(tracer):
-        return cuda_intersect.trace_paired(tracer, origins, dirs)
-    return cuda_intersect.trace_union(tracer, origins, dirs)
+    return kernel_for(tracer)(tracer, origins, dirs)
 
 
 def _spread8(v: torch.Tensor) -> torch.Tensor:

@@ -158,13 +158,18 @@ def init_ngp_brdf(seed: int, voxel_min, voxel_max,
     )
 
 
-def ngp_brdf_apply(params: NGPBRDF, position: torch.Tensor) -> dict:
+def ngp_brdf_apply(params: NGPBRDF, position: torch.Tensor,
+                   gen: torch.Generator | None = None,
+                   samples: dict | None = None) -> dict:
     """BRDF parameters at positions (B,3): albedo (B,3), roughness (B,1)
-    in [0.02, 1], metallic (B,1) (reference model/brdf.py:243-260). The
-    encode is exact (the render path)."""
+    in [0.02, 1], metallic (B,1) (reference model/brdf.py:243-260).
+
+    A generator or a `samples` dict (hashgrid_encode's) switches on the
+    hash grid's stochastic-corner estimators, the training hot path; with
+    neither the encode is exact, as renders use it."""
     x = (position - params.voxel_min) / (params.voxel_max
                                          - params.voxel_min)
-    feat = hashgrid_encode(params.table, params.cfg, x)
+    feat = hashgrid_encode(params.table, params.cfg, x, gen, samples)
     out = torch.sigmoid(apply_mlp(params.mlp, feat))
     return {
         "albedo": out[..., 0:3],

@@ -19,6 +19,35 @@ from iris_tpu_torch.device import resolve_device
 from iris_tpu_torch.models.slf import VoxelSLF, slf_query
 
 
+class _RadianceRows(torch.autograd.Function):
+    """radiance[e_idx] with the JAX package's explicit backward
+    (_radiance_rows, emitter.py:25-54): for K <= 256 emitters the adjoint
+    is onehot(e_idx)^T @ g, a skinny matrix product; above, a row
+    scatter-add."""
+
+    @staticmethod
+    def forward(ctx, radiance, e_idx):
+        ctx.save_for_backward(e_idx)
+        ctx.k = radiance.shape[0]
+        return radiance[e_idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (e_idx,) = ctx.saved_tensors
+        k = ctx.k
+        if k <= 256:
+            onehot = (e_idx[:, None] == torch.arange(k, device=g.device)
+                      ).to(g.dtype)
+            return onehot.t() @ g, None
+        return torch.zeros((k, g.shape[-1]), dtype=g.dtype,
+                           device=g.device).index_add_(0, e_idx, g), None
+
+
+def radiance_rows(radiance: torch.Tensor, e_idx: torch.Tensor
+                  ) -> torch.Tensor:
+    return _RadianceRows.apply(radiance, e_idx)
+
+
 @dataclass
 class Emitter:
     is_emitter: torch.Tensor        # (F,) bool per mesh face
@@ -84,8 +113,8 @@ def eval_emitter(em: Emitter, position: torch.Tensor,
     e_idx = torch.clamp(eid, min=0)
     pdf_over_area = em.emitter_pdf / torch.clamp(em.emitter_area, min=1e-12)
     emit_pdf = torch.where(is_area, pdf_over_area[e_idx], 0.0)
-    # a plain gather; its custom backward is training-slice work
-    le = torch.where(is_area[:, None], em.radiance[e_idx], 0.0)
+    le = torch.where(is_area[:, None], radiance_rows(em.radiance, e_idx),
+                     0.0)
     le = le * vis[:, None]
     valid_next = (~is_area) & vis
 

@@ -160,9 +160,11 @@ def _first_hit(gen, tracer, em, mat_fn, rays_o, rays_d, dx_du, dy_dv, spp,
 def path_tracing_single(gen, tracer: Tracer, em: Emitter, mat_fn: MatFn,
                         rays_o, rays_d, dx_du, dy_dv, spp: int,
                         samples: dict | None = None):
-    """Single-bounce estimator, forward (reference :320-407 with
-    trace_roughness=0.0): first-hit emission + MIS direct light, the
-    bounce always ending in the SLF radiance cache. Returns (B, 3).
+    """Differentiable single-bounce estimator, the training forward
+    (reference :320-407 with trace_roughness=0.0): first-hit emission + MIS
+    direct light, the bounce always ending in the SLF radiance cache.
+    Gradients reach what mat_fn and the emitter's radiance carry; the
+    traversal itself carries none. Returns (B, 3).
 
     `samples`: 'dudv' (2, B, spp, 1) jitter in [-0.5, 0.5), plus
     _nee_and_bounce's 's1'/'s2'/'s1b'/'s2b' per flat lane."""

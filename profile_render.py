@@ -1,16 +1,22 @@
 #!/usr/bin/env python3
-"""Where one render round of iris_tpu_torch spends its time on the card.
+"""Where one render round or one train step of iris_tpu_torch spends its
+time on the card.
 
-    python3 profile_render.py [--seed 0] [--out outputs/render_trace.json]
+    python3 profile_render.py [--path render|train] [--seed 0]
+                              [--out outputs/render_trace.json]
 
 For each cell of chip_smoke.py (the flagship scene and the 102,014-face
-clutter scene, production-width model, spp 8, depth 5, 8,100 pixels), it
-renders one warm-up round and then one round under torch.profiler (CPU and
-CUDA activities), and prints: the round's wall time, the summed device
-time of its kernels and the device's idle share, the number of kernels
-launched, the traversal kernels' share, and the kernels that took the most
-device time. The Chrome trace of each profiled round is written next to
---out. Needs one CUDA card.
+clutter scene, production-width model, 8,100 pixels) it runs the unit of
+work once to warm up, times it a few times without the profiler, and then
+once under torch.profiler (CPU and CUDA activities). The unit is one
+render round (render_chunk + aov_chunk at spp 8, depth 5) or, with
+--path train, one train step (fwd+bwd of the benchmark loss at spp 32 =
+259,200 camera samples, then Adam, through make_train_step). It prints
+the unit's wall time with and without the profiler, the summed device time
+of its kernels and the device's idle share against both, the number of
+kernels launched, the traversal kernels' share, and the kernels that took
+the most device time. The Chrome trace of each profiled unit is written
+next to --out. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -28,52 +34,91 @@ def device_time_us(evt) -> float:
     return 0.0
 
 
-def profile_cell(label, n_clutter, seed, out):
+def make_unit(path, n_clutter, seed):
+    """The unit of work to profile, as a function without arguments."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import INDIR_DEPTH, SPP, frame_rays, seed_slf
+    from chip_smoke import (
+        INDIR_DEPTH, SPP, TRAIN_SPP, bench_params, frame_rays,
+        make_bench_loss, seed_slf)
     from iris_tpu_torch.demo import demo_mat_fn, make_demo_scene
-    from iris_tpu_torch.pipeline.render import make_render_fns
 
     dev = torch.device("cuda")
-    tracer, em, ngp, _, _ = make_demo_scene(
+    tracer, em, ngp, crf, _ = make_demo_scene(
         n_clutter=n_clutter, slf_res=64, hash_levels=4, log2_table=19,
         hash_features=16, per_level_scale=-1.0, seed=seed, device=dev)
     seed_slf(em, seed, dev)
     rays = frame_rays(dev)
-    render_chunk, aov_chunk = make_render_fns(tracer, em, demo_mat_fn(ngp),
-                                              SPP, INDIR_DEPTH)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    if path == "render":
+        from iris_tpu_torch.pipeline.render import make_render_fns
 
-    def one_round():
-        render_chunk(rays, gen)
-        aov_chunk(rays, gen)
+        render_chunk, aov_chunk = make_render_fns(
+            tracer, em, demo_mat_fn(ngp), SPP, INDIR_DEPTH)
+
+        def unit():
+            render_chunk(rays, gen)
+            aov_chunk(rays, gen)
+            torch.cuda.synchronize()
+
+        return unit
+
+    from iris_tpu_torch.train.loop import make_train_step
+    from iris_tpu_torch.train.optim import make_optimizer
+
+    params = bench_params(em, ngp, crf)
+    opt = make_optimizer(learning_rate=1e-3)
+    state = opt.init(params)
+    step = make_train_step(
+        make_bench_loss(tracer, em, crf, rays, TRAIN_SPP), opt)
+
+    def unit():
+        step(params, state, {}, gen)
         torch.cuda.synchronize()
 
-    one_round()                                       # warm-up
+    return unit
+
+
+def profile_cell(label, path, n_clutter, seed, out):
+    from torch.profiler import ProfilerActivity, profile
+
+    unit = make_unit(path, n_clutter, seed)
+    unit()                                            # warm-up
+    plain_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        unit()
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+    plain_ms = sorted(plain_ms)[1]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        one_round()
+        unit()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    prof.export_chrome_trace(out.replace(".json", f"_{label}.json"))
+    prof.export_chrome_trace(out.replace(".json", f"_{path}_{label}.json"))
 
-    # kernel events only (CPU ops also carry their kernels' device time)
+    # kernel events only: CPU ops also carry their kernels' device time,
+    # and a record_function range (Optimizer.step#Adam.step) shows up on
+    # the device timeline spanning kernels that are counted themselves
     kernels = [e for e in prof.key_averages()
                if device_time_us(e) > 0
-               and str(getattr(e, "device_type", "")).endswith("CUDA")]
+               and str(getattr(e, "device_type", "")).endswith("CUDA")
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith(("Optimizer.", "ProfilerStep"))]
     if not kernels:
         raise RuntimeError("the profiler recorded no device kernels")
     busy_ms = sum(device_time_us(e) for e in kernels) / 1e3
     n_kernels = sum(e.count for e in kernels)
     trav_ms = sum(device_time_us(e) for e in kernels
-                  if "trace_union" in e.key or "trace_paired" in e.key) / 1e3
-    print(f"{label}: round wall {wall_ms:.2f} ms (under the profiler); "
-          f"device busy {busy_ms:.2f} ms, idle share "
-          f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; {n_kernels} kernels; "
-          f"traversal {trav_ms:.3f} ms = {trav_ms / busy_ms:.3f} of device "
-          f"time")
+                  if "trace_" in e.key and "_kernel" in e.key) / 1e3
+    what = "round" if path == "render" else "train step"
+    print(f"{label}: {what} wall {wall_ms:.2f} ms under the profiler, "
+          f"{plain_ms:.2f} ms without (median of 3); device busy "
+          f"{busy_ms:.2f} ms, idle share "
+          f"{max(0.0, 1 - busy_ms / wall_ms):.3f} under the profiler, "
+          f"{max(0.0, 1 - busy_ms / plain_ms):.3f} without; {n_kernels} "
+          f"kernels; traversal {trav_ms:.3f} ms = {trav_ms / busy_ms:.3f} "
+          f"of device time")
     top = sorted(kernels, key=device_time_us, reverse=True)[:15]
     for e in top:
         print(f"  {device_time_us(e) / 1e3:8.3f} ms  x{e.count:<5d} "
@@ -87,6 +132,7 @@ def profile_cell(label, n_clutter, seed, out):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--path", choices=("render", "train"), default="render")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="outputs/render_trace.json")
     args = ap.parse_args(argv)
@@ -103,7 +149,7 @@ def main(argv=None) -> int:
     print(f"card: {card_line()}")
     for label, n_clutter in (("flagship", FLAGSHIP_CLUTTER),
                              ("clutter102k", CLUTTER_102K)):
-        profile_cell(label, n_clutter, args.seed, args.out)
+        profile_cell(label, args.path, n_clutter, args.seed, args.out)
     return 0
 
 

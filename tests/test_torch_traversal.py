@@ -13,13 +13,15 @@ import pytest
 from iris_tpu.geometry.bvh import build_bvh as jax_build_bvh
 from iris_tpu.geometry.intersect import ray_intersect as jax_ray_intersect
 from iris_tpu.geometry.pallas_intersect import (
-    _pack_paired, pallas_ray_trace, pallas_ray_trace_paired)
+    _pack_paired, paired_vmem_bytes, pallas_ray_trace,
+    pallas_ray_trace_ordered, pallas_ray_trace_paired,
+    pallas_ray_trace_paired_streamed)
 from iris_tpu.geometry.procedural import camera_rays, make_box_scene
 from iris_tpu.geometry.procedural import random_rays
 from iris_tpu_torch.geometry import cuda_intersect as ci
 from iris_tpu_torch.geometry.bvh import build_bvh
 from iris_tpu_torch.geometry.intersect import (
-    ray_intersect, ray_intersect_brute, uses_paired)
+    kernel_for, ray_intersect, ray_intersect_brute)
 from torch_parity import assert_hits_agree, port_tracer, tt
 
 
@@ -86,11 +88,78 @@ def test_paired_plain_matches_pallas(scene12, kind):
     assert_hits_agree(np.asarray(jr[0]), np.asarray(jr[3]), t, f)
 
 
+@pytest.mark.parametrize("kind", ["random", "camera"])
+@pytest.mark.parametrize("leaf_size", [4, 16])
+def test_ordered_plain_matches_pallas(scene12, kind, leaf_size):
+    jt = jax_build_bvh(scene12, leaf_size=leaf_size)
+    o, d = _rays(kind)
+    jr = pallas_ray_trace_ordered(jt, jnp.asarray(o), jnp.asarray(d),
+                                  tile=128, interpret=True)
+    t, u, v, f = ci.trace_ordered_plain(port_tracer(jt), tt(o), tt(d))
+    assert_hits_agree(np.asarray(jr[0]), np.asarray(jr[3]), t, f)
+
+
+@pytest.mark.parametrize("kind", ["random", "camera"])
+def test_paired_streamed_plain_matches_pallas(scene12, kind):
+    """The packet walk at the Pallas tile's width (128 lanes per cursor)
+    against the streamed Pallas kernel with 32-row windows."""
+    jt = jax_build_bvh(scene12)
+    o, d = _rays(kind)
+    jr = pallas_ray_trace_paired_streamed(
+        jt, jnp.asarray(o), jnp.asarray(d), tile=128, interpret=True,
+        pair_win=32, leaf_win=32)
+    counts = {}
+    t, u, v, f = ci.trace_paired_streamed_plain(
+        port_tracer(jt), tt(o), tt(d), counts=counts, width=128)
+    assert_hits_agree(np.asarray(jr[0]), np.asarray(jr[3]), t, f)
+    assert counts["pops"] > 0 and counts["pair_loads"] <= counts["pops"]
+
+
+def test_packet_width_and_tail_do_not_change_hits(scene12):
+    """Packets of 32 (the kernel's warp) and of 8, with a ragged last
+    packet (1000 rays), find the per-ray paired walk's hits."""
+    pt = build_bvh(scene12, device="cpu")
+    o, d = random_rays(1000, seed=13)
+    want = ci.trace_paired_plain(pt, tt(o), tt(d))
+    for width in (32, 8):
+        got = ci.trace_paired_streamed_plain(pt, tt(o), tt(d), width=width)
+        assert got[0].shape == (1000,)
+        assert_hits_agree(want[0], want[3], got[0], got[3])
+    with pytest.raises(ValueError, match="power of two"):
+        ci.trace_paired_streamed_plain(pt, tt(o), tt(d), width=24)
+
+
+@pytest.mark.parametrize("n_clutter,leaf_size,want", [
+    (12, 4, "trace_union"), (420, 4, "trace_paired"),
+    (420, 16, "trace_ordered")])
+def test_dispatch_rule(n_clutter, leaf_size, want):
+    """The JAX package's split points: < 5000 faces -> union; >= 5000 with
+    a leaf row that fits the paired layout -> paired (within the 10 MB
+    gate) or paired_streamed (past it); a wider leaf row -> ordered."""
+    mesh, _ = make_box_scene(n_clutter=n_clutter, seed=1)
+    jt = jax_build_bvh(mesh.triangles(), leaf_size=leaf_size)
+    pt = port_tracer(jt)
+    assert kernel_for(pt).__name__ == want
+    assert ci.paired_layout_bytes(pt) == paired_vmem_bytes(jt)
+    # the same tree past the gate streams (the gate is the one constant)
+    if want == "trace_paired":
+        old = ci.PAIRED_RESIDENT_BYTES
+        ci.PAIRED_RESIDENT_BYTES = ci.paired_layout_bytes(pt) - 1
+        try:
+            assert kernel_for(pt) is ci.trace_paired_streamed
+        finally:
+            ci.PAIRED_RESIDENT_BYTES = old
+    # a heap tree of any size walks the union kernel
+    heap = port_tracer(jax_build_bvh(mesh.triangles(), method="morton"))
+    assert kernel_for(heap) is ci.trace_union
+
+
 def test_plain_walks_match_brute(scene12):
     pt = build_bvh(scene12, device="cpu")
     o, d = random_rays(1024, seed=11)
     _, _, _, ib, vb = ray_intersect_brute(tt(scene12), tt(o), tt(d))
-    for walk in (ci.trace_union_plain, ci.trace_paired_plain):
+    for walk in (ci.trace_union_plain, ci.trace_paired_plain,
+                 ci.trace_ordered_plain, ci.trace_paired_streamed_plain):
         t, _, _, f = walk(pt, tt(o), tt(d))
         np.testing.assert_array_equal((f >= 0).numpy(), vb.numpy())
         assert (f.long() == ib)[vb].float().mean() > 0.99
@@ -102,7 +171,8 @@ def test_ray_intersect_matches_jax(n_clutter, sort):
     jt = jax_build_bvh(mesh.triangles())
     pt = port_tracer(jt)
     # >= 5000 faces takes the paired walk, with the secondary-ray sort
-    assert uses_paired(pt) == (n_clutter == 420)
+    assert kernel_for(pt) is (ci.trace_paired if n_clutter == 420
+                              else ci.trace_union)
     o, d = random_rays(512, seed=2, origin=(0.7, 1.3, 0.4))
     jr = jax_ray_intersect(jt, jnp.asarray(o), jnp.asarray(d), sort=sort)
     pr = ray_intersect(pt, tt(o), tt(d), sort=sort)

@@ -1,6 +1,8 @@
 """Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py):
 carry JAX-package objects into the port through iris_tpu_torch.convert,
-and the hit-agreement bar for traversals."""
+the hit-agreement bar for traversals, and replays of the JAX package's key
+streams (the uniforms its functions draw from a PRNG key, in the same
+split/fold_in order) as the port's `samples` dicts."""
 
 from __future__ import annotations
 
@@ -21,9 +23,7 @@ def port_tracer(jt):
 
 
 def port_ngp(jn):
-    cfg = {k: getattr(jn.cfg, k) for k in (
-        "n_levels", "n_features", "log2_table_size", "base_resolution",
-        "per_level_scale", "row_gather")}
+    cfg = {k: getattr(jn.cfg, k) for k in convert.HASHGRID_FIELDS}
     return convert.ngp_brdf(
         table=np.asarray(jn.table),
         mlp_w=[np.asarray(w) for w in jn.mlp["w"]],
@@ -77,3 +77,101 @@ def assert_hits_agree(t1, f1, t2, f2):
     differ = both & (f1 != f2)
     tie = np.abs(t1 - t2) <= 1e-6 * np.maximum(1.0, np.abs(t1))
     assert np.all(tie[differ]), np.flatnonzero(differ & ~tie)
+
+
+# ------------------------------------------------- gradients, leaf by leaf
+
+def jax_leaves_by_name(tree) -> dict:
+    """{leaf name: numpy} of a JAX pytree, named as the port names its
+    leaves (iris_tpu_torch.train.optim.named_leaves)."""
+    import jax
+
+    out = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        parts = [str(getattr(k, "key", getattr(k, "name",
+                                               getattr(k, "idx", k))))
+                 for k in path]
+        out[".".join(parts)] = np.asarray(leaf)
+    return out
+
+
+def cosine(a, b) -> float:
+    a = np.asarray(a, np.float64).reshape(-1)
+    b = np.asarray(b, np.float64).reshape(-1)
+    return float(a @ b / max(np.linalg.norm(a) * np.linalg.norm(b), 1e-300))
+
+
+# ------------------------------------------------------ key-stream replays
+
+def _np(x):
+    return np.asarray(x)
+
+
+def jax_hashgrid_draws(key, cfg, b: int) -> dict:
+    """What hashgrid_encode(table, cfg, x (b, 3), key) draws
+    (hashgrid.py:609-621, 663-671, 679), as the port's samples dict."""
+    import jax
+
+    l = cfg.n_levels
+    stoch = cfg.stochastic_bwd or cfg.stochastic_fwd
+    out = {}
+    l_eff = l
+    fwd_k = cfg.fwd_level_sample if (stoch and cfg.stochastic_fwd) else 0
+    if fwd_k and 0 < fwd_k < l:
+        key, k_f = jax.random.split(key)
+        out["fphase"] = int(jax.random.randint(k_f, (), 0, l // fwd_k))
+        l_eff = fwd_k
+    bwd_k = cfg.bwd_level_sample if stoch else 0
+    if bwd_k and 0 < bwd_k < l_eff:
+        key, k_p = jax.random.split(key)
+        out["phase"] = int(jax.random.randint(k_p, (), 0, l_eff // bwd_k))
+    out["u3"] = tt(_np(jax.random.uniform(key, (3, b * l_eff))))
+    return out
+
+
+def jax_single_draws(key, b: int, spp: int) -> dict:
+    """What path_tracing_single(key, ...) draws for b pixels at spp
+    (integrator.py:195, 50, 92-97)."""
+    import jax
+
+    n = b * spp
+    k_jit, k_b = jax.random.split(key)
+    k1, k2, k3, k4 = jax.random.split(k_b, 4)
+    return {
+        "dudv": tt(_np(jax.random.uniform(k_jit, (2, b, spp, 1),
+                                          minval=-0.5, maxval=0.5))),
+        "s1": tt(_np(jax.random.uniform(k1, (n,)))),
+        "s2": tt(_np(jax.random.uniform(k2, (n, 2)))),
+        "s1b": tt(_np(jax.random.uniform(k3, (n,)))),
+        "s2b": tt(_np(jax.random.uniform(k4, (n, 2)))),
+    }
+
+
+def jax_initialize_draws(key, hcfg, b: int, spp: int, rounds: int) -> dict:
+    """The draws of make_initialize_loss's loss_fn (steps.py:210-228)."""
+    import jax
+
+    k_render, k_jit = jax.random.split(key)
+    render = [jax_single_draws(jax.random.fold_in(k_render, r), b, spp)
+              for r in range(rounds)]
+    k_jit, k_mat = jax.random.split(k_jit)
+    dudv = jax.random.uniform(k_jit, (2, b, 1), minval=-0.5, maxval=0.5)
+    return {"render": render, "dudv": tt(_np(dudv)),
+            "mat": jax_hashgrid_draws(k_mat, hcfg, b)}
+
+
+def jax_emitter_draws(key, b: int, spp: int, rounds: int) -> dict:
+    """The draws of make_train_emitter_loss's loss_fn (steps.py:255-259)."""
+    import jax
+
+    return {"render": [jax_single_draws(jax.random.fold_in(key, r), b, spp)
+                       for r in range(rounds)]}
+
+
+def jax_brdf_crf_draws(key, hcfg, b: int, n_pairs: int) -> dict:
+    """The draws of make_brdf_crf_loss's loss_fn (steps.py:286, 150)."""
+    import jax
+
+    key, k_mat = jax.random.split(key)
+    return {"mat": jax_hashgrid_draws(k_mat, hcfg, b),
+            "pairs_u": tt(_np(jax.random.uniform(key, (b, n_pairs))))}
