@@ -9,11 +9,12 @@ from csrc/bvh_builder.cpp, then:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the kernels and prints the build time and ptxas' report;
-3. holds each of the four kernels against its plain PyTorch version on the
-   card, on 16,384 camera rays and 16,384 random rays: trace_union on the
-   flagship tree (398 faces), trace_paired and trace_paired_streamed on the
-   102,014-face clutter tree, trace_ordered on a 6,014-face tree built with
-   leaf_size 16 (its leaf row is too wide for the paired layout);
+3. holds each of the seven kernels against its plain PyTorch version on
+   the card, on 16,384 camera rays and 16,384 random rays: trace_union on
+   the flagship tree (398 faces), trace_paired, trace_paired_streamed,
+   trace_streamed, trace_dense and trace_dense_streamed on the 102,014-face
+   clutter tree, trace_ordered on a 6,014-face tree built with leaf_size 16
+   (its leaf row is too wide for the paired layout);
 4. renders the flagship frame (camera_rays(90) = 8,100 pixels) at the
    production width — 4-level x 16-feature x 2^19 row-mode hash grid (a
    128 MB table), MLP 64-64-64-5, 3-basis EMoR CRF, 64^3 SLF seeded with
@@ -37,12 +38,28 @@ from csrc/bvh_builder.cpp, then:
    4,096-pixel demo batch;
 8. holds a small train step on the card against the same step on the CPU
    under the same draws;
-9. prints one JSON line {"kernels": [...]} with each kernel's launches on
+9. runs the reference-parity configuration at full width: the 32-level x
+   2-feature x 2^19 hash grid (HashGridConfig's default, a flat table of
+   2^25 floats = 128 MB read through packed bfloat16 words) on the
+   102,014-face scene under each of three traversal policies, which send
+   the tree to trace_dense, trace_streamed and trace_dense_streamed: one
+   render round (spp 8, depth 5, AOVs, CRF) and 1 warm-up + 3 timed steps
+   of the benchmark loss through run_training (259,200 camera samples,
+   Adam, stochastic forward and backward, 8 of 32 level blocks per step),
+   with a state hook that saves one checkpoint, which is loaded again and
+   compared. The same on the flagship scene with the unpacked (flat
+   float32) table through trace_union; and a small render and train step
+   of both table modes on the card against the CPU;
+10. times the five big-tree kernels on the same 518,400 rays of the
+   102,014-face train step, in turns there and back, and compares their
+   hits pairwise;
+11. prints one JSON line {"kernels": [...]} with each kernel's launches on
    the main paths, its error against the plain version, its time, the
-   plain version's time and its roofline bound, measured on the largest
-   input a main path gave the kernel (and, for trace_paired_streamed,
-   trace_paired's time on the same input);
-10. prints the card line again and, last, the run's JSON verdict.
+   plain version's time (one run) and its roofline bound, measured on the
+   largest input a main path gave the kernel (the five big-tree kernels on
+   the same rays; the bound of the packet walks counts the per-ray walk's
+   tests);
+12. prints the card line again and, last, the run's JSON verdict.
 
 Any failed check raises, and the script then exits non-zero with no
 verdict line. It imports nothing of JAX or of the JAX package.
@@ -51,6 +68,7 @@ verdict line. It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -71,10 +89,25 @@ SPP = 8
 TRAIN_SPP = 32                 # the trainers' per-round spp
 STAGE_BATCH_SIDE = 64          # 4,096-pixel batch of the stage losses
 KERNELS = ("trace_union", "trace_paired", "trace_paired_streamed",
-           "trace_ordered")
+           "trace_ordered", "trace_streamed", "trace_dense",
+           "trace_dense_streamed")
+# the production grid (pipeline/config.py:70-79 of the JAX package) and the
+# reference's (HashGridConfig's default: 32 levels x 2 features, packed)
+PRODUCTION_GRID = dict(hash_levels=4, hash_features=16, per_level_scale=-1.0)
+REFERENCE_GRID = dict(hash_levels=32, hash_features=2, per_level_scale=1.3)
+LOG2_TABLE = 19
+SLF_RES = 64
 INDIR_DEPTH = 5
 CAMERA_SIDE = 90               # 8,100 pixels
 CHECK_RAYS_SIDE = 128          # 16,384 rays per comparison set
+# trace_streamed's plain version took 64.9 s on the 518,400 rays of a train
+# step and 99.1 s on the first 65,536 of them (H100, two runs: it loops
+# once per node the busiest packet visits, whatever the ray count). Its
+# plain time and packet counts are therefore those of the 16,384 camera
+# check rays, and on the path's input the kernel is held against the
+# per-ray version of the same walk (trace_union_plain), whose hits are the
+# same bits. Empty this tuple to run the plain version at full size.
+PLAIN_ON_CHECK_SET = ("trace_streamed",)
 DEVICE = "cuda"
 
 
@@ -151,15 +184,17 @@ def test_flops(counts):
 
 def roofline(tracer, counts, n_rays, paired):
     """Least time for the closest hits of this run's rays: each ray read
-    and each hit written once, the tree's useful bytes read once (compact
-    pair and leaf rows for the paired walks, nodes (N, 8) and tris (P, 12)
-    for the union and ordered walks), and the slab and triangle tests in
+    and each hit written once, the tree's useful bytes read once (the pair
+    records and the leaves' triangle rows for the paired and dense walks,
+    whatever padding a layout adds; nodes (N, 8) and tris (P, 12) for the
+    union, streamed and ordered walks), and the slab and triangle tests in
     `counts` at the FP32 peak. `counts` is the least work known to give
     these hits on this tree: the kernel's own plain walk for the per-ray
-    kernels; for the packet walk the per-ray near-first walk over the same
-    rows, which finds the same hits with fewer tests (a packet visits the
-    union of its rays' paths, and that extra is the kernel's cost, not the
-    function's need)."""
+    kernels; for a packet walk the per-ray walk over the same rows
+    (near-first for the paired and dense packets, stackless for
+    trace_streamed), which finds the same hits with fewer tests (a packet
+    visits the union of its rays' paths, and that extra is the kernel's
+    cost, not the function's need)."""
     from iris_tpu_torch.geometry import cuda_intersect as ci
 
     if paired:
@@ -233,6 +268,19 @@ def time_ms(fn, reps, flush):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def timed_once(fn):
+    """(CUDA-event milliseconds, result) of one run of fn."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
 
 
 def seed_slf(em, seed, dev):
@@ -313,8 +361,6 @@ def only_launched(launches, name, n=None):
 def move(obj, d):
     """A copy of a (nested) dataclass / dict / list of tensors on device
     d."""
-    import dataclasses
-
     import torch
 
     if isinstance(obj, torch.Tensor):
@@ -360,7 +406,7 @@ def small_reference_check(tracer, em, ngp, dev, seed):
     out = []
     for d in (dev, torch.device("cpu")):
         tr, e, g = move(tracer, d), move(em, d), move(ngp, d)
-        tr.paired = None
+        tr.paired = tr.dense = None
         rc, ac = make_render_fns(tr, e, demo_mat_fn(g), spp, depth)
         out.append((rc(rays.to(d), samples=move(s, d)).cpu().numpy(),
                     [a.cpu().numpy() for a in
@@ -380,8 +426,6 @@ def train_config(ngp, scatter="bfloat16"):
     them in place) with the trainers' estimator settings
     (pipeline/config.py:70-100 of the JAX package): stochastic forward and
     backward, auto level-block subsampling, compact scatter."""
-    import dataclasses
-
     from iris_tpu_torch.models.hashgrid import auto_bwd_level_sample
 
     cfg = dataclasses.replace(
@@ -404,7 +448,6 @@ def make_bench_loss(tracer, em, crf, rays, spp):
     material query at the first hit, params {"material", "radiance",
     "crf_w"}. Without samples every step jitters the ray origins by a
     fresh 1e-6 draw, as the benchmark does."""
-    import dataclasses
     import functools
 
     import torch
@@ -434,11 +477,23 @@ def make_bench_loss(tracer, em, crf, rays, spp):
     return loss_fn
 
 
-def check_bench_grads(label, grads, n_levels, bwd_k):
+def level_blocks(x, cfg):
+    """(n_levels,) bool: the level blocks of a table-shaped tensor that
+    hold a nonzero, in row mode ((L*T, F) rows) and in the flat and packed
+    modes ((F*L*T,), feature-major)."""
+    if x.dim() == 2:
+        return x.abs().reshape(cfg.n_levels, -1).sum(1) > 0
+    return (x.abs().reshape(cfg.n_features, cfg.n_levels, -1).sum(2)
+            > 0).any(0)
+
+
+def check_bench_grads(label, grads, cfg):
     """Every gradient leaf finite; table, MLP, radiance and CRF gradients
-    each nonzero; exactly bwd_k level blocks of the table gradient
-    nonzero."""
+    each nonzero; exactly cfg.bwd_level_sample level blocks of the table
+    gradient nonzero."""
     import torch
+
+    bwd_k = cfg.bwd_level_sample
 
     for name, g in grads.items():
         check(bool(torch.isfinite(g).all()), f"{label}: gradient {name} "
@@ -447,9 +502,61 @@ def check_bench_grads(label, grads, n_levels, bwd_k):
                  "material.mlp.b.2", "radiance", "crf_w"):
         check(name in grads and float(grads[name].abs().sum()) > 0,
               f"{label}: gradient {name} is missing or zero")
-    blocks = grads["material.table"].abs().reshape(n_levels, -1).sum(1) > 0
+    blocks = level_blocks(grads["material.table"], cfg)
     check(int(blocks.sum()) == bwd_k, f"{label}: {int(blocks.sum())} level "
           f"blocks of the table gradient are nonzero, expected {bwd_k}")
+
+
+def bench_setup(label, tracer, em, ngp, crf, rays, seed):
+    """What both training paths start from: fresh parameters, the benchmark
+    loss, Adam, a generator, and one checked gradient (recording the
+    largest traversal input of a step)."""
+    import torch
+
+    from iris_tpu_torch.train.loop import value_and_grad
+    from iris_tpu_torch.train.optim import make_optimizer, named_leaves
+
+    params = bench_params(em, ngp, crf)
+    loss_fn = make_bench_loss(tracer, em, crf, rays, TRAIN_SPP)
+    opt = make_optimizer(learning_rate=1e-3)
+    gen = torch.Generator(device=rays.device).manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats()
+    with record_largest_trace() as captured:
+        loss0, _, grads = value_and_grad(loss_fn, params, {}, gen)
+    check(bool(torch.isfinite(loss0)), f"{label}: loss is not finite")
+    check_bench_grads(label, grads, params["material"].cfg)
+    del grads
+    start_leaves = {n: t.clone() for n, t in named_leaves(params)}
+    return params, loss_fn, opt, gen, float(loss0), captured, start_leaves
+
+
+def bench_stats(label, kernel, params, start_leaves, losses, launches,
+                n_steps, ms, wall_ms, loss0, captured, rays):
+    """The checks both training paths end on (finite losses, 2 launches of
+    `kernel` alone per step, every leaf finite and moved) and their
+    stats."""
+    import torch
+
+    from iris_tpu_torch.train.optim import named_leaves
+
+    losses = [float(x) for x in losses]
+    check(len(losses) == n_steps and all(
+        x == x and abs(x) != float("inf") for x in losses),
+        f"{label}: a step's loss is not finite")
+    check(only_launched(launches, kernel, 2 * n_steps),
+          f"{label}: expected {2 * n_steps} launches of {kernel} alone, "
+          f"got {launches}")
+    for name, t in named_leaves(params):
+        check(bool(torch.isfinite(t).all()), f"{label}: {name} not finite")
+        check(bool((t != start_leaves[name]).any()),
+              f"{label}: {name} did not move")
+    samples = rays.shape[0] * TRAIN_SPP
+    return {"ms_per_step": ms, "host_ms_per_step": wall_ms,
+            "camera_samples_per_step": samples,
+            "camera_samples_per_s": samples / (ms / 1e3), "steps": n_steps,
+            "launches": launches, "first_loss": loss0, "losses": losses,
+            "largest_trace_rays": captured["n"],
+            "peak_memory_mb": torch.cuda.max_memory_allocated() / 2 ** 20}
 
 
 def train_scene(label, kernel, tracer, em, ngp, crf, rays, n_steps, seed):
@@ -459,24 +566,12 @@ def train_scene(label, kernel, tracer, em, ngp, crf, rays, n_steps, seed):
     traversal input of a step)."""
     import torch
 
-    from iris_tpu_torch.train.loop import make_train_step, value_and_grad
-    from iris_tpu_torch.train.optim import make_optimizer, named_leaves
+    from iris_tpu_torch.train.loop import make_train_step
 
-    params = bench_params(em, ngp, crf)
-    cfg = params["material"].cfg
-    loss_fn = make_bench_loss(tracer, em, crf, rays, TRAIN_SPP)
-    opt = make_optimizer(learning_rate=1e-3)
+    params, loss_fn, opt, gen, loss0, captured, start_leaves = bench_setup(
+        label, tracer, em, ngp, crf, rays, seed)
     state = opt.init(params)
     step = make_train_step(loss_fn, opt)
-    gen = torch.Generator(device=rays.device).manual_seed(seed)
-
-    torch.cuda.reset_peak_memory_stats()
-    with record_largest_trace() as captured:
-        loss0, _, grads = value_and_grad(loss_fn, params, {}, gen)
-    check(bool(torch.isfinite(loss0)), f"{label}: loss is not finite")
-    check_bench_grads(label, grads, cfg.n_levels, cfg.bwd_level_sample)
-    del grads
-    start_leaves = {n: t.clone() for n, t in named_leaves(params)}
     step(params, state, {}, gen)                          # warm-up
     torch.cuda.synchronize()
 
@@ -492,26 +587,109 @@ def train_scene(label, kernel, tracer, em, ngp, crf, rays, n_steps, seed):
     end.record()
     end.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
-    launches = read_launches()
+    stats = bench_stats(label, kernel, params, start_leaves, losses,
+                        read_launches(), n_steps,
+                        start.elapsed_time(end) / n_steps, wall_ms, loss0,
+                        captured, rays)
+    return stats, captured
 
-    losses = [float(x) for x in losses]
-    check(all(x == x and abs(x) != float("inf") for x in losses),
-          f"{label}: a step's loss is not finite")
-    check(only_launched(launches, kernel, 2 * n_steps),
-          f"{label}: expected {2 * n_steps} launches of {kernel} alone, "
-          f"got {launches}")
-    for name, t in named_leaves(params):
-        check(bool(torch.isfinite(t).all()), f"{label}: {name} not finite")
-        check(bool((t != start_leaves[name]).any()),
-              f"{label}: {name} did not move")
-    ms = start.elapsed_time(end) / n_steps
-    samples = rays.shape[0] * TRAIN_SPP
-    stats = {"ms_per_step": ms, "host_ms_per_step": wall_ms,
-             "camera_samples_per_step": samples,
-             "camera_samples_per_s": samples / (ms / 1e3), "steps": n_steps,
-             "launches": launches, "first_loss": float(loss0),
-             "losses": losses, "largest_trace_rays": captured["n"],
-             "peak_memory_mb": torch.cuda.max_memory_allocated() / 2 ** 20}
+
+def train_loop_scene(label, kernel, tracer, em, ngp, crf, rays, n_steps,
+                     seed):
+    """The benchmark step through run_training: one gradient (checked),
+    step 0 as the warm-up, then steps 1..n_steps timed, with launch counts
+    reset just before and read just after. A state hook stops the clock at
+    the last step and a second one then saves the full training state; the
+    file is loaded again and held against the live state. Returns (stats,
+    the largest traversal input of a step)."""
+    import itertools
+    import tempfile
+
+    import torch
+
+    from iris_tpu_torch.train import checkpoint as ck
+    from iris_tpu_torch.train.loop import run_training
+    from iris_tpu_torch.train.optim import named_leaves
+
+    params, loss_fn, opt, _, loss0, captured, start_leaves = bench_setup(
+        label, tracer, em, ngp, crf, rays, seed)
+    cfg = params["material"].cfg
+    kw = dict(seed=seed, log_fn=None, return_state=True)
+    params, state = run_training(loss_fn, params, itertools.repeat({}), opt,
+                                 1, **kw)                  # step 0: warm-up
+    torch.cuda.synchronize()
+    # one step of a fresh Adam moves exactly the level blocks the step
+    # sampled: one phase of the stride, cfg.bwd_level_sample blocks
+    stride = cfg.n_levels // cfg.bwd_level_sample
+
+    def moved_blocks():
+        moved = level_blocks(params["material"].table
+                             - start_leaves["material.table"], cfg)
+        cols = moved.reshape(cfg.bwd_level_sample, stride)
+        check(bool((cols == cols[0]).all()),
+              f"{label}: moved level blocks {moved.tolist()} are not whole "
+              f"phases of stride {stride}")
+        return int(cols[0].sum())
+
+    check(moved_blocks() == 1, f"{label}: the first step moved "
+          f"{moved_blocks()} phases of level blocks, expected 1")
+
+    losses, marks = [], {}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def stop_clock(step, p, o):
+        if step == n_steps:
+            end.record()
+            end.synchronize()
+            marks["wall"] = time.perf_counter()
+            marks["launches"] = read_launches()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.pkl")
+        reset_launches()
+        t0 = time.perf_counter()
+        start.record()
+        params, state = run_training(
+            loss_fn, params, itertools.repeat({}), opt, n_steps + 1,
+            opt_state=state, start_step=1,
+            hooks=[lambda s, p, loss, aux: losses.append(loss)],
+            state_hooks=[stop_clock,
+                         ck.make_state_saver(path, every=n_steps + 1)], **kw)
+        save_s = time.perf_counter() - marks["wall"]
+        check(os.listdir(tmp) == ["state.pkl"],
+              f"{label}: checkpoint directory holds {os.listdir(tmp)}")
+        ckpt_mb = os.path.getsize(path) / 2 ** 20
+        t_load = time.perf_counter()
+        restored, r_state, r_step = ck.load_train_state(
+            path, os.path.join(tmp, "none.pkl"), None, optimizer=opt,
+            device=rays.device)
+        load_s = time.perf_counter() - t_load
+    check(r_step == n_steps + 1, f"{label}: restored step {r_step}")
+    live, back = named_leaves(params), named_leaves(restored)
+    check([n for n, _ in live] == [n for n, _ in back],
+          f"{label}: restored leaves differ in name")
+    for (name, a), (_, b) in zip(live, back):
+        check(a.device == b.device and torch.equal(a, b),
+              f"{label}: restored {name} differs")
+    check(restored["material"].cfg == cfg, f"{label}: restored config")
+    s_live = state["opt"].state_dict()["state"]
+    s_back = r_state["opt"].state_dict()["state"]
+    check(len(s_live) == len(s_back) == len(live), f"{label}: moments")
+    for i, st in s_live.items():
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            check(torch.equal(st[key].cpu(), s_back[i][key].cpu()),
+                  f"{label}: restored {key} of leaf {i} differs")
+    del restored, r_state, s_back
+
+    stats = bench_stats(label, kernel, params, start_leaves, losses,
+                        marks["launches"], n_steps,
+                        start.elapsed_time(end) / n_steps,
+                        (marks["wall"] - t0) * 1e3 / n_steps, loss0,
+                        captured, rays)
+    stats.update(moved_level_blocks=moved_blocks() * cfg.bwd_level_sample,
+                 checkpoint_mb=ckpt_mb, checkpoint_save_s=save_s,
+                 checkpoint_load_s=load_s)
     return stats, captured
 
 
@@ -622,16 +800,19 @@ def train_reference_check(tracer, em, ngp, crf, dev, seed):
     def u(*shape):
         return torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32))
 
+    from iris_tpu_torch.models.hashgrid import auto_bwd_level_sample
+
     n_levels = ngp.cfg.n_levels
+    stride = n_levels // auto_bwd_level_sample(n_levels)
     samples = {
         "render": {"dudv": u(2, b, spp, 1) - 0.5, "s1": u(n), "s2": u(n, 2),
                    "s1b": u(n), "s2b": u(n, 2)},
         "mat": {"u3": u(3, n * n_levels), "phase": int(rng.integers(
-            0, n_levels))}}
+            0, stride))}}
     out = []
     for d in (dev, torch.device("cpu")):
         tr, e, g, c = (move(x, d) for x in (tracer, em, ngp, crf))
-        tr.paired = None
+        tr.paired = tr.dense = None
         loss_fn = make_bench_loss(tr, e, c, rays.to(d), spp)
         loss, _, grads = value_and_grad(
             loss_fn, bench_params(e, g, c, scatter="float32"), {}, None,
@@ -670,7 +851,7 @@ def main(argv=None) -> int:
     from iris_tpu_torch.demo import demo_mat_fn, make_demo_scene
     from iris_tpu_torch.geometry import cuda_intersect as ci
     from iris_tpu_torch.geometry.bvh import build_bvh
-    from iris_tpu_torch.geometry.intersect import kernel_for
+    from iris_tpu_torch.geometry.intersect import TraversalPolicy, kernel_for
     from iris_tpu_torch.geometry.procedural import camera_rays, random_rays
 
     dev = torch.device(DEVICE)
@@ -690,14 +871,14 @@ def main(argv=None) -> int:
         print(f"  ptxas: {ln}")
 
     # scenes at production width
-    def scene(n_clutter, leaf_size=4):
+    def scene(n_clutter, leaf_size=4, grid=PRODUCTION_GRID):
         t0 = time.perf_counter()
         tracer, em, ngp, crf, mesh = make_demo_scene(
-            n_clutter=n_clutter, slf_res=64, hash_levels=4, log2_table=19,
-            hash_features=16, per_level_scale=-1.0, seed=args.seed,
-            leaf_size=leaf_size, device=dev)
+            n_clutter=n_clutter, slf_res=SLF_RES, log2_table=LOG2_TABLE,
+            seed=args.seed, leaf_size=leaf_size, device=dev, **grid)
         seed_slf(em, args.seed, dev)
-        print(f"scene n_clutter={n_clutter} leaf_size={leaf_size}: "
+        print(f"scene n_clutter={n_clutter} leaf_size={leaf_size} grid "
+              f"{ngp.cfg.n_levels}x{ngp.cfg.n_features}: "
               f"{mesh.n_faces} faces, {tracer.n_nodes} nodes, depth "
               f"{tracer.depth}, layout {tracer.layout}, kernel "
               f"{kernel_for(tracer).__name__}, built in "
@@ -754,19 +935,33 @@ def main(argv=None) -> int:
         "trace_ordered": (
             ci.trace_ordered, ci.trace_ordered_plain, wide[0], False,
             f"pallas_ray_trace_ordered ({src}:579, _kernel_ordered :436)"),
+        "trace_streamed": (
+            ci.trace_streamed, ci.trace_streamed_plain, big[0], False,
+            f"pallas_ray_trace_streamed ({src}:371, _kernel_streamed :271)"),
+        "trace_dense": (
+            ci.trace_dense, ci.trace_dense_plain, big[0], True,
+            f"pallas_ray_trace_dense ({src}:1221, _kernel_dense :1102)"),
+        "trace_dense_streamed": (
+            ci.trace_dense_streamed, ci.trace_dense_streamed_plain, big[0],
+            True, f"pallas_ray_trace_dense_streamed ({src}:1437, "
+            "_kernel_dense_streamed :1271)"),
     }
-    max_err = {}
+    max_err, check_plain = {}, {}
     for name, (kernel, plain, tracer, _, _) in kernel_specs.items():
         for label, (o, d) in ray_sets.items():
             o_t = torch.from_numpy(np.ascontiguousarray(o)).to(dev)
             d_t = torch.from_numpy(np.ascontiguousarray(d)).to(dev)
             got = kernel(tracer, o_t, d_t)
             torch.cuda.synchronize()
-            err, same = compare_hits(got, plain(tracer, o_t, d_t))
+            counts = {}
+            plain_ms, want = timed_once(
+                lambda: plain(tracer, o_t, d_t, counts=counts))
+            err, same = compare_hits(got, want)
             max_err[name] = max(max_err.get(name, 0.0), err)
+            check_plain[name, label] = (plain_ms, counts)
             print(f"check {name} {label} ({n_check} rays): hits "
                   f"{int((got[3] >= 0).sum())}, bit-equal {same}/{n_check},"
-                  f" max |t| error {err:.3e}")
+                  f" max |t| error {err:.3e}; plain {plain_ms:.1f} ms")
 
     launches = dict.fromkeys(KERNELS, 0)
 
@@ -859,40 +1054,139 @@ def main(argv=None) -> int:
           f"{l_cpu:.6f}; {n_leaves} gradient leaves, least cosine "
           f"{cos:.6f}")
 
-    # 9. each kernel on the largest input a main path gave it
+    # 9. the reference-parity configuration: 32 levels x 2 features
+    ref = scene(CLUTTER_102K, grid=REFERENCE_GRID)
+    ref_cfg = ref[2].cfg
+    # HashGridConfig's own defaults: the reference's grid
+    check(ref_cfg == dataclasses.replace(type(ref_cfg)(),
+                                         log2_table_size=LOG2_TABLE)
+          and LOG2_TABLE == type(ref_cfg)().log2_table_size
+          and ref[2].table.shape == (2 * 32 << LOG2_TABLE,)
+          and ref_cfg.packed_gather,
+          f"reference-parity model: {ref_cfg}, table "
+          f"{tuple(ref[2].table.shape)}")
+    ci.pack_dense(ref[0])       # shared by the tracers made from it
+    print(f"model: hash grid {ref_cfg.n_levels}L x {ref_cfg.n_features}F x "
+          f"2^{ref_cfg.log2_table_size} flat table of "
+          f"{ref[2].table.numel()} floats "
+          f"({ref[2].table.numel() * 4 / 2 ** 20:.0f} MB), packed gather "
+          f"{ref_cfg.packed_gather}; 102K tree layouts: paired "
+          f"{ci.paired_layout_bytes(ref[0])} B, dense "
+          f"{ci.dense_layout_bytes(ref[0])} B, resident rows "
+          f"{ci.resident_layout_bytes(ref[0])} B (gates "
+          f"{ci.PAIRED_RESIDENT_BYTES}, {ci.DENSE_RESIDENT_BYTES}, "
+          f"{ci.RESIDENT_BYTES})")
+    policies = (
+        ("trace_dense", TraversalPolicy(paired_streamed=False)),
+        ("trace_streamed", TraversalPolicy(paired_streamed=False,
+                                           dense=False)),
+        ("trace_dense_streamed", TraversalPolicy(
+            paired_streamed=False, dense=False, dense_streamed=True)))
+    ref_stats = {}
+    for name, policy in policies:
+        tracer = dataclasses.replace(ref[0], policy=policy)
+        check(kernel_for(tracer).__name__ == name,
+              f"{policy} sends the 102K tree to "
+              f"{kernel_for(tracer).__name__}, not {name}")
+        label = f"ref32x2 {name}"
+        r_stats, _ = render_scene(label, tracer, ref[1],
+                                  demo_mat_fn(ref[2]), ref[3], rays, 1,
+                                  args.seed)
+        check(only_launched(r_stats["launches"], name, 8),
+              f"{label} render: 8 launches of {name} alone expected, got "
+              f"{r_stats['launches']}")
+        add_launches(r_stats)
+        report_render(label, r_stats)
+        t_stats, _ = train_loop_scene(f"{label} train", name, tracer, ref[1],
+                                      ref[2], ref[3], rays, 3, args.seed)
+        add_launches(t_stats)
+        report_train(label, t_stats)
+        ref_stats[name] = {"render": r_stats, "train": t_stats}
+    # both table modes on the card: the unpacked (flat float32) table on
+    # the flagship scene through trace_union
+    flat = scene(FLAGSHIP_CLUTTER, grid=REFERENCE_GRID)
+    flat_ngp = dataclasses.replace(flat[2], cfg=dataclasses.replace(
+        flat[2].cfg, packed_gather=False))
+    r_stats, _ = render_scene("ref32x2 flat flagship", flat[0], flat[1],
+                              demo_mat_fn(flat_ngp), flat[3], rays, 1,
+                              args.seed)
+    check(only_launched(r_stats["launches"], "trace_union", 8),
+          f"flat flagship render launches {r_stats['launches']}")
+    add_launches(r_stats)
+    report_render("ref32x2 flat flagship", r_stats)
+    t_stats, _ = train_loop_scene(
+        "ref32x2 flat flagship train", "trace_union", flat[0], flat[1],
+        flat_ngp, flat[3], rays, 3, args.seed)
+    add_launches(t_stats)
+    report_train("ref32x2 flat flagship", t_stats)
+    ref_stats["flat_trace_union"] = {"render": r_stats, "train": t_stats}
+    # card against CPU, both modes
+    for mode, ngp in (("packed", flat[2]), ("flat", flat_ngp)):
+        frac, worst = small_reference_check(flat[0], flat[1], ngp, dev,
+                                            args.seed)
+        print(f"ref32x2 {mode} card vs CPU (64 px, spp 2): {frac:.4f} of "
+              f"radiance values within rtol 2e-3/atol 1e-4, max |diff| "
+              f"{worst:.3e}")
+        l_card, l_cpu, cos, n_leaves = train_reference_check(
+            flat[0], flat[1], ngp, flat[3], dev, args.seed)
+        print(f"ref32x2 {mode} train step card vs CPU (64 rays, spp 2): "
+              f"loss {l_card:.6f} vs {l_cpu:.6f}; {n_leaves} gradient "
+              f"leaves, least cosine {cos:.6f}")
+    del ref, flat, flat_ngp
+
+    # 10-11. each kernel on the largest input a main path gave it; the five
+    # big-tree kernels on the same 518,400 rays of the 102K train step
     flush = torch.empty(64 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
     inputs = {"trace_union": flag_in, "trace_paired": mid_in,
-              "trace_paired_streamed": big_in, "trace_ordered": wide_in}
+              "trace_ordered": wide_in}
     trees = {"trace_paired": mid_tracer}
+    o_big, d_big = big_in["o"], big_in["d"]
+    # the per-ray walks' tests on those rays, for the packet walks' bounds
+    per_ray = {"near_first": {}, "stackless": {}}
+    ci.trace_paired_plain(big[0], o_big, d_big, counts=per_ray["near_first"])
+    stackless_hits = ci.trace_union_plain(big[0], o_big, d_big,
+                                          counts=per_ray["stackless"])
+    per_ray_of = {"trace_paired_streamed": "near_first",
+                  "trace_dense_streamed": "near_first",
+                  "trace_streamed": "stackless"}
     rows = []
     for name, (kernel, plain, tracer, paired, replaces) in \
             kernel_specs.items():
         tracer = trees.get(name, tracer)
-        o, d = inputs[name]["o"], inputs[name]["d"]
+        o, d = inputs.get(name, big_in)["o"], inputs.get(name, big_in)["d"]
         got = kernel(tracer, o, d)
         torch.cuda.synchronize()
-        counts = {}
-        err, same = compare_hits(got, plain(tracer, o, d, counts=counts))
+        if name in PLAIN_ON_CHECK_SET:
+            plain_ms, counts = check_plain[name, "camera"]
+            n_plain, plain_on = n_check, "camera check rays"
+            err, same = compare_hits(got, stackless_hits)
+        else:
+            counts = {}
+            n_plain, plain_on = o.shape[0], "rays of this trace"
+            plain_ms, want = timed_once(
+                lambda: plain(tracer, o, d, counts=counts))
+            err, same = compare_hits(got, want)
         max_err[name] = max(max_err[name], err)
         ms = time_ms(lambda: kernel(tracer, o, d), 20, flush)
-        plain_ms = time_ms(lambda: plain(tracer, o, d), 3, flush)
         need, extra = counts, ""
-        if name == "trace_paired_streamed":
+        if name in per_ray_of:
             # the bound takes the per-ray walk's counts where they are the
             # smaller; the packet's own work is printed beside it
-            per_ray = {}
-            ci.trace_paired_plain(tracer, o, d, counts=per_ray)
-            need = min(per_ray, counts, key=test_flops)
-            extra = ("; the packet walk itself did "
+            need = per_ray[per_ray_of[name]]
+            if n_plain == o.shape[0]:
+                need = min(need, counts, key=test_flops)
+            extra = (f"; the packet walk itself, on the {n_plain} "
+                     f"{plain_on}, did "
                      + ", ".join(f"{k} {v}" for k, v in counts.items())
                      + f" = {test_flops(counts)} FP32 ops")
         bound_ms, bound_by, nbytes, ops = roofline(tracer, need, o.shape[0],
                                                    paired)
         print(f"{name} on its path's {o.shape[0]}-ray trace "
               f"({tracer.n_faces} faces): {ms:.4f} ms (plain "
-              f"{plain_ms:.2f} ms, bound {bound_ms:.5f} ms by {bound_by}: "
-              f"{nbytes} B, {ops} FP32 ops from {need['slab']} slab + "
-              f"{need['mt']} triangle tests{extra}); bit-equal "
+              f"{plain_ms:.2f} ms in one run on the {n_plain} {plain_on}, "
+              f"bound {bound_ms:.5f} ms by "
+              f"{bound_by}: {nbytes} B, {ops} FP32 ops from {need['slab']} "
+              f"slab + {need['mt']} triangle tests{extra}); bit-equal "
               f"{same}/{o.shape[0]}")
         rows.append({
             "name": name, "route": "cuda",
@@ -900,36 +1194,44 @@ def main(argv=None) -> int:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "rays": o.shape[0], "plain_rays": n_plain,
+            "plain_input": plain_on,
         })
-    # the two paired kernels on the same 102K-face inputs, in turns
-    o, d = big_in["o"], big_in["d"]
-    err, same = compare_hits(ci.trace_paired(big[0], o, d),
-                             ci.trace_paired_streamed(big[0], o, d))
-    turns = []
-    for kernel in (ci.trace_paired, ci.trace_paired_streamed,
-                   ci.trace_paired_streamed, ci.trace_paired):
-        turns.append((kernel.__name__,
-                      time_ms(lambda: kernel(big[0], o, d), 20, flush)))
-    print(f"102K tree, {o.shape[0]} rays, in turns: "
-          + ", ".join(f"{n} {t:.4f} ms" for n, t in turns)
-          + f"; hits bit-equal on {same}/{o.shape[0]} rays, max |t| "
-          f"difference {err:.3e}")
-    # trace_paired's time on the streamed kernel's input, beside its row
-    next(r for r in rows if r["name"] == "trace_paired_streamed")[
-        "trace_paired_ms_same_input"] = statistics.median(
+    # the five big-tree kernels on the same rays, in turns there and back
+    five = (ci.trace_paired, ci.trace_paired_streamed, ci.trace_streamed,
+            ci.trace_dense, ci.trace_dense_streamed)
+    base = ci.trace_paired(big[0], o_big, d_big)
+    agree = {}
+    for kernel in five[1:]:
+        err, same = compare_hits(kernel(big[0], o_big, d_big), base)
+        agree[kernel.__name__] = {"bit_equal_rays": same,
+                                  "max_abs_t_diff": err}
+    turns = [(kernel.__name__,
+              time_ms(lambda: kernel(big[0], o_big, d_big), 20, flush))
+             for kernel in five + five[::-1]]
+    print(f"102K tree, {o_big.shape[0]} rays, in turns: "
+          + ", ".join(f"{n} {t:.4f} ms" for n, t in turns))
+    print(f"hits against trace_paired's on those rays: {agree}")
+    # trace_paired's time on the same input, beside the other four's rows
+    paired_ms = statistics.median(
         t for n, t in turns if n == "trace_paired")
+    for row in rows:
+        if row["name"] in agree:
+            row["trace_paired_ms_same_input"] = paired_ms
+            row["turns_ms"] = [t for n, t in turns if n == row["name"]]
     print("run: " + json.dumps({
         "flagship": flag_stats, "clutter102k": big_stats,
         "clutter6k_leaf16": wide_stats, "clutter6k_leaf4": mid_stats,
         "train_flagship": flag_train, "train_clutter102k": big_train,
-        "stages": stages, "paired_on_102k_ms": turns,
+        "stages": stages, "ref32x2": ref_stats,
+        "five_on_102k_ms": turns, "five_on_102k_hits": agree,
         "build_s": build_s, "total_s": time.perf_counter() - t_run}))
     for row in rows:
         check(row["launches"] > 0, f"{row['name']} was never launched on a "
               "main path")
     print(json.dumps({"kernels": rows}))
 
-    # 10. verdict
+    # 12. verdict
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

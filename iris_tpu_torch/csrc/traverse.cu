@@ -10,11 +10,12 @@
 // iris_tpu/geometry/pallas_intersect.py computes: per ray, the closest hit
 // (t, u, v, face_id) with face_id = -1 for a miss. The TPU walks one
 // traversal cursor per tile of rays (the union of the tile's paths, every
-// lane a vector op). trace_union, trace_paired and trace_ordered walk one
-// ray per thread, which is the natural unit on an SM and visits a subset of
-// the tile's nodes with the same hits; trace_paired_streamed keeps the
-// TPU's shared cursor, one per warp of 32 rays, and stages the rows it
-// reads through shared-memory windows.
+// lane a vector op). trace_union, trace_paired, trace_ordered and
+// trace_dense walk one ray per thread, which is the natural unit on an SM
+// and visits a subset of the tile's nodes with the same hits; the three
+// streamed kernels (trace_streamed, trace_paired_streamed,
+// trace_dense_streamed) keep the TPU's shared cursor, one per warp of 32
+// rays, and stage the rows they read through shared-memory windows.
 //
 // --fmad=false: no multiply-add contraction, so t/u/v round exactly as the
 // plain PyTorch versions (and the JAX package) round them; the kernels are
@@ -58,6 +59,11 @@ constexpr int kPacketWarps = 4;
 // the same windows.
 constexpr int kPairWin = 32;
 constexpr int kLeafWin = 8;
+// Nodes (32 bytes each) per window of the stackless packet walk: 2 KB.
+constexpr int kNodeWin = 64;
+// float4s of one leaf slot of the dense layout (64 floats; two per
+// 128-float row, pallas_intersect.py:1055-1099)
+constexpr int kSlot4 = 16;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kSharedLimit = 48 * 1024;
 
@@ -225,12 +231,16 @@ __global__ void __launch_bounds__(kThreads)
   store_hit(h, i, t_out, u_out, v_out, f_out);
 }
 
+// One whole leaf of a per-ray walk: leaf lrow starts kLeaf4 float4s after
+// leaf lrow - 1 (a 128-float row of the paired layout, a 64-float slot of
+// the dense one).
+template <int kLeaf4>
 __device__ __forceinline__ void leaf_hits(const Ray& r,
                                           const float4* __restrict__ leaves,
                                           int lrow, int n_leaf_rows,
                                           int leaf_size, Hit& h) {
   lrow = min(max(lrow, 0), n_leaf_rows - 1);
-  const float4* lf = leaves + static_cast<size_t>(lrow) * kRow4;
+  const float4* lf = leaves + static_cast<size_t>(lrow) * kLeaf4;
   for (int k = 0; k < leaf_size; ++k) {
     mt_fold(r, __ldg(lf + 3 * k), __ldg(lf + 3 * k + 1),
             __ldg(lf + 3 * k + 2), h);
@@ -252,14 +262,16 @@ __device__ __forceinline__ void leaf_hits(const Ray& r,
 // layout is 32 MB of 128-float rows, which the 50 MB L2 holds); each pop is 4 float4 loads and each
 // leaf 3 per triangle. The stack is per thread, indexed dynamically, so
 // it lives in local memory (L1-cached); its depth is checked on the host.
-__global__ void __launch_bounds__(kThreads)
-    trace_paired_kernel(const float4* __restrict__ pairs, int n_pairs,
-                        const float4* __restrict__ leaves, int n_leaf_rows,
-                        int leaf_size, int stack_depth,
-                        const float* __restrict__ orig,
-                        const float* __restrict__ dirs, int n_rays,
-                        float* __restrict__ t_out, float* __restrict__ u_out,
-                        float* __restrict__ v_out, int* __restrict__ f_out) {
+// The walk of trace_paired and trace_dense: pair record p starts
+// kPairStride4 float4s after record p - 1, leaf l kLeaf4 after leaf l - 1.
+template <int kPairStride4, int kLeaf4>
+__device__ __forceinline__ void pair_walk(
+    const float4* __restrict__ pairs, int n_pairs,
+    const float4* __restrict__ leaves, int n_leaf_rows, int leaf_size,
+    int stack_depth, const float* __restrict__ orig,
+    const float* __restrict__ dirs, int n_rays, float* __restrict__ t_out,
+    float* __restrict__ u_out, float* __restrict__ v_out,
+    int* __restrict__ f_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rays) return;
   const Ray r = load_ray(orig, dirs, i);
@@ -272,7 +284,7 @@ __global__ void __launch_bounds__(kThreads)
   const int max_steps = 2 * n_pairs + 2;
   for (int step = 0; sp > 0 && step < max_steps; ++step) {
     const int row_id = stack[--sp];
-    const float4* row = pairs + static_cast<size_t>(row_id) * kRow4;
+    const float4* row = pairs + static_cast<size_t>(row_id) * kPairStride4;
     const float4 a = __ldg(row);
     const float4 b = __ldg(row + 1);
     const float4 c = __ldg(row + 2);
@@ -285,10 +297,12 @@ __global__ void __launch_bounds__(kThreads)
     const bool l_leaf = dl <= 0.0f;
     const bool r_leaf = dr <= 0.0f;
     if (hit_l && l_leaf) {
-      leaf_hits(r, leaves, static_cast<int>(-dl), n_leaf_rows, leaf_size, h);
+      leaf_hits<kLeaf4>(r, leaves, static_cast<int>(-dl), n_leaf_rows,
+                        leaf_size, h);
     }
     if (hit_r && r_leaf) {
-      leaf_hits(r, leaves, static_cast<int>(-dr), n_leaf_rows, leaf_size, h);
+      leaf_hits<kLeaf4>(r, leaves, static_cast<int>(-dr), n_leaf_rows,
+                        leaf_size, h);
     }
     const bool want_l = hit_l && !l_leaf;
     const bool want_r = hit_r && !r_leaf;
@@ -307,6 +321,49 @@ __global__ void __launch_bounds__(kThreads)
     sp = min(sp3 + (push_near ? 1 : 0), stack_depth);
   }
   store_hit(h, i, t_out, u_out, v_out, f_out);
+}
+
+__global__ void __launch_bounds__(kThreads) trace_paired_kernel(
+    const float4* __restrict__ pairs, int n_pairs,
+    const float4* __restrict__ leaves, int n_leaf_rows, int leaf_size,
+    int stack_depth, const float* __restrict__ orig,
+    const float* __restrict__ dirs, int n_rays, float* __restrict__ t_out,
+    float* __restrict__ u_out, float* __restrict__ v_out,
+    int* __restrict__ f_out) {
+  pair_walk<kRow4, kRow4>(
+      pairs, n_pairs, leaves, n_leaf_rows, leaf_size, stack_depth, orig, dirs,
+      n_rays, t_out, u_out, v_out, f_out);
+}
+
+// trace_dense — replaces pallas_ray_trace_dense / _kernel_dense
+// (pallas_intersect.py:1102, 1221) over the _pack_dense rows (:1059): the
+// near-first pair walk of trace_paired with every record taken from its
+// slot: pair p at row p / 8, lanes 16 * (p % 8) + {0..6, 8..14}; leaf l at
+// row l / 2, lanes 64 * (l % 2) + 12 * k + {0..9}. The TPU kernel reads the
+// whole 128-lane row and picks the slot with a chain of scalar selects
+// (slot_scalar, :1115-1124), because Mosaic cannot index lanes
+// dynamically; a thread can, so the slot is addressed: the dense pair
+// array is a contiguous run of 64-byte records and the leaf array one of
+// 256-byte slots.
+// What "dense" buys on the TPU is residency (the 102K-face tree's dense
+// layout is 9.7 MB where its paired layout is 30.9 MB). This card keeps
+// either layout in its 50 MB L2 and neither in shared memory, so the
+// counterpart is trace_paired's per-ray walk with denser rows: a pop is
+// the same four 16-byte loads, but eight records share a 512-byte line
+// span where trace_paired's rows have one each, and a leaf's triangles
+// come from a 256-byte-aligned slot. Bound as trace_paired: a dependent
+// load per step, divergent warps. A cp.async prefetch of the near child's
+// record while the leaves are folded is where pipelining would go.
+__global__ void __launch_bounds__(kThreads) trace_dense_kernel(
+    const float4* __restrict__ pairs, int n_pairs,
+    const float4* __restrict__ leaves, int n_leaf_rows, int leaf_size,
+    int stack_depth, const float* __restrict__ orig,
+    const float* __restrict__ dirs, int n_rays, float* __restrict__ t_out,
+    float* __restrict__ u_out, float* __restrict__ v_out,
+    int* __restrict__ f_out) {
+  pair_walk<kPair4, kSlot4>(
+      pairs, n_pairs, leaves, n_leaf_rows, leaf_size, stack_depth, orig, dirs,
+      n_rays, t_out, u_out, v_out, f_out);
 }
 
 // trace_ordered — replaces pallas_ray_trace_ordered / _kernel_ordered
@@ -393,15 +450,15 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// One leaf of the packet walk: make sure the warp's leaf window holds row
+// One leaf of a packet walk: make sure the warp's leaf window holds row
 // lrow (one coalesced load of up to kLeafWin whole leaf rows when it does
 // not), then every lane whose ray entered the leaf's box folds the leaf's
-// triangles, read from shared memory.
+// triangles, read from shared memory. A leaf row is leaf4 float4s long:
+// 3 * leaf_size in the compact rows, kSlot4 in the dense layout's slots.
 __device__ __forceinline__ void packet_leaf(
     const Ray& r, bool hit, int lrow, const float4* __restrict__ leaves,
-    int n_leaf_rows, int leaf_size, int& lwin, float4* lbuf,
+    int n_leaf_rows, int leaf_size, int leaf4, int& lwin, float4* lbuf,
     int lane, Hit& h) {
-  const int leaf4 = 3 * leaf_size;
   lrow = min(max(lrow, 0), n_leaf_rows - 1);
   const int tgt = lrow / kLeafWin;
   if (tgt != lwin) {  // warp-uniform
@@ -443,20 +500,22 @@ __device__ __forceinline__ void packet_leaf(
 // so descents reuse the window and a reload happens mostly at far pops.
 // A packet visits the union of its rays' paths, so it does more slab
 // tests than trace_paired and fewer, wider memory reads.
-__global__ void __launch_bounds__(kPacketWarps * 32)
-    trace_paired_streamed_kernel(
-        const float4* __restrict__ pairs16, int n_pairs,
-        const float4* __restrict__ leaves, int n_leaf_rows, int leaf_size,
-        int stack_depth, const float* __restrict__ orig, const float* __restrict__ dirs,
-        int n_rays, float* __restrict__ t_out, float* __restrict__ u_out,
-        float* __restrict__ v_out, int* __restrict__ f_out) {
+// The walk of trace_paired_streamed and trace_dense_streamed: pair records
+// are 64 bytes apart in both layouts; a whole leaf is leaf4 float4s long.
+__device__ __forceinline__ void packet_pair_walk(
+    const float4* __restrict__ pairs16, int n_pairs,
+    const float4* __restrict__ leaves, int n_leaf_rows, int leaf_size,
+    int stack_depth, const float* __restrict__ orig,
+    const float* __restrict__ dirs, int n_rays, float* __restrict__ t_out,
+    float* __restrict__ u_out, float* __restrict__ v_out,
+    int* __restrict__ f_out, int leaf4) {
   extern __shared__ float4 packet_smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int first = blockIdx.x * blockDim.x + warp * 32;
   if (first >= n_rays) return;  // the whole packet is past the end
   const int per_warp4 =
-      kStackCap / 4 + kPairWin * kPair4 + kLeafWin * 3 * leaf_size;
+      kStackCap / 4 + kPairWin * kPair4 + kLeafWin * leaf4;
   float4* mine = packet_smem + warp * per_warp4;
   int* stack = reinterpret_cast<int*>(mine);
   float4* pbuf = mine + kStackCap / 4;
@@ -502,11 +561,11 @@ __global__ void __launch_bounds__(kPacketWarps * 32)
     const bool r_leaf = dr <= 0.0f;
     if (m_l != 0u && l_leaf) {
       packet_leaf(r, hit_l, static_cast<int>(-dl), leaves, n_leaf_rows,
-                  leaf_size, lwin, lbuf, lane, h);
+                  leaf_size, leaf4, lwin, lbuf, lane, h);
     }
     if (m_r != 0u && r_leaf) {
       packet_leaf(r, hit_r, static_cast<int>(-dr), leaves, n_leaf_rows,
-                  leaf_size, lwin, lbuf, lane, h);
+                  leaf_size, leaf4, lwin, lbuf, lane, h);
     }
     const bool want_l = m_l != 0u && !l_leaf;
     const bool want_r = m_r != 0u && !r_leaf;
@@ -537,7 +596,160 @@ __global__ void __launch_bounds__(kPacketWarps * 32)
   if (live) store_hit(h, i, t_out, u_out, v_out, f_out);
 }
 
+__global__ void __launch_bounds__(kPacketWarps * 32)
+    trace_paired_streamed_kernel(
+    const float4* __restrict__ pairs16, int n_pairs,
+    const float4* __restrict__ leaves, int n_leaf_rows, int leaf_size,
+    int stack_depth, const float* __restrict__ orig,
+    const float* __restrict__ dirs, int n_rays, float* __restrict__ t_out,
+    float* __restrict__ u_out, float* __restrict__ v_out,
+    int* __restrict__ f_out) {
+  packet_pair_walk(pairs16, n_pairs, leaves, n_leaf_rows, leaf_size,
+                   stack_depth, orig, dirs, n_rays, t_out, u_out, v_out,
+                   f_out, 3 * leaf_size);
+}
+
+// trace_dense_streamed — replaces pallas_ray_trace_dense_streamed /
+// _kernel_dense_streamed (pallas_intersect.py:1271, 1437): trace_dense's
+// records walked as trace_paired_streamed walks its own, one cursor and
+// stack per packet, the dense rows read through windows counted in dense
+// rows (kPairWin / 8 = 4 rows of 8 pair records, kLeafWin / 2 = 4 rows of
+// 2 leaf slots); left leaf before right leaf, each with its own window
+// check (:1349-1379); near and far by the mean entry distance of the lanes
+// that want the child (:1385-1391).
+// What is and is not new on this card: the TPU kernel exists because a
+// paired row carries one 16-float pair in 128 lanes, an 8x pad on every
+// byte that crosses its DMA, and dense rows remove the pad. Here
+// trace_paired_streamed already reads compact 64-byte pair records, so
+// the pair side of this kernel is the same bytes through the same
+// 32-record window. Only the leaf side differs: leaves sit in aligned
+// 256-byte slots (a window is always 2 KB, whatever leaf_size) where the
+// compact rows are leaf_size x 48 bytes long and unaligned. Same bound as
+// trace_paired_streamed: a chain of shared-memory reads, ballots and
+// __syncwarps per pop, and the union of 32 rays' paths. A cp.async
+// prefetch of the next window (the left child's record is the next one)
+// is where pipelining would go.
+__global__ void __launch_bounds__(kPacketWarps * 32)
+    trace_dense_streamed_kernel(
+    const float4* __restrict__ pairs16, int n_pairs,
+    const float4* __restrict__ leaves, int n_leaf_rows, int leaf_size,
+    int stack_depth, const float* __restrict__ orig,
+    const float* __restrict__ dirs, int n_rays, float* __restrict__ t_out,
+    float* __restrict__ u_out, float* __restrict__ v_out,
+    int* __restrict__ f_out) {
+  packet_pair_walk(pairs16, n_pairs, leaves, n_leaf_rows, leaf_size,
+                   stack_depth, orig, dirs, n_rays, t_out, u_out, v_out,
+                   f_out, kSlot4);
+}
+
+// trace_streamed — replaces pallas_ray_trace_streamed / _kernel_streamed
+// (pallas_intersect.py:271, 371): the stackless skip-pointer walk of
+// trace_union with ONE cursor for a packet of rays and the tree read
+// through forward-only windows. Visit node cur - 1; every lane slab-tests
+// it against its own t_best; a leaf (desc <= 0, leaf ordinal
+// -desc / leaf_size) is folded by the lanes whose own test hit; the packet
+// descends to desc when any lane hit an internal node, else jumps to the
+// skip pointer; cur <= 0 ends the walk. A lane's extra visits are misses
+// for it (child boxes nest in parent boxes, t_best only shrinks), so each
+// ray gets trace_union's hit, bit for bit.
+// Design: the TPU pads every node and leaf to a 128-float row because its
+// DMA needs it; the card does not, so the windows hold the compact rows:
+// kNodeWin 32-byte nodes of the (N, 8) array and kLeafWin whole leaves of
+// the tris array, per warp in shared memory, each reload one coalesced
+// read. In a preorder tree both the node cursor and the leaf base only
+// grow along a walk (:277-280), so a window never goes back: the next
+// one's address is known, which is where a cp.async prefetch would go. No
+// stack, so no __syncwarp outside the reloads. What bounds it: it visits
+// nodes in storage order, not near-first, so t_best shrinks late and a
+// packet walks the union of 32 rays' unpruned paths: the most slab tests
+// of the five big-tree kernels, each a dependent shared-memory read.
+__global__ void __launch_bounds__(kPacketWarps * 32) trace_streamed_kernel(
+    const float4* __restrict__ nodes, int n_nodes,
+    const float4* __restrict__ leaves, int n_leaf_rows, int leaf_size,
+    const float* __restrict__ orig, const float* __restrict__ dirs,
+    int n_rays, float* __restrict__ t_out, float* __restrict__ u_out,
+    float* __restrict__ v_out, int* __restrict__ f_out) {
+  extern __shared__ float4 packet_smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int first = blockIdx.x * blockDim.x + warp * 32;
+  if (first >= n_rays) return;  // the whole packet is past the end
+  const int leaf4 = 3 * leaf_size;
+  float4* nbuf = packet_smem + warp * (kNodeWin * 2 + kLeafWin * leaf4);
+  float4* lbuf = nbuf + kNodeWin * 2;
+
+  const int i = first + lane;
+  const bool live = i < n_rays;  // lanes past the end never vote
+  const Ray r = load_ray(orig, dirs, live ? i : n_rays - 1);
+  Hit h{kTMiss, 0.0f, 0.0f, -1};
+  int cur = 1;    // 1-based, the same for every lane
+  int nwin = -1;  // no window loaded
+  int lwin = -1;
+  const int max_steps = 2 * n_nodes + 2;
+  for (int step = 0; cur > 0 && step < max_steps; ++step) {
+    const int node = min(max(cur - 1, 0), n_nodes - 1);
+    const int tgt = node / kNodeWin;
+    if (tgt != nwin) {
+      __syncwarp();  // every lane is done with the old window
+      const int base = tgt * kNodeWin;
+      const int n4 = min(kNodeWin, n_nodes - base) * 2;
+      const float4* src = nodes + static_cast<size_t>(base) * 2;
+      for (int k = lane; k < n4; k += 32) nbuf[k] = __ldg(src + k);
+      __syncwarp();
+      nwin = tgt;
+    }
+    const float4 a = nbuf[(node - tgt * kNodeWin) * 2];
+    const float4 b = nbuf[(node - tgt * kNodeWin) * 2 + 1];
+    float tlo;
+    const bool hit =
+        slab(r, a.x, a.y, a.z, a.w, b.x, b.y, h.t, &tlo) && live;
+    const bool any_hit = __ballot_sync(kFullMask, hit) != 0u;
+    const float desc = b.w;
+    const bool leaf = desc <= 0.0f;
+    if (any_hit && leaf) {
+      packet_leaf(r, hit, static_cast<int>(-desc) / leaf_size, leaves,
+                  n_leaf_rows, leaf_size, leaf4, lwin, lbuf, lane, h);
+    }
+    cur = (any_hit && !leaf) ? static_cast<int>(desc)
+                             : static_cast<int>(b.z);
+  }
+  if (live) store_hit(h, i, t_out, u_out, v_out, f_out);
+}
+
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+
+using PacketPairKernel = void (*)(const float4*, int, const float4*, int, int,
+                                  int, const float*, const float*, int, float*,
+                                  float*, float*, int*);
+
+// Launch of a packet walk over pair records, whole leaves leaf4 float4s
+// long: every warp's stack and two windows go into dynamic shared memory,
+// refused past the default 48 KB.
+int launch_packet_pair(PacketPairKernel kernel, long long leaf4,
+                       const void* pairs16, int n_pairs, const void* leaves,
+                       int n_leaf_rows, int leaf_size, int stack_depth,
+                       const void* orig, const void* dirs, int n_rays,
+                       void* t_out, void* u_out, void* v_out, void* f_out,
+                       void* stream) {
+  if (n_rays <= 0) return 0;
+  const long long shared =
+      16LL * kPacketWarps *
+      (kStackCap / 4 + kPairWin * kPair4 + kLeafWin * leaf4);
+  if (stack_depth < 1 || stack_depth > kStackCap || n_pairs < 1 ||
+      n_leaf_rows < 1 || leaf_size < 1 || shared > kSharedLimit) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int threads = kPacketWarps * 32;
+  const int blocks = (n_rays + threads - 1) / threads;
+  kernel<<<blocks, threads, shared, s>>>(
+      static_cast<const float4*>(pairs16), n_pairs,
+      static_cast<const float4*>(leaves), n_leaf_rows, leaf_size, stack_depth,
+      static_cast<const float*>(orig), static_cast<const float*>(dirs), n_rays,
+      static_cast<float*>(t_out), static_cast<float*>(u_out),
+      static_cast<float*>(v_out), static_cast<int*>(f_out));
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -615,21 +827,63 @@ int iris_trace_paired_streamed(const void* pairs16, int n_pairs,
                                const void* orig, const void* dirs, int n_rays,
                                void* t_out, void* u_out, void* v_out,
                                void* f_out, void* stream) {
+  return launch_packet_pair(trace_paired_streamed_kernel, 3LL * leaf_size,
+                            pairs16, n_pairs, leaves, n_leaf_rows, leaf_size,
+                            stack_depth, orig, dirs, n_rays, t_out, u_out,
+                            v_out, f_out, stream);
+}
+
+int iris_trace_dense_streamed(const void* pairs, int n_pairs,
+                              const void* leaves, int n_leaf_rows,
+                              int leaf_size, int stack_depth, const void* orig,
+                              const void* dirs, int n_rays, void* t_out,
+                              void* u_out, void* v_out, void* f_out,
+                              void* stream) {
+  if (3 * leaf_size > kSlot4) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_packet_pair(trace_dense_streamed_kernel, kSlot4, pairs,
+                            n_pairs, leaves, n_leaf_rows, leaf_size,
+                            stack_depth, orig, dirs, n_rays, t_out, u_out,
+                            v_out, f_out, stream);
+}
+
+int iris_trace_dense(const void* pairs, int n_pairs, const void* leaves,
+                     int n_leaf_rows, int leaf_size, int stack_depth,
+                     const void* orig, const void* dirs, int n_rays,
+                     void* t_out, void* u_out, void* v_out, void* f_out,
+                     void* stream) {
   if (n_rays <= 0) return 0;
-  // every warp's stack and two windows; refused past the default 48 KB
-  const long long shared =
-      16LL * kPacketWarps *
-      (kStackCap / 4 + kPairWin * kPair4 + 3LL * kLeafWin * leaf_size);
   if (stack_depth < 1 || stack_depth > kStackCap || n_pairs < 1 ||
-      n_leaf_rows < 1 || leaf_size < 1 || shared > kSharedLimit) {
+      n_leaf_rows < 1 || leaf_size < 1 || 3 * leaf_size > kSlot4) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  trace_dense_kernel<<<blocks_for(n_rays), kThreads, 0, s>>>(
+      static_cast<const float4*>(pairs), n_pairs,
+      static_cast<const float4*>(leaves), n_leaf_rows, leaf_size, stack_depth,
+      static_cast<const float*>(orig), static_cast<const float*>(dirs), n_rays,
+      static_cast<float*>(t_out), static_cast<float*>(u_out),
+      static_cast<float*>(v_out), static_cast<int*>(f_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int iris_trace_streamed(const void* nodes, int n_nodes, const void* leaves,
+                        int n_leaf_rows, int leaf_size, const void* orig,
+                        const void* dirs, int n_rays, void* t_out, void* u_out,
+                        void* v_out, void* f_out, void* stream) {
+  if (n_rays <= 0) return 0;
+  // every warp's node and leaf windows; refused past the default 48 KB
+  const long long shared =
+      16LL * kPacketWarps * (kNodeWin * 2 + 3LL * kLeafWin * leaf_size);
+  if (n_nodes < 1 || n_leaf_rows < 1 || leaf_size < 1 ||
+      shared > kSharedLimit) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int threads = kPacketWarps * 32;
   const int blocks = (n_rays + threads - 1) / threads;
-  trace_paired_streamed_kernel<<<blocks, threads, shared, s>>>(
-      static_cast<const float4*>(pairs16), n_pairs,
-      static_cast<const float4*>(leaves), n_leaf_rows, leaf_size, stack_depth,
+  trace_streamed_kernel<<<blocks, threads, shared, s>>>(
+      static_cast<const float4*>(nodes), n_nodes,
+      static_cast<const float4*>(leaves), n_leaf_rows, leaf_size,
       static_cast<const float*>(orig), static_cast<const float*>(dirs), n_rays,
       static_cast<float*>(t_out), static_cast<float*>(u_out),
       static_cast<float*>(v_out), static_cast<int*>(f_out));

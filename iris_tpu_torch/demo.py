@@ -2,11 +2,12 @@
 of iris_tpu/demo.py): BVH tracer, SLF emitter, hash-grid BRDF and EMoR CRF
 without any dataset on disk.
 
-The defaults are the production model (pipeline/config.py:70-79 of the JAX
-package, the model bench.py times): a 4-level x 16-feature row-gather grid
-with 2^19 entries and auto per-level scale, and a 64^3 SLF. They differ from
-the JAX demo's historical defaults because only the row-mode encode is
-ported.
+The defaults are the JAX demo's (iris_tpu/demo.py:25-33): a 16-level x
+2-feature flat grid with 2^15 entries and a 32^3 SLF, row mode chosen by
+hash_features > 2. The production model (pipeline/config.py:70-79 of the
+JAX package, the model bench.py times) is make_demo_scene(slf_res=64,
+hash_levels=4, log2_table=19, hash_features=16, per_level_scale=-1.0); the
+reference's is hash_levels=32, log2_table=19 with the other defaults.
 """
 
 from __future__ import annotations
@@ -26,19 +27,21 @@ from iris_tpu_torch.models.hashgrid import HashGridConfig
 from iris_tpu_torch.models.slf import init_voxel_slf
 
 
-def make_demo_scene(n_clutter: int = 8, slf_res: int = 64,
-                    hash_levels: int = 4, log2_table: int = 19,
-                    seed: int = 0, hash_features: int = 16,
-                    per_level_scale: float = -1.0, leaf_size: int = 4,
-                    device=None):
-    """Returns (tracer, emitter, ngp_params, crf, mesh) on `device`.
+def make_demo_scene(n_clutter: int = 8, slf_res: int = 32,
+                    hash_levels: int = 16, log2_table: int = 15,
+                    seed: int = 0, hash_features: int = 2,
+                    per_level_scale: float = 1.3, leaf_size: int = 4,
+                    device=None, policy=None):
+    """Returns (tracer, emitter, ngp_params, crf, mesh) on `device`;
+    `policy` is the tracer's TraversalPolicy (geometry/bvh.py).
 
     per_level_scale <= 0 = auto: span the reference 32-level resolution
     range (16 .. 16*1.3^31) at any level count. The SLF radiance is zero,
     as in the JAX package; the NGP weights are random from `seed`."""
     dev = resolve_device(device)
     mesh, is_em = make_box_scene(n_clutter=n_clutter, seed=seed)
-    tracer = build_bvh(mesh.triangles(), leaf_size=leaf_size, device=dev)
+    tracer = build_bvh(mesh.triangles(), leaf_size=leaf_size, device=dev,
+                       policy=policy)
     slf = init_voxel_slf(np.ones((slf_res,) * 3, bool), -0.1, 2.1,
                          device=dev)
     em = make_emitter(

@@ -28,6 +28,33 @@ from iris_tpu_torch.device import resolve_device
 BIG = np.float32(3e38)
 
 
+@dataclass(frozen=True)
+class TraversalPolicy:
+    """Which traversal kernel a tree may go to: the dials of the JAX
+    package's _pallas_mode (iris_tpu/geometry/intersect.py:383-466), where
+    they are environment variables read at every call (IRIS_TPU_PAIRED,
+    IRIS_TPU_DENSE, IRIS_TPU_PAIRED_STREAMED, IRIS_TPU_DENSE_STREAMED), as
+    explicit values carried on the Tracer. geometry.intersect.kernel_for
+    reads them; the defaults are the JAX package's.
+
+    paired, dense: "auto" (by the size gates), True (wherever the layout
+    takes the tree) or False (never). paired_streamed: False sends trees
+    past the paired gate on to the dense, resident and plain streamed
+    kernels. dense_streamed: True opts into the dense packet walk past the
+    resident gate."""
+
+    paired: str | bool = "auto"
+    dense: str | bool = "auto"
+    paired_streamed: bool = True
+    dense_streamed: bool = False
+
+    def __post_init__(self):
+        for name in ("paired", "dense"):
+            if getattr(self, name) not in ("auto", True, False):
+                raise ValueError(f"TraversalPolicy.{name} must be 'auto', "
+                                 f"True or False, got {getattr(self, name)!r}")
+
+
 @dataclass
 class Tracer:
     """Flattened BVH + triangle soup on one device."""
@@ -49,6 +76,11 @@ class Tracer:
     # (cuda_intersect.pack_paired_compact), built on demand
     pairs16: torch.Tensor | None = field(default=None, repr=False,
                                          compare=False)
+    # dense-layout re-pack (cuda_intersect.pack_dense), built on demand
+    dense: tuple | None = field(default=None, repr=False, compare=False)
+    # which kernels geometry.intersect.kernel_for may choose; set it with
+    # build_bvh(..., policy=) or dataclasses.replace(tracer, policy=...)
+    policy: TraversalPolicy = TraversalPolicy()
 
 
 def _expand_bits(x: np.ndarray) -> np.ndarray:
@@ -166,12 +198,13 @@ def _morton_arrays(triangles: np.ndarray, leaf_size: int):
 
 
 def build_bvh(triangles: np.ndarray, leaf_size: int = 4, method: str = "sah",
-              device=None) -> Tracer:
+              device=None, policy: TraversalPolicy | None = None) -> Tracer:
     """Build the flat BVH from (F, 3, 3) triangle vertices.
 
     method: "sah" (default, native C++ builder, preorder layout; raises if
     it cannot be built) or "morton" (vectorized complete tree, heap
-    layout)."""
+    layout). policy: the tracer's TraversalPolicy (default: the JAX
+    package's defaults)."""
     from iris_tpu_torch.geometry.bvh_native import build_sah_arrays
 
     dev = resolve_device(device)
@@ -196,4 +229,5 @@ def build_bvh(triangles: np.ndarray, leaf_size: int = 4, method: str = "sah",
         n_faces=n_faces,
         layout=layout,
         depth=depth,
+        policy=policy or TraversalPolicy(),
     )

@@ -1,4 +1,4 @@
-"""Closest-hit BVH traversal on Hopper: the four CUDA kernels of
+"""Closest-hit BVH traversal on Hopper: the seven CUDA kernels of
 csrc/traverse.cu, their wrappers, and one plain PyTorch version beside each
 (counterpart of iris_tpu/geometry/pallas_intersect.py).
 
@@ -6,39 +6,60 @@ Every traversal returns, per ray, the closest hit (t, u, v, face) with
 face = -1 for a miss: t/u/v float32, face int32.
 
 Dispatch. On the TPU, ray_intersect (intersect.py:471) picks one of seven
-Pallas kernels by tree size, layout and VMEM gates (_pallas_mode :383).
-The port's dispatch (geometry/intersect.py) keeps the JAX package's split
-points, so each scene runs the counterpart of the kernel it runs there:
+Pallas kernels by tree size, layout, VMEM gates and four environment dials
+(_pallas_mode :383). The port's dispatch (geometry/intersect.py kernel_for)
+follows the same rule with the dials as the fields of the tracer's
+TraversalPolicy, so each scene runs the counterpart of the kernel it runs
+there. "Gate" below is one of the three 10 MiB constants of this module.
 
-==============================  ==========================  =====================
-tree (JAX package)              TPU kernel                  this port
-==============================  ==========================  =====================
-< 5K faces (flagship 398)       #1 pallas_ray_trace         trace_union
-heap (Morton) layout            #1 pallas_ray_trace         trace_union
->= 5K faces, paired <= 10 MB    #4 pallas_ray_trace_paired  trace_paired
->= 5K faces, past the gate      #5 ..._paired_streamed      trace_paired_streamed
-  (the 102K-face scene)
->= 5K faces, leaf row > 128     #3 ..._ordered              trace_ordered
-  floats (leaf_size > 10)       (#2 ..._streamed when big)  trace_ordered
-opt-in flags                    #6 ..._dense, #7 ..._dense_streamed
-==============================  ==========================  =====================
+===  ==========================  ======================  ===========================
+ #   TPU kernel                  this port               which trees (policy)
+===  ==========================  ======================  ===========================
+ 1   pallas_ray_trace            trace_union             < 5K faces inside the
+                                                         resident gate; any heap
+                                                         (Morton) tree (default)
+ 2   ..._streamed                trace_streamed          preorder, past the resident
+                                                         gate, when neither paired
+                                                         walk takes it
+                                                         (paired_streamed=False and
+                                                         dense off or past its gate)
+ 3   ..._ordered                 trace_ordered           preorder >= 5K faces inside
+                                                         the resident gate that the
+                                                         paired and dense layouts do
+                                                         not take (leaf_size > 10);
+                                                         past that gate too, where
+                                                         the JAX package asserts
+ 4   ..._paired                  trace_paired            preorder >= 5K faces (any
+                                                         size with paired=True),
+                                                         paired layout inside its
+                                                         gate (default)
+ 5   ..._paired_streamed         trace_paired_streamed   preorder, leaf_size <= 10,
+                                                         paired layout past its gate
+                                                         (default: the 102K scene)
+ 6   ..._dense                   trace_dense             dense layout inside its
+                                                         gate and dense=True; or
+                                                         dense="auto" where paired
+                                                         and paired_streamed do not
+                                                         take the tree
+                                                         (paired_streamed=False)
+ 7   ..._dense_streamed          trace_dense_streamed    dense_streamed=True on a
+                                                         preorder tree with
+                                                         leaf_size <= 5 past the
+                                                         resident gate, after #4, #5
+                                                         and #6 passed
+===  ==========================  ======================  ===========================
 
-PAIRED_RESIDENT_BYTES is the one split constant: the JAX package's 10 MB
-paired-layout gate (paired_vmem_bytes, pallas_intersect.py:1530-1545). The
-card has no such memory gate (a 32 MB paired layout sits in the 50 MB L2),
-so the split is kept for parity of paths, not out of need; chip_smoke.py
-times both paired kernels on the 102K-face inputs so it can be moved on
-evidence. trace_ordered also takes the wide-leaf trees that #2 streams on
-the TPU, until #2 is ported; #2, #6 and #7 are still to be ported (see
-ROADMAP.md). The n_rays < 8192 XLA escape (intersect.py:395) does not
-carry over: on the card every call launches a kernel.
+The card has no such memory gates (a 32 MB paired layout sits in the 50 MB
+L2), so the splits are kept for parity of paths, not out of need;
+chip_smoke.py times the five big-tree kernels on the same rays so they can
+be moved on evidence. The n_rays < 8192 XLA escape (intersect.py:395) does
+not carry over: on the card every call launches a kernel.
 
 A CUDA tensor launches the kernel, or raises: nothing catches a build or
 launch error to fall back, and no environment switch swaps kernels. A CPU
 tensor takes the plain version, which walks the same arrays in the same
 visiting order. Each wrapper counts its launches in a plain integer
-attribute (trace_union.launches, trace_paired.launches,
-trace_paired_streamed.launches, trace_ordered.launches).
+attribute (trace_union.launches, ...; KERNELS lists the wrappers' names).
 
 The kernels are built at first use with nvcc for sm_90a into
 iris_tpu_torch/build/ (plain C ABI, loaded with ctypes).
@@ -70,19 +91,36 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SLAB_FLOPS = 24
 MT_FLOPS = 55
 
-# The JAX package keeps the paired layout resident up to this many bytes
-# (paired_vmem_bytes <= 10 MB, pallas_intersect.py:1530-1545) and streams it
-# above; the port splits trace_paired / trace_paired_streamed at the same
-# size.
+# The JAX package's three VMEM gates, 10 MiB each; kernel_for splits at the
+# same sizes. PAIRED: the paired layout stays resident up to it and streams
+# above (paired_available, pallas_intersect.py:1542). DENSE: the same for
+# the dense layout (dense_available :1511). RESIDENT: the (N, 8)/(P, 12)
+# rows, each padded to 128 lanes there (pallas_available :1565).
 PAIRED_RESIDENT_BYTES = 10 << 20
+DENSE_RESIDENT_BYTES = 10 << 20
+RESIDENT_BYTES = 10 << 20
 
-# The packet walk: rays per shared cursor (one warp), and the rows per
-# shared-memory window (64-byte compact pair rows; whole leaf rows of
-# leaf_size x 48 bytes). The kernel's own constants are kPairWin and
-# kLeafWin in traverse.cu; these only count reloads in the plain version.
+# The dense layout (pallas_intersect.py:1055-1056): sibling pairs (16 floats)
+# and whole leaves (64-float slots) per 128-float row.
+PAIR_PACK = 8
+LEAF_PACK = 2
+
+# The packet walks: rays per shared cursor (one warp), and the rows per
+# shared-memory window: 64-byte pair rows, whole leaf rows (leaf_size x 48
+# bytes; 256-byte slots in the dense layout) and 32-byte nodes. The
+# kernels' own constants are kPairWin, kLeafWin and kNodeWin in
+# traverse.cu; these only count reloads in the plain versions. The dense
+# packet walk counts its windows in 128-float dense rows, as the TPU
+# kernel does: 4 rows hold 32 pairs or 8 leaf slots, the same records.
 PACKET = 32
 PAIR_WIN = 32
 LEAF_WIN = 8
+NODE_WIN = 64
+DENSE_PAIR_WIN = PAIR_WIN // PAIR_PACK
+DENSE_LEAF_WIN = LEAF_WIN // LEAF_PACK
+
+KERNELS = ("trace_union", "trace_streamed", "trace_ordered", "trace_paired",
+           "trace_paired_streamed", "trace_dense", "trace_dense_streamed")
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -113,18 +151,15 @@ def get_lib() -> ctypes.CDLL:
             vp, i32 = ctypes.c_void_p, ctypes.c_int
             lib.iris_paired_stack_cap.restype = i32
             lib.iris_paired_stack_cap.argtypes = []
-            lib.iris_trace_union.restype = i32
-            lib.iris_trace_union.argtypes = [
-                vp, i32, vp, i32, i32, vp, vp, i32, vp, vp, vp, vp, vp]
-            lib.iris_trace_paired.restype = i32
-            lib.iris_trace_paired.argtypes = [
-                vp, i32, vp, i32, i32, i32, vp, vp, i32, vp, vp, vp, vp, vp]
-            lib.iris_trace_ordered.restype = i32
-            lib.iris_trace_ordered.argtypes = [
-                vp, i32, vp, i32, i32, i32, vp, vp, i32, vp, vp, vp, vp, vp]
-            lib.iris_trace_paired_streamed.restype = i32
-            lib.iris_trace_paired_streamed.argtypes = [
-                vp, i32, vp, i32, i32, i32, vp, vp, i32, vp, vp, vp, vp, vp]
+            walk = [vp, i32, vp, i32, i32]          # two arrays, leaf_size
+            tail = [vp, vp, i32, vp, vp, vp, vp, vp]  # rays, hits, stream
+            for name, stack in (("union", False), ("streamed", False),
+                                ("ordered", True), ("paired", True),
+                                ("paired_streamed", True), ("dense", True),
+                                ("dense_streamed", True)):
+                fn = getattr(lib, "iris_trace_" + name)
+                fn.restype = i32
+                fn.argtypes = walk + ([i32] if stack else []) + tail
             _LIB = lib
         return _LIB
 
@@ -194,9 +229,10 @@ def pack_paired(tracer: Tracer):
     row counts padded to multiples of 8. pairs holds the _pair_rows in its
     first 16 lanes; leaves holds one whole leaf (leaf_size x 12 floats) per
     row. Cached on the tracer."""
-    if tracer.paired is not None:
+    if (tracer.paired is not None
+            and tracer.paired[0].device == tracer.nodes.device):
         return tracer.paired
-    rows, n_pairs, n_leaf_rows = _pair_rows(tracer)
+    rows, _, n_pairs, n_leaf_rows = pack_paired_compact(tracer)
     L = tracer.leaf_size
     dev = rows.device
     pairs = torch.zeros((n_pairs + (-n_pairs) % 8, 128), dtype=torch.float32,
@@ -209,31 +245,123 @@ def pack_paired(tracer: Tracer):
     return tracer.paired
 
 
+def _pad8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def _pair_leaf_counts(tracer: Tracer) -> tuple[int, int]:
+    n_leaf_rows = tracer.tris.shape[0] // tracer.leaf_size
+    return tracer.n_nodes - n_leaf_rows, n_leaf_rows
+
+
 def paired_layout_bytes(tracer: Tracer) -> int:
     """Bytes of the paired layout's (R8, 128) + (P/L 8, 128) float32 rows
     (paired_vmem_bytes, pallas_intersect.py:1530-1539), from the tree's
     counts alone."""
+    n_pairs, n_leaf_rows = _pair_leaf_counts(tracer)
+    return (_pad8(n_pairs) + _pad8(n_leaf_rows)) * 128 * 4
 
-    def pad8(n: int) -> int:
-        return -(-n // 8) * 8
 
+def dense_layout_bytes(tracer: Tracer) -> int:
+    """Bytes of the dense layout's 128-float rows, PAIR_PACK pairs or
+    LEAF_PACK leaves each (dense_vmem_bytes, pallas_intersect.py:1498),
+    from the tree's counts alone."""
+    n_pairs, n_leaf_rows = _pair_leaf_counts(tracer)
+    return (_pad8(-(-n_pairs // PAIR_PACK))
+            + _pad8(-(-n_leaf_rows // LEAF_PACK))) * 128 * 4
+
+
+def resident_layout_bytes(tracer: Tracer) -> int:
+    """Bytes of the (N, 8) node and (P, 12) triangle rows once each is
+    padded to 128 lanes, as the TPU stages them (vmem_bytes,
+    pallas_intersect.py:1548)."""
+    return (_pad8(tracer.nodes.shape[0])
+            + _pad8(tracer.tris.shape[0])) * 128 * 4
+
+
+# Which layouts take a tree (pallas_intersect.py:1511-1589). The byte gates
+# are read when called, so a caller may move them.
+
+def _pairable(tracer: Tracer, leaf_floats: int) -> bool:
+    return (tracer.layout == "preorder" and tracer.n_nodes > 1
+            and tracer.leaf_size * 12 <= leaf_floats)
+
+
+def paired_available(tracer: Tracer) -> bool:
+    return (_pairable(tracer, 128)
+            and paired_layout_bytes(tracer) <= PAIRED_RESIDENT_BYTES)
+
+
+def dense_available(tracer: Tracer) -> bool:
+    return (_pairable(tracer, 64)
+            and dense_layout_bytes(tracer) <= DENSE_RESIDENT_BYTES)
+
+
+def resident_available(tracer: Tracer) -> bool:
+    """pallas_available (:1565)."""
+    return resident_layout_bytes(tracer) <= RESIDENT_BYTES
+
+
+def streamable(tracer: Tracer) -> bool:
+    """pallas_streamable (:1571)."""
+    return tracer.layout == "preorder"
+
+
+def paired_streamed_available(tracer: Tracer) -> bool:
+    return _pairable(tracer, 128)
+
+
+def dense_streamed_available(tracer: Tracer) -> bool:
+    return _pairable(tracer, 64)
+
+
+def _leaf_rows(tracer: Tracer):
+    """tracer.tris as whole leaves: (n_leaf_rows, leaf_size * 12), a view
+    (its leaves are leaf_size-aligned runs of 12-float triangle rows)."""
     n_leaf_rows = tracer.tris.shape[0] // tracer.leaf_size
-    n_pairs = tracer.n_nodes - n_leaf_rows
-    return (pad8(n_pairs) + pad8(n_leaf_rows)) * 128 * 4
+    return tracer.tris[:n_leaf_rows * tracer.leaf_size].reshape(
+        n_leaf_rows, tracer.leaf_size * 12)
 
 
 def pack_paired_compact(tracer: Tracer):
     """The paired layout without its padding, as the packet walk reads it:
     (pairs16 (n_pairs, 16), leaf rows (n_leaf_rows, leaf_size * 12),
     n_pairs, n_leaf_rows). pairs16 is the _pair_rows themselves, cached on
-    the tracer; the leaf rows are tracer.tris itself, whose leaves are
-    leaf_size-aligned runs of 12-float triangle rows."""
+    the tracer; the leaf rows are tracer.tris itself."""
     if tracer.pairs16 is None or tracer.pairs16.device != tracer.nodes.device:
         tracer.pairs16 = _pair_rows(tracer)[0].contiguous()
-    n_leaf_rows = tracer.tris.shape[0] // tracer.leaf_size
-    leaf_rows = tracer.tris[:n_leaf_rows * tracer.leaf_size].reshape(
-        n_leaf_rows, tracer.leaf_size * 12)
-    return tracer.pairs16, leaf_rows, tracer.pairs16.shape[0], n_leaf_rows
+    leaf_rows = _leaf_rows(tracer)
+    return tracer.pairs16, leaf_rows, tracer.pairs16.shape[0], \
+        leaf_rows.shape[0]
+
+
+def pack_dense(tracer: Tracer):
+    """Re-pack a preorder BVH into the dense layout of the TPU kernels
+    (_pack_dense, pallas_intersect.py:1059): (pairs (R8, 128), leaves
+    (R8, 128), n_pairs, n_leaf_rows), the same values bit for bit. A pair
+    row holds PAIR_PACK pair records of 16 floats: the array is pairs16
+    itself, padded with zero records to whole rows and to a multiple of 8
+    rows. A leaf row holds LEAF_PACK slots of 64 floats, leaf_size * 12 of
+    them used. Cached on the tracer."""
+    if (tracer.dense is not None
+            and tracer.dense[0].device == tracer.nodes.device):
+        return tracer.dense
+    if tracer.leaf_size * 12 > 64:
+        raise ValueError("leaf exceeds its 64-float slot of the dense "
+                         "layout")
+    rows, leaf_rows, n_pairs, n_leaf_rows = pack_paired_compact(tracer)
+    dev = rows.device
+    pair_rows = _pad8(-(-n_pairs // PAIR_PACK))
+    pairs = torch.zeros((pair_rows * PAIR_PACK, 16), dtype=torch.float32,
+                        device=dev)
+    pairs[:n_pairs] = rows
+    slot_rows = _pad8(-(-n_leaf_rows // LEAF_PACK))
+    slots = torch.zeros((slot_rows * LEAF_PACK, 64), dtype=torch.float32,
+                        device=dev)
+    slots[:n_leaf_rows, :tracer.leaf_size * 12] = leaf_rows
+    tracer.dense = (pairs.view(pair_rows, 128), slots.view(slot_rows, 128),
+                    n_pairs, n_leaf_rows)
+    return tracer.dense
 
 
 # ------------------------------------------------------- plain versions
@@ -344,17 +472,12 @@ def trace_union_plain(tracer: Tracer, origins: torch.Tensor,
     return best
 
 
-def trace_paired_plain(tracer: Tracer, origins: torch.Tensor,
-                       dirs: torch.Tensor, counts: dict | None = None):
-    """Plain PyTorch version of trace_paired: the same per-ray near-first
-    walk over the paired rows, with a (B, stack_depth) stack tensor and
-    stack_depth = auto_stack_depth(tracer) >= depth + 4.
-
-    counts, when given, receives "slab" tests (two per pair row popped)
-    and "mt" triangle tests."""
-    pairs, leaves, n_pairs, n_leaf_rows = pack_paired(tracer)
-    L = tracer.leaf_size
-    s = auto_stack_depth(tracer)
+def _pair_walk_plain(rows16, leaf_rows, n_pairs, n_leaf_rows, L, s, origins,
+                     dirs, counts):
+    """The per-ray near-first walk over pair records rows16 (>= n_pairs,
+    16) and whole leaves leaf_rows (>= n_leaf_rows, >= L * 12), with a
+    (B, s) stack tensor: what trace_paired and trace_dense compute, each
+    over its own layout's views."""
     o, d = origins, dirs
     b = o.shape[0]
     dev = o.device
@@ -368,7 +491,7 @@ def trace_paired_plain(tracer: Tracer, origins: torch.Tensor,
         if alive.numel() == 0:
             break
         sp1 = sp[alive] - 1
-        row = pairs[stack[alive, sp1], :16]
+        row = rows16[stack[alive, sp1]]
         oa, ia, tb = o[alive], inv[alive], best[0][alive]
         hit_l, tlo_l = _slab(oa, ia, row[:, 0:6], tb)
         hit_r, tlo_r = _slab(oa, ia, row[:, 8:14], tb)
@@ -380,7 +503,7 @@ def trace_paired_plain(tracer: Tracer, origins: torch.Tensor,
             m = hit & is_leaf
             rows = alive[m]
             lrow = torch.clamp((-dc[m]).to(torch.int64), 0, n_leaf_rows - 1)
-            lf = leaves[lrow]
+            lf = leaf_rows[lrow]
             for k in range(L):
                 _mt_fold(lf[:, k * 12:k * 12 + 12], o[rows], d[rows], rows,
                          best)
@@ -408,6 +531,33 @@ def trace_paired_plain(tracer: Tracer, origins: torch.Tensor,
     if counts is not None:
         counts.update(slab=n_slab, mt=n_mt)
     return best
+
+
+def trace_paired_plain(tracer: Tracer, origins: torch.Tensor,
+                       dirs: torch.Tensor, counts: dict | None = None):
+    """Plain PyTorch version of trace_paired: the same per-ray near-first
+    walk over the paired rows, with a (B, stack_depth) stack tensor and
+    stack_depth = auto_stack_depth(tracer) >= depth + 4.
+
+    counts, when given, receives "slab" tests (two per pair row popped)
+    and "mt" triangle tests."""
+    pairs, leaves, n_pairs, n_leaf_rows = pack_paired(tracer)
+    return _pair_walk_plain(pairs[:, :16], leaves, n_pairs, n_leaf_rows,
+                            tracer.leaf_size, auto_stack_depth(tracer),
+                            origins, dirs, counts)
+
+
+def trace_dense_plain(tracer: Tracer, origins: torch.Tensor,
+                      dirs: torch.Tensor, counts: dict | None = None):
+    """Plain PyTorch version of trace_dense: trace_paired_plain's walk with
+    every record taken from its slot of the dense layout (pair p at row
+    p // 8, lanes 16 * (p % 8) + ...; leaf l at row l // 2, lanes
+    64 * (l % 2) + ...), which the (R * 8, 16) and (R * 2, 64) views index
+    directly. Same counts as trace_paired_plain."""
+    pairs, leaves, n_pairs, n_leaf_rows = pack_dense(tracer)
+    return _pair_walk_plain(pairs.view(-1, 16), leaves.view(-1, 64), n_pairs,
+                            n_leaf_rows, tracer.leaf_size,
+                            auto_stack_depth(tracer), origins, dirs, counts)
 
 
 def trace_ordered_plain(tracer: Tracer, origins: torch.Tensor,
@@ -491,42 +641,37 @@ def _halving_sum(x: torch.Tensor) -> torch.Tensor:
     return x[:, 0]
 
 
-def trace_paired_streamed_plain(tracer: Tracer, origins: torch.Tensor,
-                                dirs: torch.Tensor,
-                                counts: dict | None = None,
-                                width: int = PACKET,
-                                pair_win: int = PAIR_WIN,
-                                leaf_win: int = LEAF_WIN):
-    """Plain PyTorch version of trace_paired_streamed: the same packet
-    walk, vectorized over the packets still walking. Each packet of `width`
-    consecutive rays (a power of two; the kernel's is PACKET) shares one
-    cursor and one (stack_depth,) stack; lanes vote on each child, the
-    lanes that entered a leaf child's box fold its triangles, and the far
-    and near internal children are ordered by the mean entry distance of
-    the lanes that hit them. Rays past the end of the last packet never
-    vote.
-
-    The windows change what is read from where, not the result; the plain
-    version only counts them. counts, when given, receives "slab" tests
-    (two per lane per pair row popped), "mt" triangle tests (lanes that
-    entered the leaf), "pops", and "pair_loads"/"leaf_loads": the window
-    reloads of aligned pair_win/leaf_win-row windows."""
+def _check_width(width: int) -> None:
     if width < 1 or width & (width - 1):
         raise ValueError(f"packet width {width} is not a power of two")
-    pairs16, leaf_rows, n_pairs, n_leaf_rows = pack_paired_compact(tracer)
-    L = tracer.leaf_size
-    s = auto_stack_depth(tracer)
+
+
+def _pad_packets(origins, dirs, width):
+    """Rays padded to whole packets (the last ray repeated): (o, d, live
+    mask, packets). Rays past the end never vote."""
     b = origins.shape[0]
-    dev = origins.device
     pad = (-b) % width
     o, d = origins, dirs
     if pad:
         o = torch.cat([o, o[-1:].expand(pad, 3)], 0)
         d = torch.cat([d, d[-1:].expand(pad, 3)], 0)
-    live = torch.arange(b + pad, device=dev) < b
-    nq = (b + pad) // width
+    live = torch.arange(b + pad, device=o.device) < b
+    return o, d, live, (b + pad) // width
+
+
+def _packet_walk_plain(rows16, leaf_rows, n_pairs, n_leaf_rows, L, s, origins,
+                       dirs, counts, width, pair_win, leaf_win):
+    """The near-first packet walk over pair records rows16 and whole leaves
+    leaf_rows, vectorized over the packets still walking: what
+    trace_paired_streamed and trace_dense_streamed compute. pair_win and
+    leaf_win are window sizes in pair records and leaves; they change what
+    is read from where, not the result, and are only counted."""
+    _check_width(width)
+    b = origins.shape[0]
+    dev = origins.device
+    o, d, live, nq = _pad_packets(origins, dirs, width)
     inv = _safe_inv(d)
-    best = _new_best(b + pad, dev)
+    best = _new_best(o.shape[0], dev)
     stack = torch.zeros((nq, s), dtype=torch.int64, device=dev)
     sp = torch.ones(nq, dtype=torch.int64, device=dev)
     pwin = torch.full((nq,), -1, dtype=torch.int64, device=dev)
@@ -540,10 +685,10 @@ def trace_paired_streamed_plain(tracer: Tracer, origins: torch.Tensor,
             break
         sp1 = sp[alive] - 1
         rid = stack[alive, sp1]
-        tgt = rid // pair_win
+        tgt = rid // pair_win  # window of this pair record
         n_pload += int((tgt != pwin[alive]).sum())
         pwin[alive] = tgt
-        row = pairs16[rid]
+        row = rows16[rid]
         ridx = (alive[:, None] * width + lane[None, :]).reshape(-1)
         rowx = row.repeat_interleave(width, 0)
         oa, ia, tb, lv = o[ridx], inv[ridx], best[0][ridx], live[ridx]
@@ -605,6 +750,130 @@ def trace_paired_streamed_plain(tracer: Tracer, origins: torch.Tensor,
     return tuple(x[:b] for x in best)
 
 
+def trace_paired_streamed_plain(tracer: Tracer, origins: torch.Tensor,
+                                dirs: torch.Tensor,
+                                counts: dict | None = None,
+                                width: int = PACKET,
+                                pair_win: int = PAIR_WIN,
+                                leaf_win: int = LEAF_WIN):
+    """Plain PyTorch version of trace_paired_streamed: the same packet
+    walk, vectorized over the packets still walking. Each packet of `width`
+    consecutive rays (a power of two; the kernel's is PACKET) shares one
+    cursor and one (stack_depth,) stack; lanes vote on each child, the
+    lanes that entered a leaf child's box fold its triangles, and the far
+    and near internal children are ordered by the mean entry distance of
+    the lanes that hit them. Rays past the end of the last packet never
+    vote.
+
+    The windows change what is read from where, not the result; the plain
+    version only counts them. counts, when given, receives "slab" tests
+    (two per lane per pair row popped), "mt" triangle tests (lanes that
+    entered the leaf), "pops", and "pair_loads"/"leaf_loads": the window
+    reloads of aligned pair_win/leaf_win-row windows."""
+    pairs16, leaf_rows, n_pairs, n_leaf_rows = pack_paired_compact(tracer)
+    return _packet_walk_plain(pairs16, leaf_rows, n_pairs, n_leaf_rows,
+                              tracer.leaf_size, auto_stack_depth(tracer),
+                              origins, dirs, counts, width, pair_win,
+                              leaf_win)
+
+
+def trace_dense_streamed_plain(tracer: Tracer, origins: torch.Tensor,
+                               dirs: torch.Tensor,
+                               counts: dict | None = None,
+                               width: int = PACKET,
+                               pair_win: int = DENSE_PAIR_WIN,
+                               leaf_win: int = DENSE_LEAF_WIN):
+    """Plain PyTorch version of trace_dense_streamed: trace_paired_streamed
+    _plain's packet walk with every record taken from its slot of the dense
+    layout. pair_win and leaf_win count 128-float dense rows, as the TPU
+    kernel's do (a pair window covers pair_win * 8 pairs, a leaf window
+    leaf_win * 2 leaves); left leaf before right leaf, each with its own
+    window check. Same counts as trace_paired_streamed_plain."""
+    pairs, leaves, n_pairs, n_leaf_rows = pack_dense(tracer)
+    return _packet_walk_plain(pairs.view(-1, 16), leaves.view(-1, 64),
+                              n_pairs, n_leaf_rows, tracer.leaf_size,
+                              auto_stack_depth(tracer), origins, dirs, counts,
+                              width, pair_win * PAIR_PACK,
+                              leaf_win * LEAF_PACK)
+
+
+def trace_streamed_plain(tracer: Tracer, origins: torch.Tensor,
+                         dirs: torch.Tensor, counts: dict | None = None,
+                         width: int = PACKET, node_win: int = NODE_WIN,
+                         leaf_win: int = LEAF_WIN):
+    """Plain PyTorch version of trace_streamed: the stackless preorder
+    walk with one cursor per packet of `width` consecutive rays,
+    vectorized over the packets still walking. Every lane slab-tests the
+    cursor's node against its own t_best; the packet descends when any
+    lane hit, else jumps to the skip pointer; a leaf is folded only by the
+    lanes whose own test hit. A lane's extra visits are misses for it, so
+    the hits are those of the per-ray walk (trace_union_plain), bit for
+    bit.
+
+    counts, when given, receives "slab" tests (one per lane per node
+    visited), "mt" triangle tests, "visits", and "node_loads"/"leaf_loads":
+    the reloads of aligned node_win/leaf_win-row windows, which in a
+    preorder tree only move forward."""
+    _check_width(width)
+    if tracer.layout != "preorder":
+        raise ValueError("the streamed walk needs a preorder (SAH) tree")
+    nodes = tracer.nodes
+    leaf_rows = _leaf_rows(tracer)
+    n, n_leaf_rows, L = tracer.n_nodes, leaf_rows.shape[0], tracer.leaf_size
+    b = origins.shape[0]
+    dev = origins.device
+    o, d, live, nq = _pad_packets(origins, dirs, width)
+    inv = _safe_inv(d)
+    best = _new_best(o.shape[0], dev)
+    cur = torch.ones(nq, dtype=torch.int64, device=dev)
+    nwin = torch.full((nq,), -1, dtype=torch.int64, device=dev)
+    lwin = torch.full((nq,), -1, dtype=torch.int64, device=dev)
+    alive = torch.arange(nq, device=dev)
+    lane = torch.arange(width, device=dev)
+    n_slab = n_mt = n_visits = n_nload = n_lload = 0
+    for _ in range(2 * n + 2):        # a well-formed walk visits <= n nodes
+        na = alive.numel()
+        if na == 0:
+            break
+        node = torch.clamp(cur[alive] - 1, 0, n - 1)
+        tgt = node // node_win
+        n_nload += int((tgt != nwin[alive]).sum())
+        nwin[alive] = tgt
+        nd = nodes[node]
+        ridx = (alive[:, None] * width + lane[None, :]).reshape(-1)
+        ndx = nd.repeat_interleave(width, 0)
+        lv = live[ridx]
+        hit, _ = _slab(o[ridx], inv[ridx], ndx[:, 0:6], best[0][ridx])
+        hit = (hit & lv).reshape(na, width)
+        any_hit = hit.any(1)
+        desc = nd[:, 7]
+        leaf = desc <= 0.0
+        do = any_hit & leaf
+        lrow = torch.clamp((-desc).to(torch.int64) // L, 0, n_leaf_rows - 1)
+        ltgt = lrow // leaf_win
+        held = lwin[alive]
+        n_lload += int((do & (ltgt != held)).sum())
+        lwin[alive] = torch.where(do, ltgt, held)
+        m = (hit & do[:, None]).reshape(-1)
+        rays = ridx[m]
+        lf = leaf_rows[lrow.repeat_interleave(width)[m]]
+        for k in range(L):
+            _mt_fold(lf[:, k * 12:k * 12 + 12], o[rays], d[rays], rays, best)
+        nxt = torch.where(any_hit & ~leaf, desc.to(torch.int64),
+                          nd[:, 6].to(torch.int64))
+        cur[alive] = nxt
+        n_slab += int(lv.sum())
+        n_mt += rays.numel() * L
+        n_visits += na
+        alive = alive[nxt > 0]
+    if alive.numel():
+        raise RuntimeError("BVH walk did not terminate: corrupt tree")
+    if counts is not None:
+        counts.update(slab=n_slab, mt=n_mt, visits=n_visits,
+                      node_loads=n_nload, leaf_loads=n_lload)
+    return tuple(x[:b] for x in best)
+
+
 # -------------------------------------------------------------- wrappers
 
 def _check_cuda(name, arrays: dict, origins, dirs):
@@ -639,31 +908,86 @@ def _outputs(b: int, dev):
             torch.empty(b, dtype=torch.int32, device=dev))
 
 
+def _launch(wrapper, arrays: dict, head: tuple, origins, dirs, hint=""):
+    """Check the inputs, launch the wrapper's kernel (the C function
+    iris_<wrapper name>) on the current stream, count the launch and
+    return (t, u, v, face). `arrays` are the two tree arrays by name,
+    `head` the C function's arguments before the rays."""
+    name = wrapper.__name__
+    _check_cuda(name, arrays, origins, dirs)
+    b = origins.shape[0]
+    t, u, v, face = _outputs(b, origins.device)
+    with torch.cuda.device(origins.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(get_lib(), "iris_" + name)(
+            *head, origins.data_ptr(), dirs.data_ptr(), b, t.data_ptr(),
+            u.data_ptr(), v.data_ptr(), face.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}"
+                           + (f" ({hint})" if hint and rc == 1 else ""))
+    wrapper.launches += 1
+    return t, u, v, face
+
+
+def _stack_entries(name: str, tracer: Tracer) -> int:
+    depth = auto_stack_depth(tracer)
+    cap = get_lib().iris_paired_stack_cap()
+    if depth > cap:
+        raise ValueError(
+            f"{name}: the tree needs a {depth}-entry stack (depth "
+            f"{tracer.depth}); the kernel holds {cap}")
+    return depth
+
+
+def _need_preorder(name: str, tracer: Tracer) -> None:
+    if tracer.layout != "preorder":
+        raise ValueError(f"{name} needs a preorder (SAH) tree")
+
+
 def trace_union(tracer: Tracer, origins: torch.Tensor, dirs: torch.Tensor):
     """Closest hits by the stackless skip-pointer walk (replaces
     pallas_ray_trace, pallas_intersect.py:240). Any layout.
     Returns (t, u, v, face) per ray."""
     if origins.device.type == "cpu":
         return trace_union_plain(tracer, origins, dirs)
-    _check_cuda("trace_union", {"nodes": tracer.nodes, "tris": tracer.tris},
-                origins, dirs)
-    lib = get_lib()
-    b = origins.shape[0]
-    t, u, v, face = _outputs(b, origins.device)
-    with torch.cuda.device(origins.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.iris_trace_union(
-            tracer.nodes.data_ptr(), tracer.n_nodes, tracer.tris.data_ptr(),
-            tracer.tris.shape[0], tracer.leaf_size, origins.data_ptr(),
-            dirs.data_ptr(), b, t.data_ptr(), u.data_ptr(), v.data_ptr(),
-            face.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"trace_union launch failed: CUDA error {rc}")
-    trace_union.launches += 1
-    return t, u, v, face
+    return _launch(
+        trace_union, {"nodes": tracer.nodes, "tris": tracer.tris},
+        (tracer.nodes.data_ptr(), tracer.n_nodes, tracer.tris.data_ptr(),
+         tracer.tris.shape[0], tracer.leaf_size), origins, dirs)
 
 
-trace_union.launches = 0
+def trace_streamed(tracer: Tracer, origins: torch.Tensor, dirs: torch.Tensor):
+    """Closest hits by the stackless skip-pointer walk with one cursor per
+    warp of PACKET consecutive rays, nodes and whole leaves fetched through
+    NODE_WIN/LEAF_WIN-row shared-memory windows that only move forward
+    (replaces pallas_ray_trace_streamed, pallas_intersect.py:371). Preorder
+    trees only. Returns (t, u, v, face) per ray."""
+    if origins.device.type == "cpu":
+        return trace_streamed_plain(tracer, origins, dirs)
+    _need_preorder("trace_streamed", tracer)
+    leaf_rows = _leaf_rows(tracer)
+    return _launch(
+        trace_streamed, {"nodes": tracer.nodes, "leaf rows": leaf_rows},
+        (tracer.nodes.data_ptr(), tracer.n_nodes, leaf_rows.data_ptr(),
+         leaf_rows.shape[0], tracer.leaf_size), origins, dirs,
+        hint=f"invalid value: an empty tree, or the windows of "
+             f"{tracer.leaf_size}-triangle leaf rows do not fit a block's "
+             "shared memory")
+
+
+def trace_ordered(tracer: Tracer, origins: torch.Tensor, dirs: torch.Tensor):
+    """Closest hits by the near-first, pop-time-pruned walk over the
+    unpaired nodes (N, 8) and tris (P, 12) (replaces
+    pallas_ray_trace_ordered, pallas_intersect.py:579). Preorder trees
+    only, any leaf_size. Returns (t, u, v, face) per ray."""
+    if origins.device.type == "cpu":
+        return trace_ordered_plain(tracer, origins, dirs)
+    _need_preorder("trace_ordered", tracer)
+    return _launch(
+        trace_ordered, {"nodes": tracer.nodes, "tris": tracer.tris},
+        (tracer.nodes.data_ptr(), tracer.n_nodes, tracer.tris.data_ptr(),
+         tracer.tris.shape[0], tracer.leaf_size,
+         _stack_entries("trace_ordered", tracer)), origins, dirs)
 
 
 def trace_paired(tracer: Tracer, origins: torch.Tensor, dirs: torch.Tensor):
@@ -673,36 +997,11 @@ def trace_paired(tracer: Tracer, origins: torch.Tensor, dirs: torch.Tensor):
     if origins.device.type == "cpu":
         return trace_paired_plain(tracer, origins, dirs)
     pairs, leaves, n_pairs, n_leaf_rows = pack_paired(tracer)
-    _check_cuda("trace_paired", {"pairs": pairs, "leaves": leaves},
-                origins, dirs)
-    lib = get_lib()
-    depth = _stack_entries("trace_paired", tracer, lib)
-    b = origins.shape[0]
-    t, u, v, face = _outputs(b, origins.device)
-    with torch.cuda.device(origins.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.iris_trace_paired(
-            pairs.data_ptr(), n_pairs, leaves.data_ptr(), n_leaf_rows,
-            tracer.leaf_size, depth, origins.data_ptr(), dirs.data_ptr(), b,
-            t.data_ptr(), u.data_ptr(), v.data_ptr(), face.data_ptr(),
-            stream)
-    if rc != 0:
-        raise RuntimeError(f"trace_paired launch failed: CUDA error {rc}")
-    trace_paired.launches += 1
-    return t, u, v, face
-
-
-trace_paired.launches = 0
-
-
-def _stack_entries(name: str, tracer: Tracer, lib) -> int:
-    depth = auto_stack_depth(tracer)
-    cap = lib.iris_paired_stack_cap()
-    if depth > cap:
-        raise ValueError(
-            f"{name}: the tree needs a {depth}-entry stack (depth "
-            f"{tracer.depth}); the kernel holds {cap}")
-    return depth
+    return _launch(
+        trace_paired, {"pairs": pairs, "leaves": leaves},
+        (pairs.data_ptr(), n_pairs, leaves.data_ptr(), n_leaf_rows,
+         tracer.leaf_size, _stack_entries("trace_paired", tracer)),
+        origins, dirs)
 
 
 def trace_paired_streamed(tracer: Tracer, origins: torch.Tensor,
@@ -715,58 +1014,49 @@ def trace_paired_streamed(tracer: Tracer, origins: torch.Tensor,
     if origins.device.type == "cpu":
         return trace_paired_streamed_plain(tracer, origins, dirs)
     pairs16, leaf_rows, n_pairs, n_leaf_rows = pack_paired_compact(tracer)
-    _check_cuda("trace_paired_streamed",
-                {"pairs16": pairs16, "leaf rows": leaf_rows}, origins, dirs)
-    lib = get_lib()
-    depth = _stack_entries("trace_paired_streamed", tracer, lib)
-    b = origins.shape[0]
-    t, u, v, face = _outputs(b, origins.device)
-    with torch.cuda.device(origins.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.iris_trace_paired_streamed(
-            pairs16.data_ptr(), n_pairs, leaf_rows.data_ptr(), n_leaf_rows,
-            tracer.leaf_size, depth, origins.data_ptr(), dirs.data_ptr(), b,
-            t.data_ptr(), u.data_ptr(), v.data_ptr(), face.data_ptr(),
-            stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"trace_paired_streamed launch failed: CUDA error {rc}"
-            + (f" (invalid value: an empty tree, or the windows of "
-               f"{tracer.leaf_size}-triangle leaf rows do not fit a "
-               "block's shared memory)" if rc == 1 else ""))
-    trace_paired_streamed.launches += 1
-    return t, u, v, face
+    return _launch(
+        trace_paired_streamed, {"pairs16": pairs16, "leaf rows": leaf_rows},
+        (pairs16.data_ptr(), n_pairs, leaf_rows.data_ptr(), n_leaf_rows,
+         tracer.leaf_size, _stack_entries("trace_paired_streamed", tracer)),
+        origins, dirs,
+        hint=f"invalid value: an empty tree, or the windows of "
+             f"{tracer.leaf_size}-triangle leaf rows do not fit a block's "
+             "shared memory")
 
 
-trace_paired_streamed.launches = 0
-
-
-def trace_ordered(tracer: Tracer, origins: torch.Tensor, dirs: torch.Tensor):
-    """Closest hits by the near-first, pop-time-pruned walk over the
-    unpaired nodes (N, 8) and tris (P, 12) (replaces
-    pallas_ray_trace_ordered, pallas_intersect.py:579). Preorder trees
-    only, any leaf_size. Returns (t, u, v, face) per ray."""
+def trace_dense(tracer: Tracer, origins: torch.Tensor, dirs: torch.Tensor):
+    """Closest hits by the per-ray near-first walk over the dense layout:
+    64-byte pair records, 8 to a row, and 256-byte leaf slots, 2 to a row
+    (replaces pallas_ray_trace_dense, pallas_intersect.py:1221). Preorder
+    trees with leaf_size <= 5 and an internal root. Returns (t, u, v, face)
+    per ray."""
     if origins.device.type == "cpu":
-        return trace_ordered_plain(tracer, origins, dirs)
-    if tracer.layout != "preorder":
-        raise ValueError("the ordered walk needs a preorder (SAH) tree")
-    _check_cuda("trace_ordered", {"nodes": tracer.nodes, "tris": tracer.tris},
-                origins, dirs)
-    lib = get_lib()
-    depth = _stack_entries("trace_ordered", tracer, lib)
-    b = origins.shape[0]
-    t, u, v, face = _outputs(b, origins.device)
-    with torch.cuda.device(origins.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.iris_trace_ordered(
-            tracer.nodes.data_ptr(), tracer.n_nodes, tracer.tris.data_ptr(),
-            tracer.tris.shape[0], tracer.leaf_size, depth,
-            origins.data_ptr(), dirs.data_ptr(), b, t.data_ptr(),
-            u.data_ptr(), v.data_ptr(), face.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"trace_ordered launch failed: CUDA error {rc}")
-    trace_ordered.launches += 1
-    return t, u, v, face
+        return trace_dense_plain(tracer, origins, dirs)
+    pairs, leaves, n_pairs, n_leaf_rows = pack_dense(tracer)
+    return _launch(
+        trace_dense, {"dense pairs": pairs, "dense leaves": leaves},
+        (pairs.data_ptr(), n_pairs, leaves.data_ptr(), n_leaf_rows,
+         tracer.leaf_size, _stack_entries("trace_dense", tracer)),
+        origins, dirs)
 
 
-trace_ordered.launches = 0
+def trace_dense_streamed(tracer: Tracer, origins: torch.Tensor,
+                         dirs: torch.Tensor):
+    """Closest hits by the packet walk over the dense layout, its rows
+    fetched through windows of DENSE_PAIR_WIN/DENSE_LEAF_WIN dense rows
+    (replaces pallas_ray_trace_dense_streamed, pallas_intersect.py:1437).
+    Preorder trees with leaf_size <= 5 and an internal root. Returns
+    (t, u, v, face) per ray."""
+    if origins.device.type == "cpu":
+        return trace_dense_streamed_plain(tracer, origins, dirs)
+    pairs, leaves, n_pairs, n_leaf_rows = pack_dense(tracer)
+    return _launch(
+        trace_dense_streamed, {"dense pairs": pairs, "dense leaves": leaves},
+        (pairs.data_ptr(), n_pairs, leaves.data_ptr(), n_leaf_rows,
+         tracer.leaf_size, _stack_entries("trace_dense_streamed", tracer)),
+        origins, dirs)
+
+
+for _name in KERNELS:
+    globals()[_name].launches = 0
+del _name

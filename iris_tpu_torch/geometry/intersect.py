@@ -5,18 +5,11 @@ ray_intersect returns (positions, normals, uvs, idx, valid) with normals
 unit length and flipped toward the ray origin, idx == -1 for misses. The
 traversal itself carries no gradients.
 
-Which traversal runs (the port's replacement for _pallas_mode,
-intersect.py:383; the table is in geometry/cuda_intersect.py):
-
-- a tree with n_faces < 5000, or a heap (Morton) layout: trace_union;
-- a preorder tree with >= 5000 faces whose leaf row fits the paired layout
-  (leaf_size * 12 <= 128): trace_paired while the paired layout is at most
-  cuda_intersect.PAIRED_RESIDENT_BYTES (the JAX package's 10 MB gate),
-  trace_paired_streamed above (the 102K-face scene);
-- a preorder tree with >= 5000 faces and a wider leaf row: trace_ordered.
-
-On a CUDA tensor every call launches that kernel; on a CPU tensor the same
-choice takes the kernel's plain version.
+Which traversal runs: kernel_for, the port's replacement for _pallas_mode
+(intersect.py:383) and the kernel choice of ray_intersect (:501-527); the
+table is in geometry/cuda_intersect.py. On a CUDA tensor every call
+launches that kernel; on a CPU tensor the same choice takes the kernel's
+plain version.
 """
 
 from __future__ import annotations
@@ -24,24 +17,77 @@ from __future__ import annotations
 import torch
 
 from iris_tpu_torch.core.vecmath import double_sided, normalize
-from iris_tpu_torch.geometry import cuda_intersect
-from iris_tpu_torch.geometry.bvh import Tracer
+from iris_tpu_torch.geometry import cuda_intersect as ci
+from iris_tpu_torch.geometry.bvh import Tracer, TraversalPolicy
 
-T_MISS = cuda_intersect.T_MISS
-_MT_EPS = cuda_intersect._MT_EPS
+__all__ = ["TraversalPolicy", "traversal_mode", "kernel_for", "ray_trace",
+           "spatial_sort_perm", "ray_intersect", "ray_intersect_brute"]
+
+T_MISS = ci.T_MISS
+_MT_EPS = ci._MT_EPS
+
+
+def traversal_mode(tracer: Tracer) -> str | None:
+    """_pallas_mode (intersect.py:383-466), line by line, with the
+    environment dials read from tracer.policy and the VMEM gates from
+    cuda_intersect's constants (read at every call).
+
+    Two things do not carry over: IRIS_TPU_NO_PALLAS and the
+    n_rays < 8192 escape to the XLA walk (:393-396); on the card every
+    call launches a kernel, whatever its size."""
+    pol = tracer.policy
+    if pol.dense is True and ci.dense_available(tracer):          # :412
+        return "dense"
+    if pol.paired is not False and ci.paired_available(tracer):   # :414
+        if (pol.paired is True or tracer.n_faces >= 5000
+                or not ci.resident_available(tracer)):            # :421
+            return "paired"
+    if (not ci.paired_available(tracer) and pol.paired_streamed
+            and ci.paired_streamed_available(tracer)):            # :436
+        return "paired_streamed"
+    if pol.dense is not False and ci.dense_available(tracer):     # :440
+        if not ci.paired_available(tracer):                       # :448
+            return "dense"
+    if ci.resident_available(tracer):                             # :450
+        return "resident"
+    if ci.streamable(tracer):                                     # :452
+        if pol.dense_streamed and ci.dense_streamed_available(tracer):
+            return "dense_streamed"                               # :459
+        if pol.paired_streamed and ci.paired_streamed_available(tracer):
+            return "paired_streamed"                              # :462
+        return "streamed"                                         # :465
+    return None                                                   # :466
 
 
 def kernel_for(tracer: Tracer):
-    """The traversal wrapper ray_intersect sends this tree to."""
-    if (tracer.n_faces < 5000 or tracer.layout != "preorder"
-            or tracer.n_nodes <= 1):
-        return cuda_intersect.trace_union
-    if tracer.leaf_size * 12 > 128:
-        return cuda_intersect.trace_ordered
-    if (cuda_intersect.paired_layout_bytes(tracer)
-            <= cuda_intersect.PAIRED_RESIDENT_BYTES):
-        return cuda_intersect.trace_paired
-    return cuda_intersect.trace_paired_streamed
+    """The traversal wrapper ray_intersect sends this tree to: the mode of
+    traversal_mode mapped as ray_intersect maps it (intersect.py:501-527).
+
+    With the default TraversalPolicy: < 5000 faces or a heap (Morton) tree
+    -> trace_union; a preorder tree with >= 5000 faces -> trace_paired
+    inside the paired gate, trace_paired_streamed past it (the 102K-face
+    scene), trace_ordered when its leaf row is too wide for the paired
+    layout (leaf_size > 10).
+
+    Where the JAX package has no kernel the port keeps one: a heap tree
+    past the resident gate (mode None, the XLA walk there) walks
+    trace_union, which takes any layout; and a preorder tree past that
+    gate whose leaf row is wider than 128 floats, where
+    pallas_ray_trace_streamed asserts (pallas_intersect.py:386), keeps
+    trace_ordered."""
+    mode = traversal_mode(tracer)
+    by_mode = {"dense_streamed": ci.trace_dense_streamed,
+               "paired_streamed": ci.trace_paired_streamed,
+               "dense": ci.trace_dense, "paired": ci.trace_paired}
+    if mode in by_mode:
+        return by_mode[mode]
+    big_preorder = tracer.n_faces >= 5000 and tracer.layout == "preorder"
+    if mode == "streamed":
+        return (ci.trace_streamed if tracer.leaf_size * 12 <= 128
+                else ci.trace_ordered)
+    if mode == "resident" and big_preorder:                       # :516
+        return ci.trace_ordered
+    return ci.trace_union
 
 
 def ray_trace(tracer: Tracer, origins: torch.Tensor, dirs: torch.Tensor):

@@ -130,7 +130,8 @@ class NGPBRDF:
     """Hash-grid + MLP BRDF parameter field (reference NGPBRDF
     :213-260)."""
 
-    table: torch.Tensor        # (L*T, F) rows, see models/hashgrid.py
+    table: torch.Tensor        # flat (F*L*T,), or (L*T, F) rows in row
+                               # mode; see models/hashgrid.py
     mlp: dict                  # {"w": [...], "b": [...]}
     voxel_min: torch.Tensor    # scalar or (3,)
     voxel_max: torch.Tensor
@@ -141,9 +142,11 @@ def init_ngp_brdf(seed: int, voxel_min, voxel_max,
                   cfg: HashGridConfig | None = None, hidden: int = 64,
                   n_hidden: int = 2, device=None) -> NGPBRDF:
     """Random field from `seed` (a torch.Generator stream: the values are
-    not the JAX package's; convert.py carries those across)."""
+    not the JAX package's; convert.py carries those across). The default
+    cfg is HashGridConfig(), the reference's 32 x 2 grid, as in the JAX
+    package (models/brdf.py:160)."""
     dev = resolve_device(device)
-    cfg = cfg or HashGridConfig(n_levels=4, n_features=16, row_gather=True)
+    cfg = cfg or HashGridConfig()
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     feat = cfg.n_levels * cfg.n_features

@@ -1,15 +1,31 @@
-"""Multi-resolution hash-grid encoding, row mode (counterpart of
+"""Multi-resolution hash-grid encoding (counterpart of
 iris_tpu/models/hashgrid.py; the reference's tiny-cuda-nn HashGrid,
-model/brdf.py:222-229).
+model/brdf.py:222-229: 32 levels x 2 features, 2^19 entries, base
+resolution 16, per-level scale 1.3, which is HashGridConfig's default).
 
-Ported: the row-gather layout, the exact 8-corner trilinear encode (what
-renders run), and the stochastic-corner training estimators with their
-explicit backward passes (hashgrid.py:426-568). The flat and packed 32Lx2F
-modes raise NotImplementedError.
+Three table modes, each with the exact 8-corner trilinear encode (what
+renders run) and the stochastic-corner training estimators with explicit
+backward passes:
 
-Table layout (hashgrid.py:79-88): element (level, entry, feature) sits at
-flat index (level*T + entry)*F + feature, so the (L*T, F) row view holds one
-feature row per table entry. The port stores that row view.
+- flat (the default): a 1-D (F*L*T,) table, feature j's level tables at
+  [j*L*T, (j+1)*L*T); one 1-D gather per feature and corner, one 1-D
+  index_add_ per feature and corner in the backward (hashgrid.py:181-249);
+- packed (packed_gather with n_features == 2, on by default): the same
+  table read through a bfloat16 cast with both features of an entry in one
+  32-bit word, one gather per corner, float32 accumulation and a float32
+  backward (:192-211, :252-267). A render of a packed table therefore
+  reads bfloat16 features;
+- row (row_gather): element (level, entry, feature) at flat index
+  (level*T + entry)*F + feature; the port stores the (L*T, F) row view,
+  one row gather per corner (:426-568).
+
+The output of the flat and packed modes is feature-major, (B, F*L); row
+mode's is level-major and feature-minor, (B, L*F). Either is a fixed
+permutation that the first MLP layer absorbs.
+
+These are gathers, scatters and elementwise passes that the JAX package
+leaves to XLA, so plain PyTorch is their port. Nothing in the encode reads
+the device back: level blocks and phases are host integers.
 
 Randomness is explicit. The stochastic estimators draw from a
 torch.Generator, or take a `samples` dict that overrides every draw:
@@ -36,6 +52,10 @@ class HashGridConfig:
     log2_table_size: int = 19
     base_resolution: int = 16
     per_level_scale: float = 1.3
+    # Both bf16 features of an entry in one 32-bit word, so a corner costs
+    # one gather instead of two (needs n_features == 2; the forward reads
+    # bf16, gradients stay f32). Ignored in row mode.
+    packed_gather: bool = True
     # Stochastic-corner estimators (active only when hashgrid_encode gets a
     # generator or samples). Each axis bit of the corner is an independent
     # Bernoulli(frac_axis), so the chosen corner has exactly its trilinear
@@ -53,18 +73,26 @@ class HashGridConfig:
     # The same subsampling of the stochastic forward: kept levels scaled by
     # the stride, the rest zero. Requires stochastic_fwd; 0 = all levels.
     fwd_level_sample: int = 0
-    # feature-minor (L*T, F) rows, one row gather per corner; the only
-    # mode ported
+    # feature-minor (L*T, F) rows, one row gather per corner
     row_gather: bool = False
+    # The JAX package's row-mode table is 1-D unless this is set, then
+    # (L*T, F); the port always holds the (L*T, F) view, and convert.py
+    # hands back the layout it was given.
+    row_native_layout: bool = False
     # Compact per-level-block gradient scatter: each sampled level's
     # cotangents go into their own (T, F) buffer, accumulated in
     # bwd_scatter_dtype, and the buffers are placed into the (L*T, F)
-    # table cotangent.
+    # table cotangent. Flat and packed modes scatter each (feature, level)
+    # into its own (T,) float32 block of the cotangent.
     bwd_compact_scatter: bool = True
     bwd_scatter_dtype: str = "bfloat16"
     # Forward gathers of the stochastic estimators may read a bfloat16 cast
-    # of the table (master rows stay f32). Renders always read f32.
+    # of the table (master rows stay f32). Row mode only, where renders
+    # always read f32.
     fwd_gather_dtype: str = "float32"
+    # Packed mode: the one-corner forward gathers level block by level
+    # block with local indices, bit-equal to the one global gather.
+    fwd_block_gather: bool = True
 
     @property
     def table_size(self) -> int:
@@ -91,10 +119,224 @@ def auto_bwd_level_sample(n_levels: int, ratio: int = 4) -> int:
 
 def init_hashgrid(gen: torch.Generator, cfg: HashGridConfig,
                   device) -> torch.Tensor:
-    """(L*T, F) table rows, uniform(-1e-4, 1e-4)."""
-    rows = torch.empty((cfg.n_levels * cfg.table_size, cfg.n_features),
-                       dtype=torch.float32, device=device)
-    return rows.uniform_(-1e-4, 1e-4, generator=gen)
+    """Table parameters, uniform(-1e-4, 1e-4): (L*T, F) rows in row mode,
+    else the flat (F*L*T,) table (hashgrid.py:160-178)."""
+    n = cfg.n_levels * cfg.table_size
+    shape = (n, cfg.n_features) if cfg.row_gather else (n * cfg.n_features,)
+    table = torch.empty(shape, dtype=torch.float32, device=device)
+    return table.uniform_(-1e-4, 1e-4, generator=gen)
+
+
+# ------------------------------------------------- flat and packed lookups
+
+def _lookup_impl(table, idxs, weights, n_features, block):
+    """(F, M): per feature j, the sum over corners k of
+    table[idxs[k] + j*block] * weights[k] (hashgrid.py:181-189)."""
+    out = []
+    for j in range(n_features):
+        acc = torch.zeros(idxs.shape[1], dtype=table.dtype,
+                          device=table.device)
+        for k in range(idxs.shape[0]):
+            acc = acc + table[idxs[k] + j * block] * weights[k]
+        out.append(acc)
+    return torch.stack(out, 0)
+
+
+def _pack_bf16(table, block):
+    """(block,) int32: entry i holds bfloat16(table[i]) in its low half and
+    bfloat16(table[block + i]) in its high half, both rounded to nearest
+    even as the JAX package's astype does. Packed through a (block, 2)
+    bfloat16 view and unpacked the same way, so no shift ever meets the
+    sign bit."""
+    pair = torch.stack([table[:block].to(torch.bfloat16),
+                        table[block:2 * block].to(torch.bfloat16)], 1)
+    return pair.view(torch.int32).reshape(block)
+
+
+def _unpack_bf16(words):
+    """(M,) int32 words -> the two float32 features (M,), (M,)."""
+    pair = words.view(torch.bfloat16).reshape(-1, 2).to(torch.float32)
+    return pair[:, 0], pair[:, 1]
+
+
+def _lookup_packed_impl(table, idxs, weights, block):
+    """_lookup_impl for two features read from the packed bf16 words: one
+    gather per corner, float32 accumulation (hashgrid.py:192-211)."""
+    packed = _pack_bf16(table, block)
+    m = idxs.shape[1]
+    acc0 = torch.zeros(m, dtype=torch.float32, device=table.device)
+    acc1 = torch.zeros(m, dtype=torch.float32, device=table.device)
+    for k in range(idxs.shape[0]):
+        g0, g1 = _unpack_bf16(packed[idxs[k]])
+        acc0 = acc0 + g0 * weights[k]
+        acc1 = acc1 + g1 * weights[k]
+    return torch.stack([acc0, acc1], 0)
+
+
+def _scatter_chosen(g, chosen_idx, phase, n_features, block, tsize,
+                    levels=0, bwd_k=0, tbl=0, compact=False,
+                    level_ids=None):
+    """(F, M) cotangent -> flat (tsize,) table cotangent by ONE 1-D
+    index_add_ per feature at the sampled corner (hashgrid.py:272-324).
+
+    With 0 < bwd_k < levels: strided level-block subsampling. Flat
+    m = q*levels + lvl with lvl = j*stride + r; keep r == phase, scale by
+    stride. With `compact`, tbl < block and at most 32 (slot, feature)
+    pairs: each kept level's cotangents are scattered with local indices
+    into that (feature, level)'s own (tbl,) block of the cotangent (every
+    index of one slot column shares a level block); otherwise one scatter
+    per feature over the whole table. level_ids names the level of each of
+    the `levels` columns (default 0..levels-1; the encode passes the
+    forward-sampled levels), so a slot's block is a host integer."""
+    cols = [g[j] for j in range(g.shape[0])]
+    k_slots = levels or 1
+    stride = 1
+    if bwd_k and levels and bwd_k < levels:
+        stride = levels // bwd_k
+        b = chosen_idx.shape[0] // levels
+        chosen_idx = chosen_idx.reshape(b, bwd_k, stride)[:, :, phase] \
+            .reshape(b * bwd_k)
+        cols = [c.reshape(b, bwd_k, stride)[:, :, phase].reshape(b * bwd_k)
+                * float(stride) for c in cols]
+        k_slots = bwd_k
+    acc = torch.zeros(tsize, dtype=cols[0].dtype, device=cols[0].device)
+    if not (compact and 0 < tbl < block and k_slots * len(cols) <= 32):
+        for j, c in enumerate(cols):
+            acc.index_add_(0, chosen_idx + j * block, c)
+        return acc
+    if level_ids is None:
+        level_ids = range(levels)
+    b = chosen_idx.shape[0] // k_slots
+    idx2 = chosen_idx.reshape(b, k_slots)
+    for s in range(k_slots):
+        local = idx2[:, s] & (tbl - 1)
+        base = level_ids[s * stride + (phase if stride > 1 else 0)] * tbl
+        for j, c in enumerate(cols):
+            lo = base + j * block
+            acc[lo:lo + tbl].index_add_(0, local, c.reshape(b, k_slots)[:, s])
+    return acc
+
+
+def _stoch_gather_impl(table, chosen_idx, n_features, block, packed,
+                       levels=0, tbl=0, fwd_block=False, level_ids=None):
+    """(F, M): every feature at the one sampled corner
+    (hashgrid.py:361-393). Packed with fwd_block: one gather per level
+    block with local indices (flat m = q*levels + lvl, so every column of
+    the (B, levels) view shares a level block), bit-equal to the global
+    gather."""
+    m = chosen_idx.shape[0]
+    if not packed:
+        return torch.stack([table[chosen_idx + j * block]
+                            for j in range(n_features)], 0)
+    packed_t = _pack_bf16(table, block)
+    if (fwd_block and levels and 0 < tbl < block and levels <= 32
+            and m % levels == 0):
+        if level_ids is None:
+            level_ids = range(levels)
+        idx2 = chosen_idx.reshape(m // levels, levels)
+        outs = []
+        for s in range(levels):
+            base = level_ids[s] * tbl
+            outs.append(packed_t[base:base + tbl][idx2[:, s] - base])
+        words = torch.stack(outs, 1).reshape(-1)
+    else:
+        words = packed_t[chosen_idx]
+    return torch.stack(_unpack_bf16(words), 0)
+
+
+def _flat_bwd(g, idxs, weights, n_features, block, tsize):
+    """Exact cotangent: one 1-D index_add_ per feature and corner
+    (_weighted_lookup_bwd, hashgrid.py:234-246)."""
+    acc = torch.zeros(tsize, dtype=g.dtype, device=g.device)
+    for j in range(n_features):
+        for k in range(idxs.shape[0]):
+            acc.index_add_(0, idxs[k] + j * block, g[j] * weights[k])
+    return acc
+
+
+class _WeightedLookup(torch.autograd.Function):
+    """Exact 8-corner weighted lookup, flat or packed, with the exact
+    float32 backward (_weighted_lookup_p and _weighted_lookup_packed_p,
+    hashgrid.py:224-267)."""
+
+    @staticmethod
+    def forward(ctx, table, idxs, weights, n_features, block, packed):
+        ctx.save_for_backward(idxs, weights)
+        ctx.args = (n_features, block, table.shape[0])
+        if packed:
+            return _lookup_packed_impl(table, idxs, weights, block)
+        return _lookup_impl(table, idxs, weights, n_features, block)
+
+    @staticmethod
+    def backward(ctx, g):
+        idxs, weights = ctx.saved_tensors
+        return (_flat_bwd(g, idxs, weights, *ctx.args),) + (None,) * 5
+
+
+class _LookupStochBwd(torch.autograd.Function):
+    """Exact forward, stochastic backward: the cotangent goes to the one
+    sampled corner (_lookup_stoch_bwd_p, hashgrid.py:327-358)."""
+
+    @staticmethod
+    def forward(ctx, table, idxs, weights, chosen_idx, phase, n_features,
+                block, packed, levels, bwd_k, tbl, compact, level_ids):
+        ctx.save_for_backward(chosen_idx)
+        ctx.args = (phase, n_features, block, table.shape[0], levels, bwd_k,
+                    tbl, compact, level_ids)
+        if packed:
+            return _lookup_packed_impl(table, idxs, weights, block)
+        return _lookup_impl(table, idxs, weights, n_features, block)
+
+    @staticmethod
+    def backward(ctx, g):
+        (chosen_idx,) = ctx.saved_tensors
+        return (_scatter_chosen(g, chosen_idx, *ctx.args),) + (None,) * 12
+
+
+class _StochLookup(torch.autograd.Function):
+    """Stochastic forward and backward: one gather and one scatter per
+    feature at the sampled corner (_stoch_lookup_p, hashgrid.py:396-420)."""
+
+    @staticmethod
+    def forward(ctx, table, chosen_idx, phase, n_features, block, packed,
+                levels, bwd_k, tbl, compact, fwd_block, level_ids):
+        ctx.save_for_backward(chosen_idx)
+        ctx.args = (phase, n_features, block, table.shape[0], levels, bwd_k,
+                    tbl, compact, level_ids)
+        return _stoch_gather_impl(table, chosen_idx, n_features, block,
+                                  packed, levels, tbl, fwd_block, level_ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        (chosen_idx,) = ctx.saved_tensors
+        return (_scatter_chosen(g, chosen_idx, *ctx.args),) + (None,) * 11
+
+
+def weighted_lookup(table, idxs, weights, n_features: int, block: int):
+    return _WeightedLookup.apply(table, idxs, weights, n_features, block,
+                                 False)
+
+
+def weighted_lookup_packed(table, idxs, weights, block: int):
+    return _WeightedLookup.apply(table, idxs, weights, 2, block, True)
+
+
+def lookup_stoch_bwd(table, idxs, weights, chosen_idx, phase, n_features,
+                     block, packed, levels, bwd_k, tbl=0, compact=False,
+                     level_ids=None):
+    return _LookupStochBwd.apply(
+        table, idxs, weights, chosen_idx, int(phase), n_features, block,
+        packed, levels, bwd_k, tbl, compact,
+        None if level_ids is None else tuple(int(v) for v in level_ids))
+
+
+def stoch_lookup(table, chosen_idx, phase, n_features, block, packed, levels,
+                 bwd_k, tbl=0, compact=False, fwd_block=False,
+                 level_ids=None):
+    return _StochLookup.apply(
+        table, chosen_idx, int(phase), n_features, block, packed, levels,
+        bwd_k, tbl, compact, fwd_block,
+        None if level_ids is None else tuple(int(v) for v in level_ids))
 
 
 # ---------------------------------------------------------- row-mode lookups
@@ -246,19 +488,25 @@ def _draw_phase(gen, samples, name, n) -> int:
         f"{name}:{gen.initial_seed()}:{gen.get_offset()}").randrange(n)
 
 
-def hashgrid_encode(rows: torch.Tensor, cfg: HashGridConfig,
+def hashgrid_encode(table: torch.Tensor, cfg: HashGridConfig,
                     x: torch.Tensor, gen: torch.Generator | None = None,
                     samples: dict | None = None) -> torch.Tensor:
-    """Encode positions x (B, 3) in [0,1]^3 -> features (B, L*F),
-    level-major and feature-minor (hashgrid.py:571-761).
+    """Encode positions x (B, 3) in [0,1]^3 -> features: (B, F*L)
+    feature-major in the flat and packed modes, (B, L*F) level-major in
+    row mode (hashgrid.py:571-780). `table` is the flat (F*L*T,) table, or
+    in row mode the (L*T, F) rows (a flat row-mode table is viewed so).
 
     With `gen` or `samples` and cfg.stochastic_{bwd,fwd} it runs the
     unbiased stochastic-corner estimators; with neither, the exact encode
     (what renders use). `samples` overrides the draws: "u3"
     (3, B*L_eff), "phase", "fphase"."""
-    if not cfg.row_gather:
-        raise NotImplementedError(
-            "only the row-mode encode (row_gather=True) is ported")
+    if cfg.row_gather:
+        rows = table if table.dim() == 2 else table.reshape(
+            cfg.n_levels * cfg.table_size, cfg.n_features)
+    elif table.dim() != 1:
+        raise ValueError(
+            f"a table of shape {tuple(table.shape)} needs row_gather: the "
+            "flat and packed modes read a 1-D (F*L*T,) table")
     for name in ("bwd_scatter_dtype", "fwd_gather_dtype"):
         if getattr(cfg, name) not in ("bfloat16", "float32"):
             raise ValueError(f"{name} must be 'bfloat16' or 'float32', got "
@@ -344,28 +592,22 @@ def hashgrid_encode(rows: torch.Tensor, cfg: HashGridConfig,
         chosen_idx = corner_index(cell[0] + bits[0], cell[1] + bits[1],
                                   cell[2] + bits[2])
 
+    fdim = cfg.n_features
+    if not cfg.row_gather:
+        return _encode_flat(table, cfg, b, l, l_eff, fwd_k, fphase, bwd_k,
+                            phase, level_np, stoch, chosen_idx,
+                            lambda: _corners(corner_index, cell, frac))
     compact = cfg.bwd_scatter_dtype if cfg.bwd_compact_scatter else None
     if stoch and cfg.stochastic_fwd:
         fr = row_stoch(rows, chosen_idx, phase, l_eff, bwd_k, t, compact,
                        cfg.fwd_gather_dtype)
     else:
-        idxs, weights = [], []
-        for k in range(8):
-            kx, ky, kz = (k >> 2) & 1, (k >> 1) & 1, k & 1
-            idxs.append(corner_index(cell[0] + kx, cell[1] + ky,
-                                     cell[2] + kz))
-            wx = frac[0] if kx else 1.0 - frac[0]
-            wy = frac[1] if ky else 1.0 - frac[1]
-            wz = frac[2] if kz else 1.0 - frac[2]
-            weights.append(wx * wy * wz)
-        idxs = torch.stack(idxs, 0)
-        weights = torch.stack(weights, 0)
+        idxs, weights = _corners(corner_index, cell, frac)
         if stoch and cfg.stochastic_bwd:
             fr = row_stoch_bwd(rows, idxs, weights, chosen_idx, phase, l_eff,
                                bwd_k, t, compact, cfg.fwd_gather_dtype)
         else:
             fr = row_weighted(rows, idxs, weights)
-    fdim = cfg.n_features
     if fwd_k:
         # kept levels back into the full (B, L) layout, scaled by the
         # stride (inverse dropout); the rest zero
@@ -374,3 +616,51 @@ def hashgrid_encode(rows: torch.Tensor, cfg: HashGridConfig,
         z[:, :, fphase] = (fr * float(l // fwd_k)).reshape(b, fwd_k, fdim)
         return z.reshape(b, l * fdim)
     return fr.reshape(b, l_eff * fdim)
+
+
+def _corners(corner_index, cell, frac):
+    """The eight corners' table indices (8, M) and trilinear weights."""
+    idxs, weights = [], []
+    for k in range(8):
+        kx, ky, kz = (k >> 2) & 1, (k >> 1) & 1, k & 1
+        idxs.append(corner_index(cell[0] + kx, cell[1] + ky, cell[2] + kz))
+        wx = frac[0] if kx else 1.0 - frac[0]
+        wy = frac[1] if ky else 1.0 - frac[1]
+        wz = frac[2] if kz else 1.0 - frac[2]
+        weights.append(wx * wy * wz)
+    return torch.stack(idxs, 0), torch.stack(weights, 0)
+
+
+def _encode_flat(table, cfg, b, l, l_eff, fwd_k, fphase, bwd_k, phase,
+                 level_np, stoch, chosen_idx, corners):
+    """The lookups and output order of the flat and packed modes
+    (hashgrid.py:693-708, 739-749, 762-780)."""
+    t = cfg.table_size
+    blk = l * t
+    nf = cfg.n_features
+    packed = cfg.packed_gather and nf == 2
+    if stoch and cfg.stochastic_fwd:
+        # one gather and (in the backward) one scatter per feature at the
+        # sampled corner; the 8-corner arrays are never built
+        feats = stoch_lookup(table, chosen_idx, phase, nf, blk, packed,
+                             l_eff, bwd_k, t, cfg.bwd_compact_scatter,
+                             cfg.fwd_block_gather, level_np)
+    else:
+        idxs, weights = corners()
+        if stoch and cfg.stochastic_bwd:
+            feats = lookup_stoch_bwd(table, idxs, weights, chosen_idx, phase,
+                                     nf, blk, packed, l_eff, bwd_k, t,
+                                     cfg.bwd_compact_scatter, level_np)
+        elif packed:
+            feats = weighted_lookup_packed(table, idxs, weights, blk)
+        else:
+            feats = weighted_lookup(table, idxs, weights, nf, blk)
+    # (F, B*L_eff) -> (B, F*L), feature-major
+    if fwd_k:
+        # each feature's kept levels back into its (B, L) columns, scaled
+        # by the stride (inverse dropout); the rest zero
+        z = torch.zeros((nf, b, fwd_k, l // fwd_k), dtype=feats.dtype,
+                        device=feats.device)
+        z[:, :, :, fphase] = (feats * float(l // fwd_k)).reshape(nf, b, fwd_k)
+        return z.reshape(nf, b, l).permute(1, 0, 2).reshape(b, nf * l)
+    return feats.reshape(nf, b, l).permute(1, 0, 2).reshape(b, nf * l)

@@ -2,16 +2,22 @@
 """Where one render round or one train step of iris_tpu_torch spends its
 time on the card.
 
-    python3 profile_render.py [--path render|train] [--seed 0]
-                              [--out outputs/render_trace.json]
+    python3 profile_render.py [--path render|train] [--hash 4x16|32x2|32x2flat]
+                              [--policy default|dense|streamed|dense_streamed]
+                              [--seed 0] [--out outputs/render_trace.json]
 
 For each cell of chip_smoke.py (the flagship scene and the 102,014-face
-clutter scene, production-width model, 8,100 pixels) it runs the unit of
-work once to warm up, times it a few times without the profiler, and then
-once under torch.profiler (CPU and CUDA activities). The unit is one
-render round (render_chunk + aov_chunk at spp 8, depth 5) or, with
---path train, one train step (fwd+bwd of the benchmark loss at spp 32 =
-259,200 camera samples, then Adam, through make_train_step). It prints
+clutter scene, 8,100 pixels) it runs the unit of work once to warm up,
+times it a few times without the profiler, and then once under
+torch.profiler (CPU and CUDA activities). The unit is one render round
+(render_chunk + aov_chunk at spp 8, depth 5) or, with --path train, one
+train step (fwd+bwd of the benchmark loss at spp 32 = 259,200 camera
+samples, then Adam, one step of run_training). --hash picks the model: the
+production 4-level x 16-feature row-mode grid, or the reference's 32-level
+x 2-feature grid, packed (32x2) or unpacked (32x2flat). --policy picks the
+TraversalPolicy of both trees; on the 102,014-face tree "dense",
+"streamed" and "dense_streamed" reach trace_dense, trace_streamed and
+trace_dense_streamed. It prints
 the unit's wall time with and without the profiler, the summed device time
 of its kernels and the device's idle share against both, the number of
 kernels launched, the traversal kernels' share, and the kernels that took
@@ -34,19 +40,40 @@ def device_time_us(evt) -> float:
     return 0.0
 
 
-def make_unit(path, n_clutter, seed):
-    """The unit of work to profile, as a function without arguments."""
+def policies():
+    from iris_tpu_torch.geometry.intersect import TraversalPolicy
+
+    off = dict(paired_streamed=False)
+    return {"default": TraversalPolicy(),
+            "dense": TraversalPolicy(**off),
+            "streamed": TraversalPolicy(dense=False, **off),
+            "dense_streamed": TraversalPolicy(dense=False,
+                                              dense_streamed=True, **off)}
+
+
+def make_unit(path, n_clutter, seed, grid="4x16", policy="default"):
+    """The unit of work to profile, as a function without arguments, and
+    the name of the traversal kernel it runs."""
+    import dataclasses
+    import itertools
+
     import torch
 
     from chip_smoke import (
-        INDIR_DEPTH, SPP, TRAIN_SPP, bench_params, frame_rays,
-        make_bench_loss, seed_slf)
+        INDIR_DEPTH, LOG2_TABLE, PRODUCTION_GRID, REFERENCE_GRID, SLF_RES,
+        SPP, TRAIN_SPP, bench_params, frame_rays, make_bench_loss, seed_slf)
     from iris_tpu_torch.demo import demo_mat_fn, make_demo_scene
+    from iris_tpu_torch.geometry.intersect import kernel_for
 
     dev = torch.device("cuda")
     tracer, em, ngp, crf, _ = make_demo_scene(
-        n_clutter=n_clutter, slf_res=64, hash_levels=4, log2_table=19,
-        hash_features=16, per_level_scale=-1.0, seed=seed, device=dev)
+        n_clutter=n_clutter, slf_res=SLF_RES, log2_table=LOG2_TABLE,
+        seed=seed, device=dev, policy=policies()[policy],
+        **(PRODUCTION_GRID if grid == "4x16" else REFERENCE_GRID))
+    if grid == "32x2flat":
+        ngp = dataclasses.replace(ngp, cfg=dataclasses.replace(
+            ngp.cfg, packed_gather=False))
+    kernel = kernel_for(tracer).__name__
     seed_slf(em, seed, dev)
     rays = frame_rays(dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -61,28 +88,31 @@ def make_unit(path, n_clutter, seed):
             aov_chunk(rays, gen)
             torch.cuda.synchronize()
 
-        return unit
+        return unit, kernel
 
-    from iris_tpu_torch.train.loop import make_train_step
+    from iris_tpu_torch.train.loop import run_training
     from iris_tpu_torch.train.optim import make_optimizer
 
     params = bench_params(em, ngp, crf)
     opt = make_optimizer(learning_rate=1e-3)
     state = opt.init(params)
-    step = make_train_step(
-        make_bench_loss(tracer, em, crf, rays, TRAIN_SPP), opt)
+    loss_fn = make_bench_loss(tracer, em, crf, rays, TRAIN_SPP)
+    steps = itertools.count()
 
     def unit():
-        step(params, state, {}, gen)
+        n = next(steps)
+        run_training(loss_fn, params, itertools.repeat({}), opt, n + 1, seed,
+                     log_fn=None, opt_state=state, start_step=n)
         torch.cuda.synchronize()
 
-    return unit
+    return unit, kernel
 
 
-def profile_cell(label, path, n_clutter, seed, out):
+def profile_cell(label, path, n_clutter, seed, out, grid, policy):
     from torch.profiler import ProfilerActivity, profile
 
-    unit = make_unit(path, n_clutter, seed)
+    unit, kernel = make_unit(path, n_clutter, seed, grid, policy)
+    label = f"{label} {grid} {kernel}"
     unit()                                            # warm-up
     plain_ms = []
     for _ in range(3):
@@ -95,7 +125,8 @@ def profile_cell(label, path, n_clutter, seed, out):
         t0 = time.perf_counter()
         unit()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    prof.export_chrome_trace(out.replace(".json", f"_{path}_{label}.json"))
+    prof.export_chrome_trace(out.replace(
+        ".json", f"_{path}_{label.replace(' ', '_')}.json"))
 
     # kernel events only: CPU ops also carry their kernels' device time,
     # and a record_function range (Optimizer.step#Adam.step) shows up on
@@ -133,6 +164,11 @@ def profile_cell(label, path, n_clutter, seed, out):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--path", choices=("render", "train"), default="render")
+    ap.add_argument("--hash", choices=("4x16", "32x2", "32x2flat"),
+                    default="4x16", help="the hash grid: levels x features")
+    ap.add_argument("--policy", choices=("default", "dense", "streamed",
+                                         "dense_streamed"),
+                    default="default", help="the trees' TraversalPolicy")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="outputs/render_trace.json")
     args = ap.parse_args(argv)
@@ -149,7 +185,8 @@ def main(argv=None) -> int:
     print(f"card: {card_line()}")
     for label, n_clutter in (("flagship", FLAGSHIP_CLUTTER),
                              ("clutter102k", CLUTTER_102K)):
-        profile_cell(label, args.path, n_clutter, args.seed, args.out)
+        profile_cell(label, args.path, n_clutter, args.seed, args.out,
+                     args.hash, args.policy)
     return 0
 
 

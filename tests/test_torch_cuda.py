@@ -103,3 +103,49 @@ def test_new_kernels_refuse_what_they_do_not_take(card):
     wide = build_bvh(mesh.triangles(), leaf_size=16, device=card)
     with pytest.raises(ValueError, match="leaf row"):
         ci.trace_paired_streamed(wide, o, d)
+
+
+@pytest.mark.parametrize("n_clutter,leaf_size,n_rays", [
+    (12, 4, 2048), (500, 4, 2048), (500, 4, 1000), (500, 5, 777),
+    (500, 10, 777)])
+def test_streamed_and_dense_kernels_match_plain(card, n_clutter, leaf_size,
+                                                n_rays):
+    """trace_streamed, trace_dense and trace_dense_streamed against their
+    plain versions, whole and ragged last packets: the same float
+    operations in the same order, so the same bits. trace_streamed finds
+    trace_union's hits and trace_dense trace_paired's, bit for bit."""
+    mesh, _ = make_box_scene(n_clutter=n_clutter, seed=4)
+    tracer = build_bvh(mesh.triangles(), leaf_size=leaf_size, device=card)
+    o1, d1 = random_rays(n_rays, seed=5)
+    o2, d2, *_ = camera_rays(40)
+    o = torch.from_numpy(np.concatenate([o1, o2])).to(card)
+    d = torch.from_numpy(np.concatenate([d1, d2])).to(card)
+    walks = [(ci.trace_streamed, ci.trace_streamed_plain, ci.trace_union)]
+    if leaf_size * 12 <= 64:
+        walks += [(ci.trace_dense, ci.trace_dense_plain, ci.trace_paired),
+                  (ci.trace_dense_streamed, ci.trace_dense_streamed_plain,
+                   ci.trace_paired_streamed)]
+    for kernel, plain, twin in walks:
+        before = kernel.launches
+        got = kernel(tracer, o, d)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        for g, w in zip(got, plain(tracer, o, d)):
+            assert torch.equal(g, w), kernel.__name__
+        for g, w in zip(got, twin(tracer, o, d)):
+            assert torch.equal(g, w), (kernel.__name__, twin.__name__)
+
+
+def test_streamed_and_dense_kernels_refuse_what_they_do_not_take(card):
+    mesh, _ = make_box_scene(n_clutter=12, seed=4)
+    o = torch.zeros((8, 3), device=card)
+    d = torch.ones((8, 3), device=card)
+    heap = build_bvh(mesh.triangles(), method="morton", device=card)
+    for kernel in (ci.trace_streamed, ci.trace_dense,
+                   ci.trace_dense_streamed):
+        with pytest.raises(ValueError, match="preorder"):
+            kernel(heap, o, d)
+    wide = build_bvh(mesh.triangles(), leaf_size=6, device=card)
+    for kernel in (ci.trace_dense, ci.trace_dense_streamed):
+        with pytest.raises(ValueError, match="64-float slot"):
+            kernel(wide, o, d)

@@ -249,7 +249,8 @@ def test_encode_rejects_bad_settings():
     rows = torch.zeros((4 << 10, 8))
     x = torch.zeros((4, 3))
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError):
+    # a 2-D table is a row-mode table: the flat and packed modes refuse it
+    with pytest.raises(ValueError, match="needs row_gather"):
         th.hashgrid_encode(rows, th.HashGridConfig(), x)
     with pytest.raises(ValueError, match="bwd_scatter_dtype"):
         th.hashgrid_encode(rows, th.HashGridConfig(

@@ -28,8 +28,14 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert not bad, bad
 for want in ("train.steps", "train.optim", "train.loop", "utils.losses",
-             "models.hashgrid", "models.crf", "geometry.cuda_intersect"):
+             "train.checkpoint", "models.hashgrid", "models.crf",
+             "geometry.cuda_intersect", "geometry.intersect"):
     assert "iris_tpu_torch." + want in names, want
+from iris_tpu_torch.geometry.intersect import TraversalPolicy, kernel_for
+from iris_tpu_torch.train.loop import TrainerConfig, run_training
+from iris_tpu_torch.train.checkpoint import (
+    load_into, load_pytree, load_train_state, make_state_saver, save_pytree)
+assert TraversalPolicy() == TraversalPolicy("auto", "auto", True, False)
 """
 
 
@@ -39,14 +45,18 @@ def test_port_imports_no_jax():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 26
+    assert n_modules >= 27
 
 
 @pytest.mark.parametrize("entry", [
-    lambda: make_demo_scene(n_clutter=1, log2_table=8, slf_res=4),
+    lambda: make_demo_scene(n_clutter=1, log2_table=8, slf_res=4,
+                            hash_levels=4, hash_features=16,
+                            per_level_scale=-1.0),
     lambda: make_demo_batch(n_side=4),
     lambda: build_bvh(make_box_scene(n_clutter=1)[0].triangles()),
     lambda: init_emor_crf(),
+    lambda: make_demo_scene(),
+    lambda: make_demo_scene(n_clutter=1, hash_levels=32, log2_table=8),
 ])
 def test_entry_points_default_to_cuda(entry):
     if torch.cuda.is_available():
@@ -57,25 +67,30 @@ def test_entry_points_default_to_cuda(entry):
 
 @pytest.mark.parametrize("n_clutter,leaf_size,kernel", [
     (2, 4, "trace_union"), (420, 4, "trace_paired"),
-    (420, 16, "trace_ordered"), (420, 4, "trace_paired_streamed")])
+    (420, 16, "trace_ordered"), (420, 4, "trace_paired_streamed"),
+    (420, 4, "trace_dense"), (420, 4, "trace_streamed"),
+    (420, 4, "trace_dense_streamed")])
 def test_cpu_tensors_take_plain_walks(n_clutter, leaf_size, kernel):
     """Without a card, an explicit CPU run goes through the plain
     versions and never counts a kernel launch."""
     from iris_tpu_torch.geometry import cuda_intersect as ci
-    from iris_tpu_torch.geometry.intersect import kernel_for, ray_intersect
+    from iris_tpu_torch.geometry.intersect import (
+        TraversalPolicy, kernel_for, ray_intersect)
 
-    wrappers = (ci.trace_union, ci.trace_paired, ci.trace_paired_streamed,
-                ci.trace_ordered)
+    wrappers = [getattr(ci, name) for name in ci.KERNELS]
     before = [w.launches for w in wrappers]
     mesh, _ = make_box_scene(n_clutter=n_clutter)
-    tracer = build_bvh(mesh.triangles(), leaf_size=leaf_size, device="cpu")
+    tracer = build_bvh(
+        mesh.triangles(), leaf_size=leaf_size, device="cpu",
+        policy=TraversalPolicy(dense=True) if kernel == "trace_dense"
+        else None)
     o = torch.full((16, 3), 0.5)
     d = torch.nn.functional.normalize(
         torch.randn(16, 3, generator=torch.Generator().manual_seed(0)),
         dim=-1)
-    if kernel == "trace_paired_streamed":
-        # the dispatch sends only trees past the 10 MB gate here
-        face = ci.trace_paired_streamed(tracer, o, d)[3]
+    if kernel.endswith("streamed"):
+        # the dispatch sends only trees past the 10 MiB gates here
+        face = getattr(ci, kernel)(tracer, o, d)[3]
         assert (face >= 0).all()
     else:
         assert kernel_for(tracer).__name__ == kernel
@@ -92,7 +107,8 @@ def test_training_entry_points_run_on_cpu_when_asked():
         LossConfig, make_train_emitter_loss)
 
     tracer, em, ngp, crf, _ = make_demo_scene(
-        n_clutter=1, log2_table=8, slf_res=4, device="cpu")
+        n_clutter=1, log2_table=8, slf_res=4, hash_levels=4,
+        hash_features=16, per_level_scale=-1.0, device="cpu")
     batch = make_demo_batch(n_side=4, device="cpu")
     loss_fn = make_train_emitter_loss(tracer, em, ngp, crf,
                                       LossConfig(spp=1))
@@ -102,3 +118,40 @@ def test_training_entry_points_run_on_cpu_when_asked():
     gen = torch.Generator().manual_seed(0)
     params, _, loss, _ = step(params, opt.init(params), batch, gen)
     assert loss.device.type == "cpu" and torch.isfinite(loss)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_run_training_runs_where_its_parameters_lie(device, monkeypatch):
+    """run_training names no device of its own: every step's generator is
+    made on the device of the parameters it was given (a stand-in device
+    here, since there is no card), never on the CPU by default."""
+    from iris_tpu_torch.train import loop
+    from iris_tpu_torch.train.optim import make_optimizer
+
+    asked = []
+
+    def generator_on(seed, step, dev):
+        asked.append((step, torch.device(dev).type))
+        return torch.Generator().manual_seed(seed + step)
+
+    monkeypatch.setattr(loop, "step_generator", generator_on)
+
+    def loss_fn(p, batch, gen, samples=None):
+        loss = (p["w"] * batch["x"]).sum()
+        return loss, {}
+
+    params = {"w": torch.ones(3, device=device)}
+    batches = iter([{"x": torch.ones(3, device=device)}] * 2)
+    out = loop.run_training(loss_fn, params, batches, make_optimizer(), 2,
+                            seed=0, log_fn=None)
+    assert asked == [(0, device), (1, device)]
+    assert out["w"].device.type == device
+
+
+def test_demo_defaults_are_the_flat_grid_on_cpu_when_asked():
+    tracer, em, ngp, crf, _ = make_demo_scene(n_clutter=1, device="cpu")
+    assert ngp.table.device.type == "cpu" and ngp.table.dim() == 1
+    assert (ngp.cfg.n_levels, ngp.cfg.n_features, ngp.cfg.log2_table_size,
+            ngp.cfg.row_gather) == (16, 2, 15, False)
+    assert tuple(em.slf.radiance.shape)[0] == 32 ** 3
+    assert tracer.policy == tracer.policy.__class__()
