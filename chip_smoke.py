@@ -2,19 +2,24 @@
 """On-card smoke run of iris_tpu_torch, the PyTorch/CUDA port.
 
     python3 chip_smoke.py [--seed 0] [--rounds 2]
+    python3 chip_smoke.py --sweep-only [--counts]
 
 Needs one NVIDIA card (sm_90a: H100/H200), nvcc and g++. It builds the
 traversal kernels from iris_tpu_torch/csrc/traverse.cu and the SAH builder
 from csrc/bvh_builder.cpp, then:
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the kernels and prints the build time and ptxas' report;
+2. builds the kernels and prints the build time, ptxas' report, and for
+   every instantiated packet width of the three packet walks the shared
+   memory a block takes and the blocks an SM keeps resident;
 3. holds each of the seven kernels against its plain PyTorch version on
    the card, on 16,384 camera rays and 16,384 random rays: trace_union on
    the flagship tree (398 faces), trace_paired, trace_paired_streamed,
    trace_streamed, trace_dense and trace_dense_streamed on the 102,014-face
    clutter tree, trace_ordered on a 6,014-face tree built with leaf_size 16
-   (its leaf row is too wide for the paired layout);
+   (its leaf row is too wide for the paired layout); the three packet
+   walks at every instantiated packet width on the camera rays (the
+   random rays at the shipped width only);
 4. renders the flagship frame (camera_rays(90) = 8,100 pixels) at the
    production width — 4-level x 16-feature x 2^19 row-mode hash grid (a
    128 MB table), MLP 64-64-64-5, 3-basis EMoR CRF, 64^3 SLF seeded with
@@ -50,9 +55,11 @@ from csrc/bvh_builder.cpp, then:
    compared. The same on the flagship scene with the unpacked (flat
    float32) table through trace_union; and a small render and train step
    of both table modes on the card against the CPU;
-10. times the five big-tree kernels on the same 518,400 rays of the
-   102,014-face train step, in turns there and back, and compares their
-   hits pairwise;
+10. times the five big-tree kernels, and trace_union's per-ray walk of
+   the same tree, on the same 518,400 rays of the 102,014-face train step,
+   in turns there and back, and compares their hits pairwise; then times
+   every instantiated packet width of the three packet walks on those
+   rays, there and back, and prints one line per kernel: W -> ms;
 11. prints one JSON line {"kernels": [...]} with each kernel's launches on
    the main paths, its error against the plain version, its time, the
    plain version's time (one run) and its roofline bound, measured on the
@@ -63,6 +70,13 @@ from csrc/bvh_builder.cpp, then:
 
 Any failed check raises, and the script then exits non-zero with no
 verdict line. It imports nothing of JAX or of the JAX package.
+
+--sweep-only runs phases 1-2, builds the 102,014-face scene, takes the
+518,400 rays of one train step and runs the width sweep of phase 10 alone
+(about a minute); --counts adds the plain versions' counters (visits or
+pops, lane slab tests, window reloads and how many of them a forward
+prefetch serves, far pops) at every packet width on the camera check rays.
+It prints no verdict line.
 """
 
 from __future__ import annotations
@@ -108,6 +122,9 @@ CHECK_RAYS_SIDE = 128          # 16,384 rays per comparison set
 # per-ray version of the same walk (trace_union_plain), whose hits are the
 # same bits. Empty this tuple to run the plain version at full size.
 PLAIN_ON_CHECK_SET = ("trace_streamed",)
+PACKET_KERNELS = ("trace_streamed", "trace_paired_streamed",
+                  "trace_dense_streamed")
+SPIN_CYCLES = 500_000          # ~0.3 ms of a spin kernel before a timed run
 DEVICE = "cuda"
 
 
@@ -254,12 +271,17 @@ class record_largest_trace:
 
 def time_ms(fn, reps, flush):
     """Median CUDA-event time of fn; the 50 MB L2 is flushed before each
-    run (the render runs other kernels between traversals)."""
+    run (the render runs other kernels between traversals). A spin kernel
+    of ~0.3 ms runs before the first event, so that the host has queued
+    fn's launches by the time the card reaches them: without it the
+    interval holds the wrapper's host time too (tens of microseconds,
+    which is 10% of a 0.5 ms kernel)."""
     import torch
 
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -832,11 +854,99 @@ def train_reference_check(tracer, em, ngp, crf, dev, seed):
     return l_card, l_cpu, worst, len(g_card)
 
 
+def shipped_width(name):
+    from iris_tpu_torch.geometry import cuda_intersect as ci
+
+    return ci.STREAMED_PACKET if name == "trace_streamed" else ci.PACKET
+
+
+def packet_configs(leaf_size):
+    """{kernel: {width: packet_config}} of the three packet walks, and the
+    lines that report them."""
+    from iris_tpu_torch.geometry import cuda_intersect as ci
+
+    out, lines = {}, []
+    for name in PACKET_KERNELS:
+        out[name] = {w: ci.packet_config(name, leaf_size, width=w)
+                     for w in ci.PACKET_WIDTHS}
+        check(ci.packet_config(name, leaf_size)["packet_width"]
+              == shipped_width(name), f"{name}: the kernel ships another "
+              "packet width than cuda_intersect.py")
+        for w, c in out[name].items():
+            warps = c["blocks_per_sm"] * c["threads_per_block"] // 32
+            lines.append(
+                f"occupancy {name} W={w}: {c['smem_bytes_per_block']} B "
+                f"shared/block of {c['threads_per_block']} threads (limit "
+                f"{c['smem_limit_bytes']} B), {c['registers']} registers, "
+                f"{c['local_bytes_per_thread']} B local/thread -> "
+                f"{c['blocks_per_sm']} blocks = {warps} warps per SM")
+    return out, lines
+
+
+def width_sweep(tracer, o, d, flush, reps=20):
+    """Every instantiated packet width of the three packet walks on the
+    same rays: the median of `reps` launches with the L2 flushed, in turns
+    there and back. trace_streamed's hits are the per-ray walk's at every
+    width, bit for bit (the pair walks' equal-t ties depend on the width;
+    phase 3 holds each width against its plain version).
+    Returns {kernel: {width: [ms there, ms back]}}."""
+    import torch
+
+    from iris_tpu_torch.geometry import cuda_intersect as ci
+
+    want = ci.trace_union(tracer, o, d)
+    for w in ci.PACKET_WIDTHS:
+        got = ci.trace_streamed(tracer, o, d, width=w)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, x) for g, x in zip(got, want)),
+              f"trace_streamed W={w} differs from trace_union")
+    turns = [(name, w) for name in PACKET_KERNELS for w in ci.PACKET_WIDTHS]
+    out = {}
+    for name, w in turns + turns[::-1]:
+        kernel = getattr(ci, name)
+        ms = time_ms(lambda: kernel(tracer, o, d, width=w), reps, flush)
+        out.setdefault(name, {}).setdefault(w, []).append(ms)
+    return out
+
+
+def report_sweep(sweep):
+    """The sweep's lines, one per kernel: W -> ms there / back, the shipped
+    width marked."""
+    lines = []
+    for name, by_w in sweep.items():
+        cells = ", ".join(
+            f"W={w} -> {t[0]:.4f} / {t[1]:.4f} ms"
+            + (" (shipped)" if w == shipped_width(name) else "")
+            for w, t in by_w.items())
+        lines.append(f"sweep {name}: {cells}")
+    return lines
+
+
+def width_counts(tracer, o, d):
+    """The plain versions' counters at every packet width on rays o, d."""
+    from iris_tpu_torch.geometry import cuda_intersect as ci
+
+    lines = []
+    for name in PACKET_KERNELS:
+        for w in ci.PACKET_WIDTHS:
+            counts = {}
+            getattr(ci, name + "_plain")(tracer, o, d, counts=counts, width=w)
+            lines.append(f"counts {name} W={w} on {o.shape[0]} rays: "
+                         + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    return lines
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rounds", type=int, default=2,
                     help="timed flagship rounds (SPP=512 would be 64)")
+    ap.add_argument("--sweep-only", action="store_true",
+                    help="time the packet walks' widths on a train step's "
+                    "rays and stop (no verdict line)")
+    ap.add_argument("--counts", action="store_true",
+                    help="with --sweep-only: the plain versions' counters "
+                    "at every packet width on the camera check rays")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -869,6 +979,14 @@ def main(argv=None) -> int:
     print(f"build: {build_s:.1f} s (nvcc traverse.cu + g++ bvh_builder.cpp)")
     for ln in ptxas:
         print(f"  ptxas: {ln}")
+    configs, lines = packet_configs(leaf_size=4)
+    for ln in lines:
+        print(ln)
+    for name in PACKET_KERNELS:
+        c = configs[name][shipped_width(name)]
+        check(c["blocks_per_sm"] >= 2 and c["blocks_per_sm"]
+              * c["threads_per_block"] >= 512,
+              f"{name}: {c['blocks_per_sm']} resident blocks per SM")
 
     # scenes at production width
     def scene(n_clutter, leaf_size=4, grid=PRODUCTION_GRID):
@@ -885,6 +1003,31 @@ def main(argv=None) -> int:
               f"{time.perf_counter() - t0:.1f} s")
         check(mesh.n_faces == 12 * (n_clutter + 1) + 2, "scene face count")
         return tracer, em, ngp, crf, mesh
+
+    if args.sweep_only:
+        big = scene(CLUTTER_102K)
+        *_, big_in, _ = bench_setup("clutter102k", big[0], big[1], big[2],
+                                    big[3], frame_rays(dev), args.seed)
+        flush = torch.empty(64 * 2 ** 20 // 4, dtype=torch.float32,
+                            device=dev)
+        o_big, d_big = big_in["o"], big_in["d"]
+        print(f"sweep on the {o_big.shape[0]} rays of a 102K train step")
+        yard = (ci.trace_union, ci.trace_paired, ci.trace_dense)
+        for kernel in yard + yard[::-1]:
+            ms = time_ms(lambda: kernel(big[0], o_big, d_big), 20, flush)
+            print(f"yardstick {kernel.__name__}: {ms:.4f} ms")
+        for ln in report_sweep(width_sweep(big[0], o_big, d_big, flush)):
+            print(ln)
+        if args.counts:
+            o_cam, d_cam, *_ = camera_rays(CHECK_RAYS_SIDE)
+            for ln in width_counts(
+                    big[0],
+                    torch.from_numpy(np.ascontiguousarray(o_cam)).to(dev),
+                    torch.from_numpy(np.ascontiguousarray(d_cam)).to(dev)):
+                print(ln)
+        print(f"card: {card_line()}")
+        print(f"sweep took {time.perf_counter() - t_run:.1f} s")
+        return 0
 
     flag = scene(FLAGSHIP_CLUTTER)
     big = scene(CLUTTER_102K)
@@ -951,17 +1094,31 @@ def main(argv=None) -> int:
         for label, (o, d) in ray_sets.items():
             o_t = torch.from_numpy(np.ascontiguousarray(o)).to(dev)
             d_t = torch.from_numpy(np.ascontiguousarray(d)).to(dev)
-            got = kernel(tracer, o_t, d_t)
-            torch.cuda.synchronize()
-            counts = {}
-            plain_ms, want = timed_once(
-                lambda: plain(tracer, o_t, d_t, counts=counts))
-            err, same = compare_hits(got, want)
-            max_err[name] = max(max_err.get(name, 0.0), err)
-            check_plain[name, label] = (plain_ms, counts)
-            print(f"check {name} {label} ({n_check} rays): hits "
-                  f"{int((got[3] >= 0).sum())}, bit-equal {same}/{n_check},"
-                  f" max |t| error {err:.3e}; plain {plain_ms:.1f} ms")
+            # the packet walks at every instantiated width on the camera
+            # rays, the shipped width (None) last so that its plain run is
+            # the one kept
+            widths = [None]
+            if name in PACKET_KERNELS and label == "camera":
+                widths = [w for w in ci.PACKET_WIDTHS
+                          if w != shipped_width(name)] + [None]
+            for width in widths:
+                kw = {} if width is None else {"width": width}
+                got = kernel(tracer, o_t, d_t, **kw)
+                torch.cuda.synchronize()
+                counts = {}
+                plain_ms, want = timed_once(
+                    lambda: plain(tracer, o_t, d_t, counts=counts, **kw))
+                err, same = compare_hits(got, want)
+                if name in PACKET_KERNELS:
+                    check(same == n_check, f"{name} {label} width {width}: "
+                          f"{same}/{n_check} rays bit-equal to plain")
+                max_err[name] = max(max_err.get(name, 0.0), err)
+                check_plain[name, label] = (plain_ms, counts)
+                at = "" if width is None else f" W={width}"
+                print(f"check {name}{at} {label} ({n_check} rays): hits "
+                      f"{int((got[3] >= 0).sum())}, bit-equal "
+                      f"{same}/{n_check}, max |t| error {err:.3e}; plain "
+                      f"{plain_ms:.1f} ms")
 
     launches = dict.fromkeys(KERNELS, 0)
 
@@ -1197,9 +1354,11 @@ def main(argv=None) -> int:
             "rays": o.shape[0], "plain_rays": n_plain,
             "plain_input": plain_on,
         })
-    # the five big-tree kernels on the same rays, in turns there and back
+    # the five big-tree kernels on the same rays, and trace_union's per-ray
+    # walk of the same tree (the packet width 1 of trace_streamed), in
+    # turns there and back
     five = (ci.trace_paired, ci.trace_paired_streamed, ci.trace_streamed,
-            ci.trace_dense, ci.trace_dense_streamed)
+            ci.trace_dense, ci.trace_dense_streamed, ci.trace_union)
     base = ci.trace_paired(big[0], o_big, d_big)
     agree = {}
     for kernel in five[1:]:
@@ -1215,16 +1374,39 @@ def main(argv=None) -> int:
     # trace_paired's time on the same input, beside the other four's rows
     paired_ms = statistics.median(
         t for n, t in turns if n == "trace_paired")
+    union_ms = statistics.median(t for n, t in turns if n == "trace_union")
     for row in rows:
-        if row["name"] in agree:
+        if row["name"] in agree and row["name"] != "trace_union":
             row["trace_paired_ms_same_input"] = paired_ms
             row["turns_ms"] = [t for n, t in turns if n == row["name"]]
+    print(f"per-ray walks of the 102K tree on those rays: trace_union "
+          f"(stackless, trace_streamed's packet width 1) {union_ms:.4f} ms, "
+          f"trace_paired (near-first) {paired_ms:.4f} ms")
+    # every packet width of the three packet walks on the same rays
+    sweep = width_sweep(big[0], o_big, d_big, flush)
+    for ln in report_sweep(sweep):
+        print(ln)
+    for row in rows:
+        name = row["name"]
+        if name in PACKET_KERNELS:
+            width = shipped_width(name)
+            c = configs[name][width]
+            row.update(
+                packet_width=width,
+                widths_ms={str(w): statistics.mean(t)
+                           for w, t in sweep[name].items()},
+                smem_bytes_per_block=c["smem_bytes_per_block"],
+                blocks_per_sm=c["blocks_per_sm"],
+                registers=c["registers"])
+            if name == "trace_streamed":
+                row["trace_union_ms_same_input"] = union_ms
     print("run: " + json.dumps({
         "flagship": flag_stats, "clutter102k": big_stats,
         "clutter6k_leaf16": wide_stats, "clutter6k_leaf4": mid_stats,
         "train_flagship": flag_train, "train_clutter102k": big_train,
         "stages": stages, "ref32x2": ref_stats,
         "five_on_102k_ms": turns, "five_on_102k_hits": agree,
+        "packet_sweep_ms": sweep,
         "build_s": build_s, "total_s": time.perf_counter() - t_run}))
     for row in rows:
         check(row["launches"] > 0, f"{row['name']} was never launched on a "

@@ -14,8 +14,8 @@
 // trace_dense walk one ray per thread, which is the natural unit on an SM
 // and visits a subset of the tile's nodes with the same hits; the three
 // streamed kernels (trace_streamed, trace_paired_streamed,
-// trace_dense_streamed) keep the TPU's shared cursor, one per warp of 32
-// rays, and stage the rows they read through shared-memory windows.
+// trace_dense_streamed) keep the TPU's shared cursor, one per packet of 4
+// to 32 rays (several packets to a warp; see "packet walks" below).
 //
 // --fmad=false: no multiply-add contraction, so t/u/v round exactly as the
 // plain PyTorch versions (and the JAX package) round them; the kernels are
@@ -31,6 +31,7 @@
 // dependent chain (shared memory, float4 rows, one coalesced window load
 // per warp) and leave warp coherence to the caller's ray order.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -39,33 +40,42 @@ namespace {
 constexpr float kTMiss = 3e37f;   // pallas_intersect.py:30
 constexpr float kMtEps = 1e-9f;   // pallas_intersect.py:31
 constexpr int kThreads = 256;
-// Stack entries of the near-first walks (per thread, or per warp in the
-// packet walk). The host refuses trees whose stack need
+// Stack entries of the near-first walks (per thread; per packet, in shared
+// memory, in the packet walks). The host refuses trees whose stack need
 // (_auto_stack_depth) exceeds it instead of truncating.
 constexpr int kStackCap = 128;
-// The union kernel stages the whole tree in shared memory up to this size
-// (the default dynamic shared-memory limit; no opt-in attribute needed).
-constexpr int kStageBytes = 48 * 1024;
+// The dynamic shared memory a block gets without opting its kernel in.
+constexpr int kDefaultShared = 48 * 1024;
+// The union kernel stages the whole tree in shared memory up to this size.
+constexpr int kStageBytes = kDefaultShared;
 // float4s per 128-float row of the paired layout (pallas_intersect.py:621)
 constexpr int kRow4 = 32;
 // float4s of the 16 useful floats of a pair row (the compact (R, 16) view)
 constexpr int kPair4 = 4;
-// Warps (ray packets) per block of the packet walk: each owns a stack and
-// two windows in shared memory, so fewer warps leave room for wider leaves.
+// Warps per block of the packet walks. A block never synchronises, so the
+// size only sets how shared memory is carved and how soon a finished
+// block's room is handed on: walks differ several-fold in length, and 4
+// (or 2) warps a block measured 5-10% faster than 8.
 constexpr int kPacketWarps = 4;
-// Rows per shared-memory window of the packet walk: 32 compact pair rows
-// (2 KB) and 8 whole leaf rows (1.5 KB at leaf_size 4). The only sizes
-// measured so far; cuda_intersect.py's PAIR_WIN/LEAF_WIN count reloads of
-// the same windows.
-constexpr int kPairWin = 32;
-constexpr int kLeafWin = 8;
-// Nodes (32 bytes each) per window of the stackless packet walk: 2 KB.
-constexpr int kNodeWin = 64;
+// Shared-memory windows of the pair walk, per lane of a packet so that
+// they scale with its width W: W * kPairWinPerLane compact pair records
+// (64 bytes each) and one whole leaf per kLanesPerLeaf lanes (leaf_size x
+// 48 bytes; a 256-byte slot in the dense layout): 32 records and 8 leaves
+// at W = 32. cuda_intersect.py's pair_win_for and leaf_win_for count
+// reloads of the same windows.
+constexpr int kPairWinPerLane = 1;
+constexpr int kLanesPerLeaf = 4;
+// The shipped packet widths, rays per cursor: of trace_streamed, and of
+// trace_paired_streamed and trace_dense_streamed (one walk): the fastest
+// of the instantiated widths on the 518,400 sorted bounce rays of the
+// 102,014-face scene (H100; PERF.md has the table). cuda_intersect.py's
+// STREAMED_PACKET and PACKET are held against them.
+constexpr int kStreamedPacket = 4;
+constexpr int kPairPacket = 32;
 // float4s of one leaf slot of the dense layout (64 floats; two per
 // 128-float row, pallas_intersect.py:1055-1099)
 constexpr int kSlot4 = 16;
 constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kSharedLimit = 48 * 1024;
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz;
@@ -440,162 +450,313 @@ __global__ void __launch_bounds__(kThreads)
   store_hit(h, i, t_out, u_out, v_out, f_out);
 }
 
-// Butterfly sum over the warp: every lane gets
-// ((a_i + a_i^16) + (a_i^8 + a_i^24)) + ..., the halving order the plain
-// PyTorch version repeats, so both round the mean alike.
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) {
+// ------------------------------------------------------------ packet walks
+//
+// The three streamed kernels keep the TPU's shared cursor: a packet of W
+// consecutive rays walks the union of its rays' paths behind one cursor.
+// On the TPU a packet is a tile of thousands of lanes; here W is 4, 8, 16
+// or 32 lanes of one warp, a template parameter. A warp holds 32 / W
+// packets ("groups": aligned runs of W lanes) that step in lockstep
+// through the same instructions, each with its own cursor, windows and
+// stack. Votes are __ballot_sync over the whole warp, masked to the
+// group's lanes; a loop runs while any group of the warp still walks, and
+// a finished group idles (its lanes never hit, so they never vote, fold
+// or reload). Whatever only one group does (a window reload) synchronises
+// with __syncwarp(group mask) alone.
+//
+// Why narrower packets, and what they give: a packet tests every node any
+// of its rays enters; at W = 32 the 102,014-face scene's sorted bounce
+// rays spend 84% of trace_streamed's slab tests on nodes the ray's own
+// walk never visits. But the groups of a warp step together, so a warp
+// takes as many steps as its longest group, and on those rays (spatially
+// sorted: neighbours walk nearly the same nodes) a group of 4 visits
+// almost as many nodes as a group of 32. Narrow packets therefore pay off
+// only where a step is cheap and nothing is reloaded per group
+// (trace_streamed, fastest at W = 4); the pair walk, bound by the
+// instructions a pop executes, is fastest at W = 32.
+
+// Sum over the W lanes of a group by an xor butterfly, offsets W/2 ... 1:
+// every lane gets ((a_i + a_i^(W/2)) + ...), the halving order the plain
+// PyTorch version repeats (_halving_sum), so both round the mean alike.
+// Called by all 32 lanes; offsets below W never leave an aligned group.
+template <int W>
+__device__ __forceinline__ float group_sum(float v) {
+  for (int off = W / 2; off > 0; off >>= 1) {
     v += __shfl_xor_sync(kFullMask, v, off);
   }
   return v;
 }
 
-// One leaf of a packet walk: make sure the warp's leaf window holds row
-// lrow (one coalesced load of up to kLeafWin whole leaf rows when it does
-// not), then every lane whose ray entered the leaf's box folds the leaf's
-// triangles, read from shared memory. A leaf row is leaf4 float4s long:
-// 3 * leaf_size in the compact rows, kSlot4 in the dense layout's slots.
-__device__ __forceinline__ void packet_leaf(
-    const Ray& r, bool hit, int lrow, const float4* __restrict__ leaves,
-    int n_leaf_rows, int leaf_size, int leaf4, int& lwin, float4* lbuf,
-    int lane, Hit& h) {
-  lrow = min(max(lrow, 0), n_leaf_rows - 1);
-  const int tgt = lrow / kLeafWin;
-  if (tgt != lwin) {  // warp-uniform
-    __syncwarp();     // every lane is done with the old window
-    const int base = tgt * kLeafWin;
-    const int n4 = min(kLeafWin, n_leaf_rows - base) * leaf4;
-    const float4* src = leaves + static_cast<size_t>(base) * leaf4;
-    for (int k = lane; k < n4; k += 32) lbuf[k] = __ldg(src + k);
-    __syncwarp();
-    lwin = tgt;
+template <int W>
+__device__ __forceinline__ unsigned group_mask_of(int lane) {
+  if constexpr (W == 32) {
+    return kFullMask;
+  } else {
+    return ((1u << W) - 1u) << (lane & ~(W - 1));
   }
+}
+
+// Pair records and whole leaves per window of a packet of `width` lanes.
+__host__ __device__ constexpr int pair_win_rows(int width) {
+  return width * kPairWinPerLane;
+}
+
+__host__ __device__ constexpr int leaf_win_rows(int width) {
+  return width / kLanesPerLeaf > 0 ? width / kLanesPerLeaf : 1;
+}
+
+// float4s of shared memory one group of the pair walk takes: its stack,
+// its record window and its leaf window (a leaf is leaf4 float4s long)
+__host__ __device__ constexpr long long pair_group4(int width,
+                                                    long long leaf4) {
+  return kStackCap / 4 + pair_win_rows(width) * kPair4 +
+         leaf_win_rows(width) * leaf4;
+}
+
+// Make a group's window `buf` hold aligned window `tgt` of an array of
+// equal rows (win_rows rows of row4 float4s; the array's last window is
+// short). The group's W lanes copy it with cp.async, 16 bytes each, from
+// global to shared memory without a register in between, and wait for it
+// at once: cp.async completes per thread, so after its own wait every lane
+// meets the group in __syncwarp before any lane reads what another copied.
+template <int W>
+__device__ __forceinline__ void window_load(
+    float4* buf, int& held, int tgt, const float4* __restrict__ rows,
+    int n_rows, int win_rows, int row4, int gl, unsigned gmask) {
+  if (tgt == held) return;  // uniform over the group
+  __syncwarp(gmask);        // every lane is done with the old window
+  const int base = tgt * win_rows;
+  const int n4 = min(win_rows, n_rows - base) * row4;
+  const float4* src = rows + static_cast<size_t>(base) * row4;
+  for (int k = gl; k < n4; k += W) {
+    __pipeline_memcpy_async(buf + k, src + k, 16);
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncwarp(gmask);
+  held = tgt;
+}
+
+// One leaf of the pair walk through the group's leaf window: make the
+// window hold row lrow, then every lane whose ray entered the leaf's box
+// folds the leaf's triangles, read from shared memory.
+template <int W>
+__device__ __forceinline__ void group_leaf(
+    const Ray& r, bool hit, int lrow, const float4* __restrict__ leaves,
+    int n_leaf_rows, int leaf_size, int leaf4, float4* lbuf, int& lwin,
+    int gl, unsigned gmask, Hit& h) {
+  lrow = min(max(lrow, 0), n_leaf_rows - 1);
+  constexpr int kWin = leaf_win_rows(W);
+  const int tgt = lrow / kWin;
+  window_load<W>(lbuf, lwin, tgt, leaves, n_leaf_rows, kWin, leaf4, gl,
+                 gmask);
   if (hit) {
-    const float4* lf = lbuf + (lrow - tgt * kLeafWin) * leaf4;
+    const float4* lf = lbuf + (lrow - tgt * kWin) * leaf4;
     for (int k = 0; k < leaf_size; ++k) {
       mt_fold(r, lf[3 * k], lf[3 * k + 1], lf[3 * k + 2], h);
     }
   }
 }
 
-// trace_paired_streamed — replaces pallas_ray_trace_paired_streamed /
-// _kernel_paired_streamed (pallas_intersect.py:833, 989): the near-first
-// paired walk with ONE cursor and ONE stack for a packet of rays, and the
-// pair and leaf rows fetched through windows of consecutive rows that are
-// reloaded when the cursor leaves them. Pop a pair row; every lane
-// slab-tests both children against its own t_best and the packet votes
-// (any lane); leaf children are intersected at once (left, then right) by
-// the lanes that entered their box, so t_best shrinks before the pushes;
-// the far internal child is pushed, then the near one, ordered by the
-// MEAN entry distance of the lanes that hit each child (:937-947).
-// Design: the TPU tile of 8,192 lanes becomes one warp of 32 consecutive
-// rays (spatially sorted by the caller on big trees), votes are
-// __ballot_sync, means are warp_sum. The stack and both windows are per
-// warp in shared memory: a window load is one coalesced read of kPairWin
-// compact 64-byte pair rows (the (R, 16) view: the (R, 128) rows are 7/8
-// padding) or of kLeafWin whole leaf rows (leaf_size x 48 bytes, the
-// tris array itself), after which every row read of the walk is a
-// shared-memory broadcast. Windows are aligned (window = row / win) as on
-// the TPU; in a preorder tree the left child's pair row is the next row,
-// so descents reuse the window and a reload happens mostly at far pops.
-// A packet visits the union of its rays' paths, so it does more slab
-// tests than trace_paired and fewer, wider memory reads.
-// The walk of trace_paired_streamed and trace_dense_streamed: pair records
-// are 64 bytes apart in both layouts; a whole leaf is leaf4 float4s long.
+// The walk of trace_paired_streamed and trace_dense_streamed — replaces
+// _kernel_paired_streamed and _kernel_dense_streamed
+// (pallas_intersect.py:833, :1271): the near-first paired walk with ONE
+// cursor and ONE stack for a packet of W rays. Pop a pair record; every
+// lane slab-tests both children against its own t_best and the packet
+// votes (any lane); leaf children are intersected at once (left, then
+// right) by the lanes that entered their box, so t_best shrinks before the
+// pushes; the far internal child is pushed, then the near one, ordered by
+// the MEAN entry distance of the lanes that hit each child (:937-947,
+// :1385-1391). Pair records are 64 bytes apart in both layouts (the dense
+// pair array is the compact (R, 16) rows padded); a whole leaf is kLeaf4
+// float4s long, a 256-byte slot (kSlot4) in the dense layout, or, with
+// kLeaf4 = 0, the 3 * leaf_size float4s of a compact row. On the TPU the
+// dense kernel exists to drop the 8x lane padding of a paired row from
+// every DMA; the card never read that padding, so here the layouts differ
+// by the leaf stride alone.
+//
+// What bounded the earlier design (one cursor per warp, a stack in shared
+// memory written by lane 0 between two __syncwarps, windows of 32 records
+// and 8 leaves reloaded by a __ldg loop between two more): a packet of 32
+// made twice the per-ray walk's slab tests and one pop in three reloaded
+// its record window.
+// What bounds it now, as far as could be measured without a kernel
+// profiler: the instructions a pop executes. 1.65M pops in 0.55 ms are one
+// pop per SM every ~80 cycles, some 320 scheduler slots, about what two
+// slab tests, two ballots, half a leaf fold, the butterflies with their
+// two divisions and the pushes come to; so hiding a load's latency buys
+// nothing and every added instruction costs. How the compiler schedules a
+// pop moves the time by 5-9% either way (see the slab tests below).
+// What this design does about it, each step timed beside the earlier
+// kernel on the 518,400 sorted bounce rays of the 102,014-face scene
+// (H100; PERF.md has the numbers):
+//  - A window reload is a cp.async copy that the group waits for at once
+//    (window_load): one instruction a row part where the __ldg loop had a
+//    load and a store: 8% faster. It is not a prefetch.
+//  - Both slab tests are made by every lane and masked by `live`
+//    afterwards, with no branch around them.
+//  - A whole warp per cursor (kPairPacket = 32) takes no vote on liveness
+//    or on the means: both branches are uniform, and the loop is the
+//    earlier one's, `while the stack holds an entry`.
+//  - Windows scale with the packet, so that a reload costs every lane the
+//    same few 16-byte copies at any W and a warp's windows take the same
+//    shared memory: kPairWinPerLane records per lane and one whole leaf
+//    per kLanesPerLeaf lanes (32 records and 8 leaves at W = 32). The
+//    plain versions count reloads of the same windows (pair_win_for,
+//    leaf_win_for in cuda_intersect.py).
+// What was tried on those rays and dropped:
+//  - Sub-warp packets: slower at every W < 32; pops per packet fall only
+//    from 65 to 59 between W = 32 and W = 4 on coherent rays, so a warp's
+//    steps do not fall while each group reloads windows of its own. The
+//    narrow widths stay instantiated (the wrappers' width=) so that this
+//    can be measured again on other rays.
+//  - No shared stack: after the ballots and the butterfly every pushed id
+//    and the order of the pushes are uniform over the group, so each lane
+//    can keep its own copy of the stack in local memory (as trace_paired
+//    does) and the two barriers and the lane-0 writes of every pop go.
+//    Beside the __ldg-loop windows that is as fast as the shared stack
+//    beside cp.async windows; beside cp.async windows it is 5% slower
+//    (cause not found), so the shared stack stays.
+//  - Pops that do not wait: every pushed child's 64-byte record copied by
+//    cp.async into a slot indexed by the stack position when it is pushed,
+//    the record after the popped one into a "next" buffer, leaves through
+//    double-buffered windows: 11-18% slower; the commit, wait and barrier
+//    of every pop cost more than one reload in three saved.
+//  - Both windows double-buffered, the following window fetched by
+//    cp.async while the held one is walked: 11-17% slower; only 38% of the
+//    record reloads and 15% of the leaf reloads go to the window right
+//    after the one held, the rest waste the prefetch.
+//  - No shared memory: a record is 64 bytes at one address for every lane
+//    of a group, four broadcast __ldg, both children's records loaded into
+//    registers ahead, leaves read by the lanes that hit: 15-20% slower at
+//    every width; 12 wide loads a pop and 96-101 registers.
+//  - Reading leaves directly beside the record window: level on the dense
+//    slots, 8% slower on the compact rows.
+template <int W, int kLeaf4>
 __device__ __forceinline__ void packet_pair_walk(
     const float4* __restrict__ pairs16, int n_pairs,
     const float4* __restrict__ leaves, int n_leaf_rows, int leaf_size,
     int stack_depth, const float* __restrict__ orig,
     const float* __restrict__ dirs, int n_rays, float* __restrict__ t_out,
     float* __restrict__ u_out, float* __restrict__ v_out,
-    int* __restrict__ f_out, int leaf4) {
+    int* __restrict__ f_out) {
   extern __shared__ float4 packet_smem[];
+  constexpr int kPairWin = pair_win_rows(W);
+  const int leaf4 = kLeaf4 > 0 ? kLeaf4 : 3 * leaf_size;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int first = blockIdx.x * blockDim.x + warp * 32;
-  if (first >= n_rays) return;  // the whole packet is past the end
-  const int per_warp4 =
-      kStackCap / 4 + kPairWin * kPair4 + kLeafWin * leaf4;
-  float4* mine = packet_smem + warp * per_warp4;
+  if (first >= n_rays) return;  // the whole warp is past the end
+  const int gl = lane & (W - 1);
+  const unsigned gmask = group_mask_of<W>(lane);
+  float4* mine =
+      packet_smem + (warp * (32 / W) + lane / W) * pair_group4(W, leaf4);
   int* stack = reinterpret_cast<int*>(mine);
   float4* pbuf = mine + kStackCap / 4;
   float4* lbuf = pbuf + kPairWin * kPair4;
+  int pwin = -1;  // no window loaded
+  int lwin = -1;
 
   const int i = first + lane;
   const bool live = i < n_rays;  // lanes past the end never vote
   const Ray r = load_ray(orig, dirs, live ? i : n_rays - 1);
   Hit h{kTMiss, 0.0f, 0.0f, -1};
-  if (lane == 0) stack[0] = 0;  // the root's pair row
-  __syncwarp();
-  int sp = 1;
-  int pwin = -1;  // no window loaded
-  int lwin = -1;
+  if (gl == 0) stack[0] = 0;  // the root's pair row
+  __syncwarp(gmask);
+  // a group wholly past the end idles
+  int sp = (first + (lane & ~(W - 1)) < n_rays) ? 1 : 0;
   const int max_steps = 2 * n_pairs + 2;
-  for (int step = 0; sp > 0 && step < max_steps; ++step) {
-    const int row_id = stack[--sp];  // the same for every lane
-    const int tgt = row_id / kPairWin;
-    if (tgt != pwin) {
-      __syncwarp();
-      const int base = tgt * kPairWin;
-      const int n4 = min(kPairWin, n_pairs - base) * kPair4;
-      const float4* src = pairs16 + static_cast<size_t>(base) * kPair4;
-      for (int k = lane; k < n4; k += 32) pbuf[k] = __ldg(src + k);
-      __syncwarp();
-      pwin = tgt;
+  for (int step = 0; step < max_steps; ++step) {
+    const bool active = sp > 0;  // uniform over the group
+    // The warp walks while any of its groups does. With several groups
+    // the vote is taken on the stacks as this step finds them and read at
+    // the step's end, so it is off the dependent chain and the walk ends
+    // with one idle step. A single group needs no vote.
+    bool go = true;
+    if constexpr (W == 32) {
+      if (!active) break;
+    } else {
+      go = __any_sync(kFullMask, active);
     }
-    const float4* row = pbuf + (row_id - tgt * kPairWin) * kPair4;
-    const float4 a = row[0];
-    const float4 b = row[1];
-    const float4 c = row[2];
-    const float4 d = row[3];
-    float tlo_l, tlo_r;
+    float4 a, b, c, d;
+    a = b = c = d = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (active) {
+      const int row_id = stack[--sp];  // the same for every lane
+      const int tgt = row_id / kPairWin;
+      window_load<W>(pbuf, pwin, tgt, pairs16, n_pairs, kPairWin, kPair4, gl,
+                     gmask);
+      const float4* row = pbuf + (row_id - tgt * kPairWin) * kPair4;
+      a = row[0];
+      b = row[1];
+      c = row[2];
+      d = row[3];
+    }
+    float tlo_l = 0.0f, tlo_r = 0.0f;
+    // both tests are made by every lane and masked afterwards: no branch
+    // around them (testing `active && live` first measured 5-9% slower)
     const bool hit_l =
-        slab(r, a.x, a.y, a.z, a.w, b.x, b.y, h.t, &tlo_l) && live;
+        slab(r, a.x, a.y, a.z, a.w, b.x, b.y, h.t, &tlo_l) && active && live;
     const bool hit_r =
-        slab(r, c.x, c.y, c.z, c.w, d.x, d.y, h.t, &tlo_r) && live;
-    const unsigned m_l = __ballot_sync(kFullMask, hit_l);
-    const unsigned m_r = __ballot_sync(kFullMask, hit_r);
+        slab(r, c.x, c.y, c.z, c.w, d.x, d.y, h.t, &tlo_r) && active && live;
+    const unsigned m_l = __ballot_sync(kFullMask, hit_l) & gmask;
+    const unsigned m_r = __ballot_sync(kFullMask, hit_r) & gmask;
     const float dl = b.z;
     const float dr = d.z;
     const bool l_leaf = dl <= 0.0f;
     const bool r_leaf = dr <= 0.0f;
-    if (m_l != 0u && l_leaf) {
-      packet_leaf(r, hit_l, static_cast<int>(-dl), leaves, n_leaf_rows,
-                  leaf_size, leaf4, lwin, lbuf, lane, h);
+    if (active) {
+      if (m_l != 0u && l_leaf) {
+        group_leaf<W>(r, hit_l, static_cast<int>(-dl), leaves, n_leaf_rows,
+                      leaf_size, leaf4, lbuf, lwin, gl, gmask, h);
+      }
+      if (m_r != 0u && r_leaf) {
+        group_leaf<W>(r, hit_r, static_cast<int>(-dr), leaves, n_leaf_rows,
+                      leaf_size, leaf4, lbuf, lwin, gl, gmask, h);
+      }
     }
-    if (m_r != 0u && r_leaf) {
-      packet_leaf(r, hit_r, static_cast<int>(-dr), leaves, n_leaf_rows,
-                  leaf_size, leaf4, lwin, lbuf, lane, h);
-    }
-    const bool want_l = m_l != 0u && !l_leaf;
-    const bool want_r = m_r != 0u && !r_leaf;
+    const bool want_l = active && m_l != 0u && !l_leaf;
+    const bool want_r = active && m_r != 0u && !r_leaf;
     const int pid_l = min(max(static_cast<int>(dl) - 1, 0), n_pairs - 1);
     const int pid_r = min(max(static_cast<int>(dr) - 1, 0), n_pairs - 1);
     bool l_near = want_l;
-    if (want_l && want_r) {
-      const float mean_l = warp_sum(hit_l ? tlo_l : 0.0f) /
+    // The butterflies are shuffles of the whole warp: every lane takes
+    // them when any group needs its means (running them at every pop
+    // instead of voting measured 15% slower at W = 8). A single group
+    // needs no vote: the branch is uniform.
+    bool means = want_l && want_r;
+    if constexpr (W < 32) means = __any_sync(kFullMask, means);
+    if (means) {
+      const float mean_l = group_sum<W>(hit_l ? tlo_l : 0.0f) /
                            fmaxf(static_cast<float>(__popc(m_l)), 1.0f);
-      const float mean_r = warp_sum(hit_r ? tlo_r : 0.0f) /
+      const float mean_r = group_sum<W>(hit_r ? tlo_r : 0.0f) /
                            fmaxf(static_cast<float>(__popc(m_r)), 1.0f);
-      l_near = mean_l <= mean_r;
+      if (want_l && want_r) l_near = mean_l <= mean_r;
     }
-    const int far_id = l_near ? pid_r : pid_l;
-    const int near_id = l_near ? pid_l : pid_r;
-    const bool push_far = want_l && want_r;
-    const bool push_near = want_l || want_r;
-    const int sp3 = sp + (push_far ? 1 : 0);
-    __syncwarp();  // every lane has read its pop before the pushes land
-    if (lane == 0) {
-      // same clamped pushes as the TPU kernel (:949-961)
-      if (push_far) stack[min(sp, stack_depth - 1)] = far_id;
-      if (push_near) stack[min(sp3, stack_depth - 1)] = near_id;
+    if (active) {
+      const int far_id = l_near ? pid_r : pid_l;
+      const int near_id = l_near ? pid_l : pid_r;
+      const bool push_far = want_l && want_r;
+      const bool push_near = want_l || want_r;
+      const int sp3 = sp + (push_far ? 1 : 0);
+      // same clamped pushes as the TPU kernel (:949-961); with the host's
+      // stack_depth >= depth + 4 the clamp is never reached
+      __syncwarp(gmask);  // every lane has read its pop before the pushes
+      if (gl == 0) {
+        if (push_far) stack[min(sp, stack_depth - 1)] = far_id;
+        if (push_near) stack[min(sp3, stack_depth - 1)] = near_id;
+      }
+      __syncwarp(gmask);
+      sp = min(sp3 + (push_near ? 1 : 0), stack_depth);
     }
-    __syncwarp();
-    sp = min(sp3 + (push_near ? 1 : 0), stack_depth);
+    if (!go) break;
   }
   if (live) store_hit(h, i, t_out, u_out, v_out, f_out);
 }
 
+// trace_paired_streamed — replaces pallas_ray_trace_paired_streamed
+// (pallas_intersect.py:989): packet_pair_walk over the compact pair rows
+// and the tris array's whole leaves (leaf_size x 48 bytes).
+template <int W>
 __global__ void __launch_bounds__(kPacketWarps * 32)
     trace_paired_streamed_kernel(
     const float4* __restrict__ pairs16, int n_pairs,
@@ -604,31 +765,16 @@ __global__ void __launch_bounds__(kPacketWarps * 32)
     const float* __restrict__ dirs, int n_rays, float* __restrict__ t_out,
     float* __restrict__ u_out, float* __restrict__ v_out,
     int* __restrict__ f_out) {
-  packet_pair_walk(pairs16, n_pairs, leaves, n_leaf_rows, leaf_size,
-                   stack_depth, orig, dirs, n_rays, t_out, u_out, v_out,
-                   f_out, 3 * leaf_size);
+  packet_pair_walk<W, 0>(pairs16, n_pairs, leaves, n_leaf_rows, leaf_size,
+                         stack_depth, orig, dirs, n_rays, t_out, u_out, v_out,
+                         f_out);
 }
 
-// trace_dense_streamed — replaces pallas_ray_trace_dense_streamed /
-// _kernel_dense_streamed (pallas_intersect.py:1271, 1437): trace_dense's
-// records walked as trace_paired_streamed walks its own, one cursor and
-// stack per packet, the dense rows read through windows counted in dense
-// rows (kPairWin / 8 = 4 rows of 8 pair records, kLeafWin / 2 = 4 rows of
-// 2 leaf slots); left leaf before right leaf, each with its own window
-// check (:1349-1379); near and far by the mean entry distance of the lanes
-// that want the child (:1385-1391).
-// What is and is not new on this card: the TPU kernel exists because a
-// paired row carries one 16-float pair in 128 lanes, an 8x pad on every
-// byte that crosses its DMA, and dense rows remove the pad. Here
-// trace_paired_streamed already reads compact 64-byte pair records, so
-// the pair side of this kernel is the same bytes through the same
-// 32-record window. Only the leaf side differs: leaves sit in aligned
-// 256-byte slots (a window is always 2 KB, whatever leaf_size) where the
-// compact rows are leaf_size x 48 bytes long and unaligned. Same bound as
-// trace_paired_streamed: a chain of shared-memory reads, ballots and
-// __syncwarps per pop, and the union of 32 rays' paths. A cp.async
-// prefetch of the next window (the left child's record is the next one)
-// is where pipelining would go.
+// trace_dense_streamed — replaces pallas_ray_trace_dense_streamed
+// (pallas_intersect.py:1437): packet_pair_walk over the dense layout, the
+// same 64-byte pair records and leaves in aligned 256-byte slots, so a
+// leaf window is always 64 bytes a lane whatever leaf_size.
+template <int W>
 __global__ void __launch_bounds__(kPacketWarps * 32)
     trace_dense_streamed_kernel(
     const float4* __restrict__ pairs16, int n_pairs,
@@ -637,112 +783,220 @@ __global__ void __launch_bounds__(kPacketWarps * 32)
     const float* __restrict__ dirs, int n_rays, float* __restrict__ t_out,
     float* __restrict__ u_out, float* __restrict__ v_out,
     int* __restrict__ f_out) {
-  packet_pair_walk(pairs16, n_pairs, leaves, n_leaf_rows, leaf_size,
-                   stack_depth, orig, dirs, n_rays, t_out, u_out, v_out,
-                   f_out, kSlot4);
+  packet_pair_walk<W, kSlot4>(pairs16, n_pairs, leaves, n_leaf_rows,
+                              leaf_size, stack_depth, orig, dirs, n_rays,
+                              t_out, u_out, v_out, f_out);
 }
 
 // trace_streamed — replaces pallas_ray_trace_streamed / _kernel_streamed
 // (pallas_intersect.py:271, 371): the stackless skip-pointer walk of
-// trace_union with ONE cursor for a packet of rays and the tree read
-// through forward-only windows. Visit node cur - 1; every lane slab-tests
-// it against its own t_best; a leaf (desc <= 0, leaf ordinal
-// -desc / leaf_size) is folded by the lanes whose own test hit; the packet
-// descends to desc when any lane hit an internal node, else jumps to the
-// skip pointer; cur <= 0 ends the walk. A lane's extra visits are misses
-// for it (child boxes nest in parent boxes, t_best only shrinks), so each
-// ray gets trace_union's hit, bit for bit.
-// Design: the TPU pads every node and leaf to a 128-float row because its
-// DMA needs it; the card does not, so the windows hold the compact rows:
-// kNodeWin 32-byte nodes of the (N, 8) array and kLeafWin whole leaves of
-// the tris array, per warp in shared memory, each reload one coalesced
-// read. In a preorder tree both the node cursor and the leaf base only
-// grow along a walk (:277-280), so a window never goes back: the next
-// one's address is known, which is where a cp.async prefetch would go. No
-// stack, so no __syncwarp outside the reloads. What bounds it: it visits
-// nodes in storage order, not near-first, so t_best shrinks late and a
-// packet walks the union of 32 rays' unpruned paths: the most slab tests
-// of the five big-tree kernels, each a dependent shared-memory read.
+// trace_union with ONE cursor for a packet of W rays. Visit node cur - 1;
+// every lane slab-tests it against its own t_best; a leaf (desc <= 0, leaf
+// ordinal -desc / leaf_size) is folded by the lanes whose own test hit;
+// the packet descends to desc when any lane hit an internal node, else
+// jumps to the skip pointer; cur <= 0 ends the walk. A lane's extra visits
+// are misses for it (child boxes nest in parent boxes, t_best only
+// shrinks), so each ray gets trace_union's hit, bit for bit, at any packet
+// width. The TPU streams the tree through forward-only windows of rows
+// padded to 128 floats because its DMA needs that; the card reads the
+// compact rows: the 32-byte nodes of the (N, 8) array and whole leaves of
+// the tris array.
+// What bounded the earlier design (one cursor per warp, shared-memory
+// windows of 64 nodes and 8 leaves reloaded by a __ldg loop between two
+// __syncwarps): it visits nodes in storage order, not near-first, so
+// t_best shrinks late and a packet of 32 walks the union of 32 unpruned
+// paths, 875 visits per warp on the 102,014-face scene, 84% of the lane
+// tests for rays whose own walk never comes to that node, with ~110
+// reloads per packet.
+// What this design does about it:
+//  - Sub-warp packets: at kStreamedPacket = 4, eight cursors per warp in
+//    lockstep, each over the union of 4 rays' paths.
+//  - No windows, no shared memory: the node under the cursor is 32 bytes
+//    at one address for every lane of a group, two broadcast __ldg. In a
+//    preorder tree the cursor can only go to the left child (the next
+//    node) or to the skip pointer, both known once the node is read, so
+//    both successors are loaded into registers while the node is tested
+//    and the one taken becomes the next visit's node: a visit never waits
+//    for its node, and nothing is reloaded per group. Leaves are read
+//    directly by the lanes that hit, which the L1 serves as one broadcast
+//    transaction per float4. 3.1-3.4 ms against the earlier 4.77 on the
+//    518,400 sorted bounce rays of the 102,014-face scene (H100).
+// What was tried on those rays and dropped (PERF.md has the tables):
+//  - The earlier design's windows, scaled with the packet (2 nodes a lane,
+//    a leaf per 4 lanes): 4.4-4.8 ms at W = 4, 5.2-5.9 at W = 32.
+//  - Asynchronous forward windows: the node cursor and the leaf base only
+//    grow along a walk (:277-280), so each window was double-buffered and
+//    the following one fetched with cp.async (16-byte copies and
+//    per-thread commit groups rather than a bulk copy with an mbarrier: a
+//    group of 4-16 lanes shares a window and the groups of a warp reload
+//    at different steps, which would take a barrier object per group and
+//    buffer) while the group walked the held one. 0.1-0.9 ms slower than
+//    the synchronous windows at every width: 45-54% of the node reloads
+//    and 9-22% of the leaf reloads go to the window right after the one
+//    held (trace_streamed_plain counts them); the others jumped past it,
+//    waste the copy and wait as before.
+//  - Loading only the left child ahead (the skip target when taken): 8-12%
+//    slower than loading both.
+// The per-ray walk of the same tree (trace_union's unstaged path, a packet
+// of 1) takes 1.8-1.9 ms on the same rays and beats every width here:
+// chip_smoke.py times it beside this kernel.
+template <int W>
 __global__ void __launch_bounds__(kPacketWarps * 32) trace_streamed_kernel(
     const float4* __restrict__ nodes, int n_nodes,
     const float4* __restrict__ leaves, int n_leaf_rows, int leaf_size,
     const float* __restrict__ orig, const float* __restrict__ dirs,
     int n_rays, float* __restrict__ t_out, float* __restrict__ u_out,
     float* __restrict__ v_out, int* __restrict__ f_out) {
-  extern __shared__ float4 packet_smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int first = blockIdx.x * blockDim.x + warp * 32;
-  if (first >= n_rays) return;  // the whole packet is past the end
+  if (first >= n_rays) return;  // the whole warp is past the end
+  const unsigned gmask = group_mask_of<W>(lane);
   const int leaf4 = 3 * leaf_size;
-  float4* nbuf = packet_smem + warp * (kNodeWin * 2 + kLeafWin * leaf4);
-  float4* lbuf = nbuf + kNodeWin * 2;
 
   const int i = first + lane;
   const bool live = i < n_rays;  // lanes past the end never vote
   const Ray r = load_ray(orig, dirs, live ? i : n_rays - 1);
   Hit h{kTMiss, 0.0f, 0.0f, -1};
-  int cur = 1;    // 1-based, the same for every lane
-  int nwin = -1;  // no window loaded
-  int lwin = -1;
+  // 1-based, the same for every lane of the group; a group wholly past
+  // the end idles
+  int cur = (first + (lane & ~(W - 1)) < n_rays) ? 1 : 0;
+  float4 a = __ldg(nodes);  // the root
+  float4 b = __ldg(nodes + 1);
   const int max_steps = 2 * n_nodes + 2;
-  for (int step = 0; cur > 0 && step < max_steps; ++step) {
-    const int node = min(max(cur - 1, 0), n_nodes - 1);
-    const int tgt = node / kNodeWin;
-    if (tgt != nwin) {
-      __syncwarp();  // every lane is done with the old window
-      const int base = tgt * kNodeWin;
-      const int n4 = min(kNodeWin, n_nodes - base) * 2;
-      const float4* src = nodes + static_cast<size_t>(base) * 2;
-      for (int k = lane; k < n4; k += 32) nbuf[k] = __ldg(src + k);
-      __syncwarp();
-      nwin = tgt;
+  for (int step = 0; step < max_steps; ++step) {
+    const bool active = cur > 0;  // uniform over the group
+    // the warp walks while any group does; the vote is read at the
+    // step's end, off the dependent chain (see packet_pair_walk)
+    bool go = active;
+    if constexpr (W < 32) go = __any_sync(kFullMask, active);
+    float4 da = a, db = b, sa = a, sb = b;  // the successors' nodes
+    if (active) {
+      // the node under the cursor is in registers; both places the cursor
+      // can go next (the left child is the next node, the skip pointer
+      // leads on) are loaded while it is tested. A leaf's or the last
+      // node's clamped successor is a valid node, read and dropped.
+      const int child = min(max(static_cast<int>(b.w) - 1, 0), n_nodes - 1);
+      const int skip = min(max(static_cast<int>(b.z) - 1, 0), n_nodes - 1);
+      da = __ldg(nodes + 2 * child);
+      db = __ldg(nodes + 2 * child + 1);
+      sa = __ldg(nodes + 2 * skip);
+      sb = __ldg(nodes + 2 * skip + 1);
     }
-    const float4 a = nbuf[(node - tgt * kNodeWin) * 2];
-    const float4 b = nbuf[(node - tgt * kNodeWin) * 2 + 1];
     float tlo;
-    const bool hit =
-        slab(r, a.x, a.y, a.z, a.w, b.x, b.y, h.t, &tlo) && live;
-    const bool any_hit = __ballot_sync(kFullMask, hit) != 0u;
-    const float desc = b.w;
-    const bool leaf = desc <= 0.0f;
-    if (any_hit && leaf) {
-      packet_leaf(r, hit, static_cast<int>(-desc) / leaf_size, leaves,
-                  n_leaf_rows, leaf_size, leaf4, lwin, lbuf, lane, h);
+    const bool hit = active && live &&
+                     slab(r, a.x, a.y, a.z, a.w, b.x, b.y, h.t, &tlo);
+    const bool any_hit = (__ballot_sync(kFullMask, hit) & gmask) != 0u;
+    if (active) {
+      const float desc = b.w;
+      const bool leaf = desc <= 0.0f;
+      if (hit && leaf) {
+        const int lrow = min(max(static_cast<int>(-desc) / leaf_size, 0),
+                             n_leaf_rows - 1);
+        const float4* lf = leaves + static_cast<size_t>(lrow) * leaf4;
+        for (int k = 0; k < leaf_size; ++k) {
+          mt_fold(r, __ldg(lf + 3 * k), __ldg(lf + 3 * k + 1),
+                  __ldg(lf + 3 * k + 2), h);
+        }
+      }
+      const bool descend = any_hit && !leaf;
+      cur = descend ? static_cast<int>(desc) : static_cast<int>(b.z);
+      a = descend ? da : sa;
+      b = descend ? db : sb;
     }
-    cur = (any_hit && !leaf) ? static_cast<int>(desc)
-                             : static_cast<int>(b.z);
+    if (!go) break;
   }
   if (live) store_hit(h, i, t_out, u_out, v_out, f_out);
 }
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
-using PacketPairKernel = void (*)(const float4*, int, const float4*, int, int,
-                                  int, const float*, const float*, int, float*,
-                                  float*, float*, int*);
+// --------------------------------------------------- packet walk launches
+
+using PairKernel = void (*)(const float4*, int, const float4*, int, int, int,
+                            const float*, const float*, int, float*, float*,
+                            float*, int*);
+using StreamedKernel = void (*)(const float4*, int, const float4*, int, int,
+                                const float*, const float*, int, float*,
+                                float*, float*, int*);
+
+// The instantiations by packet width, nullptr for a width that has none;
+// width 0 asks for the shipped one.
+inline StreamedKernel streamed_kernel_of(int width) {
+  switch (width == 0 ? kStreamedPacket : width) {
+    case 4: return trace_streamed_kernel<4>;
+    case 8: return trace_streamed_kernel<8>;
+    case 16: return trace_streamed_kernel<16>;
+    case 32: return trace_streamed_kernel<32>;
+    default: return nullptr;
+  }
+}
+
+inline PairKernel paired_streamed_kernel_of(int width) {
+  switch (width) {
+    case 4: return trace_paired_streamed_kernel<4>;
+    case 8: return trace_paired_streamed_kernel<8>;
+    case 16: return trace_paired_streamed_kernel<16>;
+    case 32: return trace_paired_streamed_kernel<32>;
+    default: return nullptr;
+  }
+}
+
+inline PairKernel dense_streamed_kernel_of(int width) {
+  switch (width) {
+    case 4: return trace_dense_streamed_kernel<4>;
+    case 8: return trace_dense_streamed_kernel<8>;
+    case 16: return trace_dense_streamed_kernel<16>;
+    case 32: return trace_dense_streamed_kernel<32>;
+    default: return nullptr;
+  }
+}
+
+// Dynamic shared memory of one block of the pair walk, in bytes.
+inline long long pair_shared_bytes(int width, long long leaf4) {
+  return 16LL * kPacketWarps * (32 / width) * pair_group4(width, leaf4);
+}
+
+// Make room for a block's dynamic shared memory: checked against the most
+// a block may opt into on the current device (227 KB on an H100), and
+// past the default limit the kernel is opted in. 0, or the CUDA error the
+// wrapper raises on: windows past the card's limit are
+// cudaErrorInvalidValue, and a refused opt-in is returned as it came.
+inline int reserve_shared(const void* kernel, long long bytes) {
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  int limit = 0;
+  rc = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                              dev);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  if (bytes > limit) return static_cast<int>(cudaErrorInvalidValue);
+  if (bytes <= kDefaultShared) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, limit));
+}
 
 // Launch of a packet walk over pair records, whole leaves leaf4 float4s
-// long: every warp's stack and two windows go into dynamic shared memory,
-// refused past the default 48 KB.
-int launch_packet_pair(PacketPairKernel kernel, long long leaf4,
+// long.
+int launch_packet_pair(PairKernel kernel, int width, long long leaf4,
                        const void* pairs16, int n_pairs, const void* leaves,
                        int n_leaf_rows, int leaf_size, int stack_depth,
                        const void* orig, const void* dirs, int n_rays,
                        void* t_out, void* u_out, void* v_out, void* f_out,
                        void* stream) {
   if (n_rays <= 0) return 0;
-  const long long shared =
-      16LL * kPacketWarps *
-      (kStackCap / 4 + kPairWin * kPair4 + kLeafWin * leaf4);
-  if (stack_depth < 1 || stack_depth > kStackCap || n_pairs < 1 ||
-      n_leaf_rows < 1 || leaf_size < 1 || shared > kSharedLimit) {
+  if (kernel == nullptr || stack_depth < 1 || stack_depth > kStackCap ||
+      n_pairs < 1 || n_leaf_rows < 1 || leaf_size < 1 ||
+      3LL * leaf_size > leaf4) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long shared = pair_shared_bytes(width, leaf4);
+  const int rc = reserve_shared(reinterpret_cast<const void*>(kernel), shared);
+  if (rc != 0) return rc;
   const int threads = kPacketWarps * 32;
   const int blocks = (n_rays + threads - 1) / threads;
-  kernel<<<blocks, threads, shared, s>>>(
+  kernel<<<blocks, threads, static_cast<size_t>(shared),
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(pairs16), n_pairs,
       static_cast<const float4*>(leaves), n_leaf_rows, leaf_size, stack_depth,
       static_cast<const float*>(orig), static_cast<const float*>(dirs), n_rays,
@@ -821,16 +1075,19 @@ int iris_trace_ordered(const void* nodes, int n_nodes, const void* tris,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The packet walks take the packet width last: one of the instantiated
+// widths, or 0 for the shipped one.
 int iris_trace_paired_streamed(const void* pairs16, int n_pairs,
                                const void* leaves, int n_leaf_rows,
                                int leaf_size, int stack_depth,
                                const void* orig, const void* dirs, int n_rays,
                                void* t_out, void* u_out, void* v_out,
-                               void* f_out, void* stream) {
-  return launch_packet_pair(trace_paired_streamed_kernel, 3LL * leaf_size,
-                            pairs16, n_pairs, leaves, n_leaf_rows, leaf_size,
-                            stack_depth, orig, dirs, n_rays, t_out, u_out,
-                            v_out, f_out, stream);
+                               void* f_out, void* stream, int width) {
+  if (width == 0) width = kPairPacket;
+  return launch_packet_pair(paired_streamed_kernel_of(width), width,
+                            3LL * leaf_size, pairs16, n_pairs, leaves,
+                            n_leaf_rows, leaf_size, stack_depth, orig, dirs,
+                            n_rays, t_out, u_out, v_out, f_out, stream);
 }
 
 int iris_trace_dense_streamed(const void* pairs, int n_pairs,
@@ -838,10 +1095,10 @@ int iris_trace_dense_streamed(const void* pairs, int n_pairs,
                               int leaf_size, int stack_depth, const void* orig,
                               const void* dirs, int n_rays, void* t_out,
                               void* u_out, void* v_out, void* f_out,
-                              void* stream) {
-  if (3 * leaf_size > kSlot4) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_packet_pair(trace_dense_streamed_kernel, kSlot4, pairs,
-                            n_pairs, leaves, n_leaf_rows, leaf_size,
+                              void* stream, int width) {
+  if (width == 0) width = kPairPacket;
+  return launch_packet_pair(dense_streamed_kernel_of(width), width, kSlot4,
+                            pairs, n_pairs, leaves, n_leaf_rows, leaf_size,
                             stack_depth, orig, dirs, n_rays, t_out, u_out,
                             v_out, f_out, stream);
 }
@@ -869,25 +1126,71 @@ int iris_trace_dense(const void* pairs, int n_pairs, const void* leaves,
 int iris_trace_streamed(const void* nodes, int n_nodes, const void* leaves,
                         int n_leaf_rows, int leaf_size, const void* orig,
                         const void* dirs, int n_rays, void* t_out, void* u_out,
-                        void* v_out, void* f_out, void* stream) {
+                        void* v_out, void* f_out, void* stream, int width) {
   if (n_rays <= 0) return 0;
-  // every warp's node and leaf windows; refused past the default 48 KB
-  const long long shared =
-      16LL * kPacketWarps * (kNodeWin * 2 + 3LL * kLeafWin * leaf_size);
-  if (n_nodes < 1 || n_leaf_rows < 1 || leaf_size < 1 ||
-      shared > kSharedLimit) {
+  const StreamedKernel kernel = streamed_kernel_of(width);
+  if (kernel == nullptr || n_nodes < 1 || n_leaf_rows < 1 || leaf_size < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int threads = kPacketWarps * 32;
   const int blocks = (n_rays + threads - 1) / threads;
-  trace_streamed_kernel<<<blocks, threads, shared, s>>>(
+  kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(nodes), n_nodes,
       static_cast<const float4*>(leaves), n_leaf_rows, leaf_size,
       static_cast<const float*>(orig), static_cast<const float*>(dirs), n_rays,
       static_cast<float*>(t_out), static_cast<float*>(u_out),
       static_cast<float*>(v_out), static_cast<int*>(f_out));
   return static_cast<int>(cudaGetLastError());
+}
+
+// What one instantiation of a packet walk takes on the current device:
+// kernel 0 = trace_streamed, 1 = trace_paired_streamed, 2 =
+// trace_dense_streamed, at packet width `width` (0: the shipped one);
+// out = {packet width, dynamic shared memory per block in bytes, resident
+// blocks per SM (0 when a block does not fit the card), threads per block,
+// the card's opt-in limit in bytes, registers per thread, local memory per
+// thread in bytes}. 0, or a CUDA error.
+int iris_packet_config(int kernel, int width, int leaf_size, int* out) {
+  if (leaf_size < 1 || kernel < 0 || kernel > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (width == 0) width = kernel == 0 ? kStreamedPacket : kPairPacket;
+  const void* fn = nullptr;
+  long long shared = 0;
+  if (kernel == 0) {
+    fn = reinterpret_cast<const void*>(streamed_kernel_of(width));
+  } else if (kernel == 1) {
+    fn = reinterpret_cast<const void*>(paired_streamed_kernel_of(width));
+    if (fn != nullptr) shared = pair_shared_bytes(width, 3LL * leaf_size);
+  } else {
+    fn = reinterpret_cast<const void*>(dense_streamed_kernel_of(width));
+    if (fn != nullptr) shared = pair_shared_bytes(width, kSlot4);
+  }
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  int limit = 0;
+  rc = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                              dev);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  cudaFuncAttributes attr;
+  rc = cudaFuncGetAttributes(&attr, fn);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const int threads = kPacketWarps * 32;
+  out[0] = width;
+  out[1] = static_cast<int>(shared);
+  out[2] = 0;
+  out[3] = threads;
+  out[4] = limit;
+  out[5] = attr.numRegs;
+  out[6] = static_cast<int>(attr.localSizeBytes);
+  if (shared > limit) return 0;  // no block of it fits
+  const int opt = reserve_shared(fn, shared);
+  if (opt != 0) return opt;
+  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[2], fn, threads, static_cast<size_t>(shared));
+  return static_cast<int>(rc);
 }
 
 }  // extern "C"

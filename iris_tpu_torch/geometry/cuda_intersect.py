@@ -52,7 +52,17 @@ there. "Gate" below is one of the three 10 MiB constants of this module.
 The card has no such memory gates (a 32 MB paired layout sits in the 50 MB
 L2), so the splits are kept for parity of paths, not out of need;
 chip_smoke.py times the five big-tree kernels on the same rays so they can
-be moved on evidence. The n_rays < 8192 XLA escape (intersect.py:395) does
+be moved on evidence.
+
+The three streamed kernels (#2, #5, #7) are packet walks: `width`
+consecutive rays share one cursor. traverse.cu instantiates them at every
+width of PACKET_WIDTHS; the dispatch runs the shipped ones (STREAMED_PACKET;
+PACKET), and the wrappers' width= argument lets chip_smoke.py and the card
+tests hold and time the others. trace_streamed's hits do not depend on the
+width; the pair walks
+order near and far children by the packet's mean entry distance, so their
+equal-t ties do, and each width is held against the plain version at that
+width. The n_rays < 8192 XLA escape (intersect.py:395) does
 not carry over: on the card every call launches a kernel.
 
 A CUDA tensor launches the kernel, or raises: nothing catches a build or
@@ -105,19 +115,46 @@ RESIDENT_BYTES = 10 << 20
 PAIR_PACK = 8
 LEAF_PACK = 2
 
-# The packet walks: rays per shared cursor (one warp), and the rows per
-# shared-memory window: 64-byte pair rows, whole leaf rows (leaf_size x 48
-# bytes; 256-byte slots in the dense layout) and 32-byte nodes. The
-# kernels' own constants are kPairWin, kLeafWin and kNodeWin in
-# traverse.cu; these only count reloads in the plain versions. The dense
-# packet walk counts its windows in 128-float dense rows, as the TPU
-# kernel does: 4 rows hold 32 pairs or 8 leaf slots, the same records.
+# The packet walks. A packet is `width` consecutive rays behind one cursor:
+# 4, 8, 16 or 32 lanes of a warp (traverse.cu instantiates PACKET_WIDTHS).
+# STREAMED_PACKET is the width trace_streamed ships, PACKET the width of
+# trace_paired_streamed and trace_dense_streamed (one walk); the kernels'
+# constants are kStreamedPacket and kPairPacket.
+PACKET_WIDTHS = (4, 8, 16, 32)
+STREAMED_PACKET = 4
 PACKET = 32
-PAIR_WIN = 32
-LEAF_WIN = 8
-NODE_WIN = 64
-DENSE_PAIR_WIN = PAIR_WIN // PAIR_PACK
-DENSE_LEAF_WIN = LEAF_WIN // LEAF_PACK
+# The pair walk's shared-memory windows scale with the packet: per lane
+# PAIR_WIN_PER_LANE 64-byte pair records, and one whole leaf (leaf_size x 48
+# bytes; a 256-byte slot in the dense layout) per LANES_PER_LEAF lanes
+# (kPairWinPerLane, kLanesPerLeaf in traverse.cu). The plain versions only
+# count reloads of the same windows. trace_streamed's kernel keeps no
+# window (it reads nodes and leaves by broadcast loads); its plain version
+# counts what windows of NODE_WIN_PER_LANE 32-byte nodes per lane and the
+# same leaf windows would reload, the sizing that dropped them.
+NODE_WIN_PER_LANE = 2
+PAIR_WIN_PER_LANE = 1
+LANES_PER_LEAF = 4
+
+
+def node_win_for(width: int) -> int:
+    """Nodes per window of trace_streamed at this packet width."""
+    return width * NODE_WIN_PER_LANE
+
+
+def pair_win_for(width: int) -> int:
+    """Pair records per window of the pair walk at this packet width."""
+    return width * PAIR_WIN_PER_LANE
+
+
+def leaf_win_for(width: int) -> int:
+    """Whole leaves per window of a packet walk at this packet width."""
+    return max(width // LANES_PER_LEAF, 1)
+
+
+# The windows at the shipped widths.
+NODE_WIN = node_win_for(STREAMED_PACKET)
+PAIR_WIN = pair_win_for(PACKET)
+LEAF_WIN = leaf_win_for(PACKET)
 
 KERNELS = ("trace_union", "trace_streamed", "trace_ordered", "trace_paired",
            "trace_paired_streamed", "trace_dense", "trace_dense_streamed")
@@ -159,9 +196,50 @@ def get_lib() -> ctypes.CDLL:
                                 ("dense_streamed", True)):
                 fn = getattr(lib, "iris_trace_" + name)
                 fn.restype = i32
-                fn.argtypes = walk + ([i32] if stack else []) + tail
+                # the packet walks also take the packet width
+                fn.argtypes = (walk + ([i32] if stack else []) + tail
+                               + ([i32] if "streamed" in name else []))
+            lib.iris_packet_config.restype = i32
+            lib.iris_packet_config.argtypes = [i32, i32, i32,
+                                               ctypes.POINTER(i32)]
             _LIB = lib
         return _LIB
+
+
+_PACKET_KERNELS = ("trace_streamed", "trace_paired_streamed",
+                   "trace_dense_streamed")
+
+
+def packet_config(name: str, leaf_size: int,
+                  width: int | None = None) -> dict:
+    """What one instantiation of a packet walk takes on the current card:
+    its packet width (the kernel's shipped one by default), dynamic shared
+    memory per block, resident blocks per SM (0 when a block does not fit
+    the shared memory a block of this card may opt into), threads per
+    block, that limit, registers per thread and local memory per thread.
+    Needs the card."""
+    out = (ctypes.c_int * 7)()
+    with torch.cuda.device(torch.cuda.current_device()):
+        rc = get_lib().iris_packet_config(_PACKET_KERNELS.index(name),
+                                          _packet_width(name, width),
+                                          leaf_size, out)
+    if rc != 0:
+        raise RuntimeError(f"{name}: packet_config failed: CUDA error {rc}")
+    keys = ("packet_width", "smem_bytes_per_block", "blocks_per_sm",
+            "threads_per_block", "smem_limit_bytes", "registers",
+            "local_bytes_per_thread")
+    return dict(zip(keys, out))
+
+
+def _packet_width(name: str, width: int | None) -> int:
+    """The width argument of a packet walk's C entry: 0 asks for the width
+    the kernel ships, anything else must be instantiated."""
+    if width is None:
+        return 0
+    if width not in PACKET_WIDTHS:
+        raise ValueError(f"{name}: packet width {width} is not one of "
+                         f"{PACKET_WIDTHS}")
+    return width
 
 
 # ----------------------------------------------------------- host helpers
@@ -673,20 +751,30 @@ def _packet_walk_plain(rows16, leaf_rows, n_pairs, n_leaf_rows, L, s, origins,
     inv = _safe_inv(d)
     best = _new_best(o.shape[0], dev)
     stack = torch.zeros((nq, s), dtype=torch.int64, device=dev)
+    # how each entry came onto the stack, for the counts only
+    kind = torch.zeros((nq, s), dtype=torch.int64, device=dev)
+    k_root, k_far, k_next, k_near = 0, 1, 2, 3
     sp = torch.ones(nq, dtype=torch.int64, device=dev)
     pwin = torch.full((nq,), -1, dtype=torch.int64, device=dev)
     lwin = torch.full((nq,), -1, dtype=torch.int64, device=dev)
     alive = torch.arange(nq, device=dev)
     lane = torch.arange(width, device=dev)
     n_slab = n_mt = n_pops = n_pload = n_lload = 0
+    n_pnext = n_lnext = n_far = n_nextpop = max_stack = 0
     for _ in range(2 * n_pairs + 2):  # each pair row is popped <= once
         na = alive.numel()
         if na == 0:
             break
+        max_stack = max(max_stack, int(sp[alive].max()))
         sp1 = sp[alive] - 1
         rid = stack[alive, sp1]
+        how = kind[alive, sp1]
+        n_far += int((how == k_far).sum())
+        n_nextpop += int((how == k_next).sum())
         tgt = rid // pair_win  # window of this pair record
-        n_pload += int((tgt != pwin[alive]).sum())
+        held = pwin[alive]
+        n_pload += int((tgt != held).sum())
+        n_pnext += int(((tgt == held + 1) & (held >= 0)).sum())
         pwin[alive] = tgt
         row = rows16[rid]
         ridx = (alive[:, None] * width + lane[None, :]).reshape(-1)
@@ -708,6 +796,7 @@ def _packet_walk_plain(rows16, leaf_rows, n_pairs, n_leaf_rows, L, s, origins,
             ltgt = lrow // leaf_win
             cur = lwin[alive]
             n_lload += int((do & (ltgt != cur)).sum())
+            n_lnext += int((do & (ltgt == cur + 1) & (cur >= 0)).sum())
             lwin[alive] = torch.where(do, ltgt, cur)
             m = (hit & do[:, None]).reshape(-1)
             rays = ridx[m]
@@ -732,11 +821,14 @@ def _packet_walk_plain(rows16, leaf_rows, n_pairs, n_leaf_rows, L, s, origins,
         near = torch.where(l_near, pid_l, pid_r)
         push_far = want_l & want_r
         push_near = want_l | want_r
-        stack[alive[push_far], torch.clamp(sp1[push_far], max=s - 1)] = \
-            far[push_far]
+        pos_far = torch.clamp(sp1[push_far], max=s - 1)
+        stack[alive[push_far], pos_far] = far[push_far]
+        kind[alive[push_far], pos_far] = k_far
         sp3 = sp1 + push_far.to(torch.int64)
-        stack[alive[push_near], torch.clamp(sp3[push_near], max=s - 1)] = \
-            near[push_near]
+        pos_near = torch.clamp(sp3[push_near], max=s - 1)
+        stack[alive[push_near], pos_near] = near[push_near]
+        kind[alive[push_near], pos_near] = torch.where(
+            near == rid + 1, k_next, k_near)[push_near]
         sp4 = torch.clamp(sp3 + push_near.to(torch.int64), max=s)
         sp[alive] = sp4
         n_slab += 2 * int(lv.sum())
@@ -746,7 +838,9 @@ def _packet_walk_plain(rows16, leaf_rows, n_pairs, n_leaf_rows, L, s, origins,
         raise RuntimeError("BVH walk did not terminate: corrupt tree")
     if counts is not None:
         counts.update(slab=n_slab, mt=n_mt, pops=n_pops, pair_loads=n_pload,
-                      leaf_loads=n_lload)
+                      leaf_loads=n_lload, pair_loads_next=n_pnext,
+                      leaf_loads_next=n_lnext, far_pops=n_far,
+                      next_pops=n_nextpop, max_stack=max_stack)
     return tuple(x[:b] for x in best)
 
 
@@ -754,69 +848,89 @@ def trace_paired_streamed_plain(tracer: Tracer, origins: torch.Tensor,
                                 dirs: torch.Tensor,
                                 counts: dict | None = None,
                                 width: int = PACKET,
-                                pair_win: int = PAIR_WIN,
-                                leaf_win: int = LEAF_WIN):
+                                pair_win: int | None = None,
+                                leaf_win: int | None = None):
     """Plain PyTorch version of trace_paired_streamed: the same packet
     walk, vectorized over the packets still walking. Each packet of `width`
-    consecutive rays (a power of two; the kernel's is PACKET) shares one
+    consecutive rays (a power of two; the kernel ships PACKET) shares one
     cursor and one (stack_depth,) stack; lanes vote on each child, the
     lanes that entered a leaf child's box fold its triangles, and the far
     and near internal children are ordered by the mean entry distance of
-    the lanes that hit them. Rays past the end of the last packet never
-    vote.
+    the lanes that hit them, summed in the kernel's butterfly order. Rays
+    past the end of the last packet never vote.
 
     The windows change what is read from where, not the result; the plain
-    version only counts them. counts, when given, receives "slab" tests
-    (two per lane per pair row popped), "mt" triangle tests (lanes that
-    entered the leaf), "pops", and "pair_loads"/"leaf_loads": the window
-    reloads of aligned pair_win/leaf_win-row windows."""
+    version only counts them (defaults: the kernel's windows at this
+    width). counts, when given, receives "slab" tests (two per lane per
+    pair row popped), "mt" triangle tests (lanes that entered the leaf),
+    "pops", "pair_loads"/"leaf_loads": the reloads of aligned
+    pair_win/leaf_win-row windows, "pair_loads_next"/"leaf_loads_next":
+    those of them whose target is the window right after the one held
+    (all a prefetch of the following window could serve), "far_pops":
+    pops of an entry pushed as a far child (all that a record fetched at
+    the push could serve), "next_pops": pops of a near child whose record
+    is the row after its parent's, and "max_stack": the deepest stack of
+    any packet."""
     pairs16, leaf_rows, n_pairs, n_leaf_rows = pack_paired_compact(tracer)
-    return _packet_walk_plain(pairs16, leaf_rows, n_pairs, n_leaf_rows,
-                              tracer.leaf_size, auto_stack_depth(tracer),
-                              origins, dirs, counts, width, pair_win,
-                              leaf_win)
+    return _packet_walk_plain(
+        pairs16, leaf_rows, n_pairs, n_leaf_rows, tracer.leaf_size,
+        auto_stack_depth(tracer), origins, dirs, counts, width,
+        pair_win_for(width) if pair_win is None else pair_win,
+        leaf_win_for(width) if leaf_win is None else leaf_win)
 
 
 def trace_dense_streamed_plain(tracer: Tracer, origins: torch.Tensor,
                                dirs: torch.Tensor,
                                counts: dict | None = None,
                                width: int = PACKET,
-                               pair_win: int = DENSE_PAIR_WIN,
-                               leaf_win: int = DENSE_LEAF_WIN):
+                               pair_win: int | None = None,
+                               leaf_win: int | None = None):
     """Plain PyTorch version of trace_dense_streamed: trace_paired_streamed
     _plain's packet walk with every record taken from its slot of the dense
-    layout. pair_win and leaf_win count 128-float dense rows, as the TPU
-    kernel's do (a pair window covers pair_win * 8 pairs, a leaf window
-    leaf_win * 2 leaves); left leaf before right leaf, each with its own
-    window check. Same counts as trace_paired_streamed_plain."""
+    layout; left leaf before right leaf, each with its own window check.
+    pair_win and leaf_win, when given, count 128-float dense rows, as the
+    TPU kernel's do (a pair window covers pair_win * 8 pairs, a leaf window
+    leaf_win * 2 leaves); by default the windows are the kernel's at this
+    width, the same records as trace_paired_streamed's. Same counts as
+    trace_paired_streamed_plain."""
     pairs, leaves, n_pairs, n_leaf_rows = pack_dense(tracer)
-    return _packet_walk_plain(pairs.view(-1, 16), leaves.view(-1, 64),
-                              n_pairs, n_leaf_rows, tracer.leaf_size,
-                              auto_stack_depth(tracer), origins, dirs, counts,
-                              width, pair_win * PAIR_PACK,
-                              leaf_win * LEAF_PACK)
+    return _packet_walk_plain(
+        pairs.view(-1, 16), leaves.view(-1, 64), n_pairs, n_leaf_rows,
+        tracer.leaf_size, auto_stack_depth(tracer), origins, dirs, counts,
+        width,
+        pair_win_for(width) if pair_win is None else pair_win * PAIR_PACK,
+        leaf_win_for(width) if leaf_win is None else leaf_win * LEAF_PACK)
 
 
 def trace_streamed_plain(tracer: Tracer, origins: torch.Tensor,
                          dirs: torch.Tensor, counts: dict | None = None,
-                         width: int = PACKET, node_win: int = NODE_WIN,
-                         leaf_win: int = LEAF_WIN):
+                         width: int = STREAMED_PACKET,
+                         node_win: int | None = None,
+                         leaf_win: int | None = None):
     """Plain PyTorch version of trace_streamed: the stackless preorder
-    walk with one cursor per packet of `width` consecutive rays,
-    vectorized over the packets still walking. Every lane slab-tests the
-    cursor's node against its own t_best; the packet descends when any
-    lane hit, else jumps to the skip pointer; a leaf is folded only by the
-    lanes whose own test hit. A lane's extra visits are misses for it, so
-    the hits are those of the per-ray walk (trace_union_plain), bit for
-    bit.
+    walk with one cursor per packet of `width` consecutive rays (the kernel
+    ships STREAMED_PACKET), vectorized over the packets still walking.
+    Every lane slab-tests the cursor's node against its own t_best; the
+    packet descends when any lane hit, else jumps to the skip pointer; a
+    leaf is folded only by the lanes whose own test hit. A lane's extra
+    visits are misses for it, so the hits are those of the per-ray walk
+    (trace_union_plain), bit for bit, at any width.
 
     counts, when given, receives "slab" tests (one per lane per node
-    visited), "mt" triangle tests, "visits", and "node_loads"/"leaf_loads":
-    the reloads of aligned node_win/leaf_win-row windows, which in a
-    preorder tree only move forward."""
+    visited), "mt" triangle tests, "visits", "node_loads"/"leaf_loads": the
+    reloads of aligned node_win/leaf_win-row windows (defaults: the
+    kernel's at this width), which in a preorder tree only move forward
+    ("backward_loads" counts the reloads that did not: always 0), and
+    "node_loads_next"/"leaf_loads_next": the reloads whose target is the
+    window right after the one held, all that a prefetch of the following
+    window could serve (any other reload jumped past it);
+    "longest_walk": the visits of the packet that walked longest, a chain
+    of dependent steps no other packet shortens."""
     _check_width(width)
     if tracer.layout != "preorder":
         raise ValueError("the streamed walk needs a preorder (SAH) tree")
+    node_win = node_win_for(width) if node_win is None else node_win
+    leaf_win = leaf_win_for(width) if leaf_win is None else leaf_win
     nodes = tracer.nodes
     leaf_rows = _leaf_rows(tracer)
     n, n_leaf_rows, L = tracer.n_nodes, leaf_rows.shape[0], tracer.leaf_size
@@ -831,13 +945,18 @@ def trace_streamed_plain(tracer: Tracer, origins: torch.Tensor,
     alive = torch.arange(nq, device=dev)
     lane = torch.arange(width, device=dev)
     n_slab = n_mt = n_visits = n_nload = n_lload = 0
+    n_nnext = n_lnext = n_back = n_steps = 0
     for _ in range(2 * n + 2):        # a well-formed walk visits <= n nodes
         na = alive.numel()
         if na == 0:
             break
+        n_steps += 1
         node = torch.clamp(cur[alive] - 1, 0, n - 1)
         tgt = node // node_win
-        n_nload += int((tgt != nwin[alive]).sum())
+        held = nwin[alive]
+        n_nload += int((tgt != held).sum())
+        n_nnext += int(((tgt == held + 1) & (held >= 0)).sum())
+        n_back += int((tgt < held).sum())
         nwin[alive] = tgt
         nd = nodes[node]
         ridx = (alive[:, None] * width + lane[None, :]).reshape(-1)
@@ -853,6 +972,8 @@ def trace_streamed_plain(tracer: Tracer, origins: torch.Tensor,
         ltgt = lrow // leaf_win
         held = lwin[alive]
         n_lload += int((do & (ltgt != held)).sum())
+        n_lnext += int((do & (ltgt == held + 1) & (held >= 0)).sum())
+        n_back += int((do & (ltgt < held)).sum())
         lwin[alive] = torch.where(do, ltgt, held)
         m = (hit & do[:, None]).reshape(-1)
         rays = ridx[m]
@@ -870,7 +991,9 @@ def trace_streamed_plain(tracer: Tracer, origins: torch.Tensor,
         raise RuntimeError("BVH walk did not terminate: corrupt tree")
     if counts is not None:
         counts.update(slab=n_slab, mt=n_mt, visits=n_visits,
-                      node_loads=n_nload, leaf_loads=n_lload)
+                      node_loads=n_nload, leaf_loads=n_lload,
+                      node_loads_next=n_nnext, leaf_loads_next=n_lnext,
+                      backward_loads=n_back, longest_walk=n_steps)
     return tuple(x[:b] for x in best)
 
 
@@ -908,12 +1031,15 @@ def _outputs(b: int, dev):
             torch.empty(b, dtype=torch.int32, device=dev))
 
 
-def _launch(wrapper, arrays: dict, head: tuple, origins, dirs, hint=""):
+def _launch(wrapper, arrays: dict, head: tuple, origins, dirs, hint="",
+            width: int | None = None):
     """Check the inputs, launch the wrapper's kernel (the C function
     iris_<wrapper name>) on the current stream, count the launch and
     return (t, u, v, face). `arrays` are the two tree arrays by name,
-    `head` the C function's arguments before the rays."""
+    `head` the C function's arguments before the rays, `width` a packet
+    walk's packet width (None: the shipped one), passed after the stream."""
     name = wrapper.__name__
+    last = (_packet_width(name, width),) if name in _PACKET_KERNELS else ()
     _check_cuda(name, arrays, origins, dirs)
     b = origins.shape[0]
     t, u, v, face = _outputs(b, origins.device)
@@ -921,7 +1047,7 @@ def _launch(wrapper, arrays: dict, head: tuple, origins, dirs, hint=""):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(get_lib(), "iris_" + name)(
             *head, origins.data_ptr(), dirs.data_ptr(), b, t.data_ptr(),
-            u.data_ptr(), v.data_ptr(), face.data_ptr(), stream)
+            u.data_ptr(), v.data_ptr(), face.data_ptr(), stream, *last)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}"
                            + (f" ({hint})" if hint and rc == 1 else ""))
@@ -956,23 +1082,33 @@ def trace_union(tracer: Tracer, origins: torch.Tensor, dirs: torch.Tensor):
          tracer.tris.shape[0], tracer.leaf_size), origins, dirs)
 
 
-def trace_streamed(tracer: Tracer, origins: torch.Tensor, dirs: torch.Tensor):
+_WINDOW_HINT = ("invalid value: an empty tree, or the windows of "
+                "{}-triangle leaf rows do not fit the shared memory a block "
+                "of this card may opt into")
+
+
+def trace_streamed(tracer: Tracer, origins: torch.Tensor, dirs: torch.Tensor,
+                   width: int | None = None):
     """Closest hits by the stackless skip-pointer walk with one cursor per
-    warp of PACKET consecutive rays, nodes and whole leaves fetched through
-    NODE_WIN/LEAF_WIN-row shared-memory windows that only move forward
-    (replaces pallas_ray_trace_streamed, pallas_intersect.py:371). Preorder
-    trees only. Returns (t, u, v, face) per ray."""
+    packet of STREAMED_PACKET consecutive rays; the node under the cursor
+    and both nodes it can lead to are read by broadcast loads, with no
+    window and no shared memory (replaces pallas_ray_trace_streamed,
+    pallas_intersect.py:371). Preorder trees only. Returns (t, u, v, face)
+    per ray.
+
+    width picks another instantiated packet width (PACKET_WIDTHS) so that
+    a measurement can hold and time each one; the hits do not depend on
+    it, and the dispatch does not pass it."""
     if origins.device.type == "cpu":
-        return trace_streamed_plain(tracer, origins, dirs)
+        return trace_streamed_plain(
+            tracer, origins, dirs,
+            width=STREAMED_PACKET if width is None else width)
     _need_preorder("trace_streamed", tracer)
     leaf_rows = _leaf_rows(tracer)
     return _launch(
         trace_streamed, {"nodes": tracer.nodes, "leaf rows": leaf_rows},
         (tracer.nodes.data_ptr(), tracer.n_nodes, leaf_rows.data_ptr(),
-         leaf_rows.shape[0], tracer.leaf_size), origins, dirs,
-        hint=f"invalid value: an empty tree, or the windows of "
-             f"{tracer.leaf_size}-triangle leaf rows do not fit a block's "
-             "shared memory")
+         leaf_rows.shape[0], tracer.leaf_size), origins, dirs, width=width)
 
 
 def trace_ordered(tracer: Tracer, origins: torch.Tensor, dirs: torch.Tensor):
@@ -1005,23 +1141,27 @@ def trace_paired(tracer: Tracer, origins: torch.Tensor, dirs: torch.Tensor):
 
 
 def trace_paired_streamed(tracer: Tracer, origins: torch.Tensor,
-                          dirs: torch.Tensor):
-    """Closest hits by the packet walk: one cursor per warp of PACKET
-    consecutive rays over the compact paired rows, fetched through
-    PAIR_WIN/LEAF_WIN-row shared-memory windows (replaces
-    pallas_ray_trace_paired_streamed, pallas_intersect.py:989). Preorder
-    trees only. Returns (t, u, v, face) per ray."""
+                          dirs: torch.Tensor, width: int | None = None):
+    """Closest hits by the near-first packet walk: one cursor and stack per
+    packet of PACKET consecutive rays over the compact paired rows
+    (replaces pallas_ray_trace_paired_streamed, pallas_intersect.py:989).
+    Preorder trees only. Returns (t, u, v, face) per ray.
+
+    width picks another instantiated packet width (PACKET_WIDTHS) for
+    measurements; equal-t ties depend on it (the near child is chosen by
+    the packet's mean entry distance), so a launch at `width` is held
+    against the plain version at that width. The dispatch does not pass
+    it."""
     if origins.device.type == "cpu":
-        return trace_paired_streamed_plain(tracer, origins, dirs)
+        return trace_paired_streamed_plain(
+            tracer, origins, dirs, width=PACKET if width is None else width)
     pairs16, leaf_rows, n_pairs, n_leaf_rows = pack_paired_compact(tracer)
     return _launch(
         trace_paired_streamed, {"pairs16": pairs16, "leaf rows": leaf_rows},
         (pairs16.data_ptr(), n_pairs, leaf_rows.data_ptr(), n_leaf_rows,
          tracer.leaf_size, _stack_entries("trace_paired_streamed", tracer)),
-        origins, dirs,
-        hint=f"invalid value: an empty tree, or the windows of "
-             f"{tracer.leaf_size}-triangle leaf rows do not fit a block's "
-             "shared memory")
+        origins, dirs, hint=_WINDOW_HINT.format(tracer.leaf_size),
+        width=width)
 
 
 def trace_dense(tracer: Tracer, origins: torch.Tensor, dirs: torch.Tensor):
@@ -1041,20 +1181,22 @@ def trace_dense(tracer: Tracer, origins: torch.Tensor, dirs: torch.Tensor):
 
 
 def trace_dense_streamed(tracer: Tracer, origins: torch.Tensor,
-                         dirs: torch.Tensor):
-    """Closest hits by the packet walk over the dense layout, its rows
-    fetched through windows of DENSE_PAIR_WIN/DENSE_LEAF_WIN dense rows
+                         dirs: torch.Tensor, width: int | None = None):
+    """Closest hits by trace_paired_streamed's packet walk over the dense
+    layout: the same 64-byte pair records, leaves in 256-byte slots
     (replaces pallas_ray_trace_dense_streamed, pallas_intersect.py:1437).
     Preorder trees with leaf_size <= 5 and an internal root. Returns
-    (t, u, v, face) per ray."""
+    (t, u, v, face) per ray. width as trace_paired_streamed's."""
     if origins.device.type == "cpu":
-        return trace_dense_streamed_plain(tracer, origins, dirs)
+        return trace_dense_streamed_plain(
+            tracer, origins, dirs, width=PACKET if width is None else width)
     pairs, leaves, n_pairs, n_leaf_rows = pack_dense(tracer)
     return _launch(
         trace_dense_streamed, {"dense pairs": pairs, "dense leaves": leaves},
         (pairs.data_ptr(), n_pairs, leaves.data_ptr(), n_leaf_rows,
          tracer.leaf_size, _stack_entries("trace_dense_streamed", tracer)),
-        origins, dirs)
+        origins, dirs, hint=_WINDOW_HINT.format(tracer.leaf_size),
+        width=width)
 
 
 for _name in KERNELS:

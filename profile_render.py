@@ -17,7 +17,10 @@ production 4-level x 16-feature row-mode grid, or the reference's 32-level
 x 2-feature grid, packed (32x2) or unpacked (32x2flat). --policy picks the
 TraversalPolicy of both trees; on the 102,014-face tree "dense",
 "streamed" and "dense_streamed" reach trace_dense, trace_streamed and
-trace_dense_streamed. It prints
+trace_dense_streamed (the three packet walks run at their shipped packet
+width; the wrappers' width= argument is for measurements: chip_smoke.py
+--sweep-only times every instantiated width on a train step's rays). It
+prints
 the unit's wall time with and without the profiler, the summed device time
 of its kernels and the device's idle share against both, the number of
 kernels launched, the traversal kernels' share, and the kernels that took
@@ -168,7 +171,10 @@ def main(argv=None) -> int:
                     default="4x16", help="the hash grid: levels x features")
     ap.add_argument("--policy", choices=("default", "dense", "streamed",
                                          "dense_streamed"),
-                    default="default", help="the trees' TraversalPolicy")
+                    default="default", help="the trees' TraversalPolicy; "
+                    "the packet walks it reaches run at their shipped "
+                    "packet width (chip_smoke.py --sweep-only times the "
+                    "others)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="outputs/render_trace.json")
     args = ap.parse_args(argv)

@@ -149,3 +149,86 @@ def test_streamed_and_dense_kernels_refuse_what_they_do_not_take(card):
     for kernel in (ci.trace_dense, ci.trace_dense_streamed):
         with pytest.raises(ValueError, match="64-float slot"):
             kernel(wide, o, d)
+
+
+@pytest.mark.parametrize("n_clutter,leaf_size,ragged", [
+    (12, 4, True), (600, 4, False), (600, 5, False)])
+def test_every_packet_width_matches_plain(card, n_clutter, leaf_size, ragged):
+    """Every instantiated width of the three packet walks against the
+    plain version at that width, on a small and a 7,214-face tree; on the
+    small tree also with ragged ray counts (1, 31, 33, a whole number of
+    packets plus one): the same bits."""
+    mesh, _ = make_box_scene(n_clutter=n_clutter, seed=4)
+    tracer = build_bvh(mesh.triangles(), leaf_size=leaf_size, device=card)
+    o1, d1 = random_rays(1500, seed=6)
+    o2, d2, *_ = camera_rays(24)
+    o_all = torch.from_numpy(np.concatenate([o1, o2])).to(card)
+    d_all = torch.from_numpy(np.concatenate([d1, d2])).to(card)
+    walks = [(ci.trace_streamed, ci.trace_streamed_plain),
+             (ci.trace_paired_streamed, ci.trace_paired_streamed_plain),
+             (ci.trace_dense_streamed, ci.trace_dense_streamed_plain)]
+    for kernel, plain in walks:
+        for width in ci.PACKET_WIDTHS:
+            sizes = [o_all.shape[0]]
+            if ragged:
+                sizes += [1, 31, 33, 16 * width + 1]
+            for n in sizes:
+                o, d = o_all[-n:].contiguous(), d_all[-n:].contiguous()
+                want = plain(tracer, o, d, width=width)
+                before = kernel.launches
+                got = kernel(tracer, o, d, width=width)
+                torch.cuda.synchronize()
+                assert kernel.launches == before + 1
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w), (kernel.__name__, width, n)
+
+
+def test_shipped_packet_widths(card):
+    """The kernels ship the widths cuda_intersect.py names, each keeps at
+    least 2 blocks and 16 warps resident on an SM at leaf_size 4, and a
+    width that is not instantiated is refused."""
+    for name in ("trace_streamed", "trace_paired_streamed",
+                 "trace_dense_streamed"):
+        cfg = ci.packet_config(name, 4)
+        assert cfg["packet_width"] == (
+            ci.STREAMED_PACKET if name == "trace_streamed" else ci.PACKET)
+        assert cfg["blocks_per_sm"] >= 2
+        assert cfg["blocks_per_sm"] * cfg["threads_per_block"] >= 16 * 32
+        assert cfg["smem_bytes_per_block"] <= cfg["smem_limit_bytes"]
+        assert cfg["smem_limit_bytes"] > 48 * 1024
+    assert ci.packet_config("trace_streamed", 4)["smem_bytes_per_block"] == 0
+    mesh, _ = make_box_scene(n_clutter=12, seed=4)
+    tracer = build_bvh(mesh.triangles(), device=card)
+    o = torch.zeros((8, 3), device=card)
+    d = torch.ones((8, 3), device=card)
+    with pytest.raises(ValueError, match="packet width"):
+        ci.trace_streamed(tracer, o, d, width=2)
+
+
+def test_windows_past_the_shared_memory_limit_raise(card):
+    """The pair walk's windows grow with the leaf row. The layouts the
+    wrappers accept (leaf_size <= 10) take under 24 KB a block; the C entry
+    takes any leaf_size, so it is asked directly: 128-triangle leaves need
+    202 KB a block (4 warps x (a 512 B stack + 2 KB of records + 8 leaves x 6 KB)), past
+    the default 48 KB and inside what a block may opt into, and the kernel
+    is opted in (one block resident); 160-triangle leaves need 250 KB, past
+    the card's limit: the launch is refused with an error before anything
+    runs, at every width, and nothing runs instead."""
+    cfg = ci.packet_config("trace_paired_streamed", 128)
+    assert cfg["smem_bytes_per_block"] == 4 * (512 + 2048 + 8 * 6144)
+    assert 48 * 1024 < cfg["smem_bytes_per_block"] <= cfg["smem_limit_bytes"]
+    assert cfg["blocks_per_sm"] == 1
+    cfg = ci.packet_config("trace_paired_streamed", 160)
+    assert cfg["smem_bytes_per_block"] > cfg["smem_limit_bytes"]
+    assert cfg["blocks_per_sm"] == 0
+    x = torch.zeros((64, 16), device=card)
+    o = torch.zeros((8, 3), device=card)
+    d = torch.ones((8, 3), device=card)
+    hits = ci._outputs(8, card)
+    for width in ci.PACKET_WIDTHS:
+        rc = ci.get_lib().iris_trace_paired_streamed(
+            x.data_ptr(), 1, x.data_ptr(), 1, 160, 64, o.data_ptr(),
+            d.data_ptr(), 8, *(h.data_ptr() for h in hits),
+            torch.cuda.current_stream().cuda_stream, width)
+        assert rc == 1                     # cudaErrorInvalidValue
+    torch.cuda.synchronize()

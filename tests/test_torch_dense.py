@@ -191,8 +191,12 @@ def test_counts_of_the_dense_walks(scene40):
     assert c_dense == c_pair
     # a packet walks the union of its rays' paths
     assert c_ds["slab"] >= c_pair["slab"] and c_s["slab"] >= c_u["slab"]
-    assert set(c_ds) == {"slab", "mt", "pops", "pair_loads", "leaf_loads"}
-    assert set(c_s) == {"slab", "mt", "visits", "node_loads", "leaf_loads"}
+    assert set(c_ds) == {"slab", "mt", "pops", "pair_loads", "leaf_loads",
+                         "pair_loads_next", "leaf_loads_next", "far_pops",
+                         "next_pops", "max_stack"}
+    assert set(c_s) == {"slab", "mt", "visits", "node_loads", "leaf_loads",
+                        "node_loads_next", "leaf_loads_next",
+                        "backward_loads", "longest_walk"}
 
 
 def test_new_plain_walks_match_brute(scene40):
