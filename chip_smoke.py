@@ -59,13 +59,20 @@ from csrc/bvh_builder.cpp, then:
    the same tree, on the same 518,400 rays of the 102,014-face train step,
    in turns there and back, and compares their hits pairwise; then times
    every instantiated packet width of the three packet walks on those
-   rays, there and back, and prints one line per kernel: W -> ms;
+   rays, there and back, and prints one line per kernel: W -> ms; for the
+   per-ray walks trace_ordered, trace_paired and trace_dense it prints the
+   plain versions' pops, warp_steps and lane_busy on each path's rays and
+   on the 518,400 rays, and the registers, local memory (stack and
+   spills), shared memory and resident blocks per SM of the instantiation
+   each path launched, as the CUDA runtime reports them;
 11. prints one JSON line {"kernels": [...]} with each kernel's launches on
    the main paths, its error against the plain version, its time, the
    plain version's time (one run) and its roofline bound, measured on the
    largest input a main path gave the kernel (the five big-tree kernels on
    the same rays; the bound of the packet walks counts the per-ray walk's
-   tests);
+   tests); the rows of the three per-ray walks add this run's pops,
+   warp_steps and lane_busy, and those four numbers of the path's
+   instantiation;
 12. prints the card line again and, last, the run's JSON verdict.
 
 Any failed check raises, and the script then exits non-zero with no
@@ -124,6 +131,11 @@ CHECK_RAYS_SIDE = 128          # 16,384 rays per comparison set
 PLAIN_ON_CHECK_SET = ("trace_streamed",)
 PACKET_KERNELS = ("trace_streamed", "trace_paired_streamed",
                   "trace_dense_streamed")
+# the per-ray walks whose plain versions count pops and warp steps
+WALK_KERNELS = ("trace_ordered", "trace_paired", "trace_dense")
+WALK_COUNTS = ("pops", "warp_steps", "lane_busy")
+WALK_RESOURCES = ("registers", "local_bytes_per_thread",
+                  "smem_bytes_per_block", "blocks_per_sm")
 SPIN_CYCLES = 500_000          # ~0.3 ms of a spin kernel before a timed run
 DEVICE = "cuda"
 
@@ -207,7 +219,10 @@ def roofline(tracer, counts, n_rays, paired):
     union, streamed and ordered walks), and the slab and triangle tests in
     `counts` at the FP32 peak. `counts` is the least work known to give
     these hits on this tree: the kernel's own plain walk for the per-ray
-    kernels; for a packet walk the per-ray walk over the same rows
+    kernels (for trace_ordered, the slab tests its kernel makes: one at
+    the root and two per internal node entered, the pop-time test being a
+    compare of the pushed entry distance); for a packet walk the per-ray
+    walk over the same rows
     (near-first for the paired and dense packets, stackless for
     trace_streamed), which finds the same hits with fewer tests (a packet
     visits the union of its rays' paths, and that extra is the kernel's
@@ -1306,6 +1321,9 @@ def main(argv=None) -> int:
     per_ray_of = {"trace_paired_streamed": "near_first",
                   "trace_dense_streamed": "near_first",
                   "trace_streamed": "stackless"}
+    print(f"counts trace_paired / trace_dense on the {o_big.shape[0]} rays "
+          "of the 102K train step: " + ", ".join(
+              f"{k} {per_ray['near_first'][k]}" for k in WALK_COUNTS))
     rows = []
     for name, (kernel, plain, tracer, paired, replaces) in \
             kernel_specs.items():
@@ -1354,6 +1372,17 @@ def main(argv=None) -> int:
             "rays": o.shape[0], "plain_rays": n_plain,
             "plain_input": plain_on,
         })
+        if name in WALK_KERNELS:
+            # this run's counts of the plain walk on the same rays
+            rows[-1].update({k: counts[k] for k in WALK_COUNTS})
+            # what the instantiation this path launched takes, as the CUDA
+            # runtime reports it in this run
+            res = ci.walk_config(name, tracer.leaf_size)
+            rows[-1].update({k: res[k] for k in WALK_RESOURCES})
+            print(f"counts {name} on its path's {o.shape[0]} rays: "
+                  + ", ".join(f"{k} {counts[k]}" for k in WALK_COUNTS))
+            print(f"resources {name} at leaf size {tracer.leaf_size}: "
+                  + ", ".join(f"{k} {v}" for k, v in res.items()))
     # the five big-tree kernels on the same rays, and trace_union's per-ray
     # walk of the same tree (the packet width 1 of trace_streamed), in
     # turns there and back

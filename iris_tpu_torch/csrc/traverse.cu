@@ -22,14 +22,15 @@
 // held against those versions at zero error on the card.
 //
 // What bounds them on this card: each visit reads a node (32 B) or a pair
-// row (64 B used) and each leaf reads leaf_size triangle rows (48 B), all
+// record (64 B) and each leaf reads leaf_size triangle rows (48 B), all
 // from a tree small enough to stay in the 50 MB L2, then spends ~24 FP32
 // operations per slab test and ~55 per Moller-Trumbore test. Both counts
-// depend on the data (how deep each ray walks). The walks are latency
-// bound (a dependent load per step) and, one ray per thread, divergent
-// (neighbouring rays walk different paths); the designs below shorten the
-// dependent chain (shared memory, float4 rows, one coalesced window load
-// per warp) and leave warp coherence to the caller's ray order.
+// depend on the data (how deep each ray walks). On the sorted bounce rays
+// of the 102,014-face scene the walks are bound by the instructions a
+// step executes, not by a load's latency: every design that hid latency
+// (cp.async prefetches of records and windows) measured slower, every one
+// that took instructions or branches off a step faster (PERF.md,
+// Findings). Warp coherence is left to the caller's ray order.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -39,10 +40,11 @@ namespace {
 
 constexpr float kTMiss = 3e37f;   // pallas_intersect.py:30
 constexpr float kMtEps = 1e-9f;   // pallas_intersect.py:31
+// Threads per block of trace_union
 constexpr int kThreads = 256;
-// Stack entries of the near-first walks (per thread; per packet, in shared
-// memory, in the packet walks). The host refuses trees whose stack need
-// (_auto_stack_depth) exceeds it instead of truncating.
+// Stack entries of the near-first walks (per thread in local memory; per
+// packet, in shared memory, in the packet walks). The host refuses trees
+// whose stack need (depth + 4 entries) exceeds it instead of truncating.
 constexpr int kStackCap = 128;
 // The dynamic shared memory a block gets without opting its kernel in.
 constexpr int kDefaultShared = 48 * 1024;
@@ -241,60 +243,108 @@ __global__ void __launch_bounds__(kThreads)
   store_hit(h, i, t_out, u_out, v_out, f_out);
 }
 
-// One whole leaf of a per-ray walk: leaf lrow starts kLeaf4 float4s after
-// leaf lrow - 1 (a 128-float row of the paired layout, a 64-float slot of
-// the dense one).
-template <int kLeaf4>
-__device__ __forceinline__ void leaf_hits(const Ray& r,
-                                          const float4* __restrict__ leaves,
-                                          int lrow, int n_leaf_rows,
-                                          int leaf_size, Hit& h) {
-  lrow = min(max(lrow, 0), n_leaf_rows - 1);
-  const float4* lf = leaves + static_cast<size_t>(lrow) * kLeaf4;
-  for (int k = 0; k < leaf_size; ++k) {
-    mt_fold(r, __ldg(lf + 3 * k), __ldg(lf + 3 * k + 1),
-            __ldg(lf + 3 * k + 2), h);
+// ------------------------------------------------------- per-ray walks
+//
+// trace_paired, trace_dense and trace_ordered walk one ray per thread,
+// near child first, over 64-byte pair records: record p holds both
+// children of internal node p (its preorder rank among internal nodes),
+// float4s {left min, left max.x}, {left max.yz, left desc', 0}, the same
+// two for the right child; desc' > 0 is an internal child whose record is
+// desc' - 1, desc' <= 0 a leaf child whose leaf row is -desc'.
+// One ray per thread, a warp steps until its longest walk is done: on the
+// 518,400 sorted bounce rays of the 102,014-face scene trace_dense pops
+// 26.3M records (50.7 a ray) in 1.16M warp steps, so 71% of the lanes of
+// a step walk (lane_busy; the plain versions count both).
+// Both walks keep the child they visit next in a register and push only
+// the far one, which is the visiting order of "push far, push near, pop"
+// with the near entry's store and load off the chain of every step. The
+// stack is a local array of kStackCap entries (L1-cached, only the
+// entries a walk reaches are touched); the host refuses a tree deeper
+// than it holds (depth + 4 entries) instead of truncating.
+// What was built beside these designs and dropped, timed in one call with
+// the previous kernels (H100, median of 20 there / back; PERF.md's Findings
+// have every row). On
+// trace_dense's 518,400 rays, against 0.3266 / 0.3277 ms for the near child
+// in a register, unrolled leaves and a local stack at 128 threads
+// (the previous kernel: 0.3592 / 0.3572; shipped, with one-pass folds:
+// 0.3068 / 0.3080):
+//  - the stack in shared memory, [entry][thread]: 0.3365 / 0.3372;
+//  - blocks of 256 threads: 0.3384 / 0.3365 (64: 0.3284 / 0.3282, level);
+//  - persistent warps taking 32 rays at a time from a global counter:
+//    0.3174 / 0.3200, but 0.0877 / 0.0863 against 0.0798 / 0.0803 on
+//    trace_paired's 129,600 rays (the counter's reset, an uneven tail);
+//  - the pair walk as a while-while walk (see trace_ordered): 0.4747 /
+//    0.4788; a 4-triangle leaf costs little more than a record, so lanes
+//    that wait lose more than the joint folds win.
+// On trace_ordered's 129,600 rays (the previous kernel 0.2758 / 0.2761;
+// shipped 0.0985 / 0.0980), with one-step loops: records staged in shared
+// memory 0.1854 / 0.1860 against 0.1722 / 0.1686 read through the L1;
+// and leaves folded by 2 or 8 triangles in the while-while walk: 0.1044 /
+// 0.1046 and 0.1091 / 0.1085 against 0.0972 / 0.0976 by 4.
+
+// Threads per block of the per-ray walks
+constexpr int kWalkThreads = 128;
+
+// The L triangle rows at lf (3 * L float4s), every load issued before the
+// folds, folded in order k = 0 .. L - 1.
+template <int L>
+__device__ __forceinline__ void fold_leaf(const Ray& r,
+                                          const float4* __restrict__ lf,
+                                          Hit& h) {
+  float4 q[3 * L];
+#pragma unroll
+  for (int k = 0; k < 3 * L; ++k) q[k] = __ldg(lf + k);
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    mt_fold(r, q[3 * k], q[3 * k + 1], q[3 * k + 2], h);
   }
 }
 
 // trace_paired — replaces pallas_ray_trace_paired / _kernel_paired
 // (pallas_intersect.py:675, 782) over the _pack_paired rows (:621): pair
-// row r holds both children of internal node r (lanes 0-5 left box, 6 its
-// desc', 8-13 right box, 14 its desc'); desc' > 0 is an internal child
-// whose pair row is desc'-1, desc' <= 0 a leaf child whose leaf row is
-// -desc'. Leaf rows hold a whole leaf (leaf_size x 12 floats).
-// Near-child-first: pop a pair row, slab-test both children against the
-// current t_best, intersect leaf children in place (left, then right) so
-// their hits prune the pushes, then push the far internal child and the
-// near one. Near/far is this ray's own entry distance, where the TPU used
-// the tile's mean (:735-741), so equal-t ties may pick another face.
-// Design: the tree stays in global memory (the 102K-face scene's paired
-// layout is 32 MB of 128-float rows, which the 50 MB L2 holds); each pop is 4 float4 loads and each
-// leaf 3 per triangle. The stack is per thread, indexed dynamically, so
-// it lives in local memory (L1-cached); its depth is checked on the host.
-// The walk of trace_paired and trace_dense: pair record p starts
-// kPairStride4 float4s after record p - 1, leaf l kLeaf4 after leaf l - 1.
-template <int kPairStride4, int kLeaf4>
+// row r holds the pair record of internal node r in its first 16 floats;
+// leaf rows hold a whole leaf (leaf_size x 12 floats) each.
+// trace_dense — replaces pallas_ray_trace_dense / _kernel_dense
+// (pallas_intersect.py:1102, 1221) over the _pack_dense rows (:1059): pair
+// p at row p / 8, lanes 16 * (p % 8) + {0..6, 8..14}; leaf l at row l / 2,
+// lanes 64 * (l % 2) + 12 * k + {0..9}. The TPU kernel reads the whole
+// 128-lane row and picks the slot with a chain of scalar selects
+// (slot_scalar, :1115-1124), because Mosaic cannot index lanes
+// dynamically; a thread can, so the slot is addressed: the dense pair
+// array is a contiguous run of 64-byte records and the leaf array one of
+// 256-byte slots. What "dense" buys on the TPU is residency; this card
+// keeps either layout in its 50 MB L2, so the two differ by their strides
+// alone.
+// Both are pair_walk: take a record, slab-test both children against the
+// current t_best, fold the entered leaf children (left, then right) so
+// their hits prune what follows, then go on to the near internal child
+// and push the far one. Near/far is this ray's own entry distance, where
+// the TPU used the tile's mean (:735-741), so equal-t ties may pick
+// another face. Record p starts kPairStride4 float4s after record p - 1,
+// leaf l kLeaf4 after leaf l - 1; L is the leaf size, so the fold is
+// unrolled and its loads issued first. A lane that entered one leaf child
+// folds it in the step's first fold pass, the left or the right one alike,
+// so the lanes of a warp that entered any leaf fold together; only a lane
+// that entered both takes a second pass.
+template <int kPairStride4, int kLeaf4, int L>
 __device__ __forceinline__ void pair_walk(
     const float4* __restrict__ pairs, int n_pairs,
-    const float4* __restrict__ leaves, int n_leaf_rows, int leaf_size,
-    int stack_depth, const float* __restrict__ orig,
-    const float* __restrict__ dirs, int n_rays, float* __restrict__ t_out,
-    float* __restrict__ u_out, float* __restrict__ v_out,
-    int* __restrict__ f_out) {
+    const float4* __restrict__ leaves, int n_leaf_rows, int stack_depth,
+    const float* __restrict__ orig, const float* __restrict__ dirs,
+    int n_rays, float* __restrict__ t_out, float* __restrict__ u_out,
+    float* __restrict__ v_out, int* __restrict__ f_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rays) return;
   const Ray r = load_ray(orig, dirs, i);
   Hit h{kTMiss, 0.0f, 0.0f, -1};
   int stack[kStackCap];
-  stack[0] = 0;  // the root's pair row
-  int sp = 1;
-  // each internal node is pushed at most once per walk; the cap only keeps
-  // a corrupt tree from hanging the card
+  int cur = 0;  // the root's record
+  int sp = 0;
+  // each record is visited at most once per walk; the cap only keeps a
+  // corrupt tree from hanging the card
   const int max_steps = 2 * n_pairs + 2;
-  for (int step = 0; sp > 0 && step < max_steps; ++step) {
-    const int row_id = stack[--sp];
-    const float4* row = pairs + static_cast<size_t>(row_id) * kPairStride4;
+  for (int step = 0; step < max_steps; ++step) {
+    const float4* row = pairs + static_cast<size_t>(cur) * kPairStride4;
     const float4 a = __ldg(row);
     const float4 b = __ldg(row + 1);
     const float4 c = __ldg(row + 2);
@@ -306,148 +356,171 @@ __device__ __forceinline__ void pair_walk(
     const float dr = d.z;
     const bool l_leaf = dl <= 0.0f;
     const bool r_leaf = dr <= 0.0f;
-    if (hit_l && l_leaf) {
-      leaf_hits<kLeaf4>(r, leaves, static_cast<int>(-dl), n_leaf_rows,
-                        leaf_size, h);
-    }
-    if (hit_r && r_leaf) {
-      leaf_hits<kLeaf4>(r, leaves, static_cast<int>(-dr), n_leaf_rows,
-                        leaf_size, h);
+    const bool fold_l = hit_l && l_leaf;
+    const bool fold_r = hit_r && r_leaf;
+    if (fold_l || fold_r) {
+      const int row_l = min(static_cast<int>(-dl), n_leaf_rows - 1);
+      const int row_r = min(static_cast<int>(-dr), n_leaf_rows - 1);
+      fold_leaf<L>(r, leaves + static_cast<size_t>(fold_l ? row_l : row_r) *
+                              kLeaf4, h);
+      if (fold_l && fold_r) {
+        fold_leaf<L>(r, leaves + static_cast<size_t>(row_r) * kLeaf4, h);
+      }
     }
     const bool want_l = hit_l && !l_leaf;
     const bool want_r = hit_r && !r_leaf;
     const int pid_l = min(max(static_cast<int>(dl) - 1, 0), n_pairs - 1);
     const int pid_r = min(max(static_cast<int>(dr) - 1, 0), n_pairs - 1);
-    const bool l_near = (want_l && want_r) ? (tlo_l <= tlo_r) : want_l;
-    const int far_id = l_near ? pid_r : pid_l;
-    const int near_id = l_near ? pid_l : pid_r;
-    const bool push_far = want_l && want_r;
-    const bool push_near = want_l || want_r;
-    // same clamped pushes as the TPU kernel (:745-757); with the host's
-    // stack_depth >= depth + 4 the clamp is never reached
-    if (push_far) stack[min(sp, stack_depth - 1)] = far_id;
-    const int sp3 = sp + (push_far ? 1 : 0);
-    if (push_near) stack[min(sp3, stack_depth - 1)] = near_id;
-    sp = min(sp3 + (push_near ? 1 : 0), stack_depth);
+    if (want_l && want_r) {
+      const bool l_near = tlo_l <= tlo_r;
+      // the TPU kernel's clamped push (:745-757); with the host's
+      // stack_depth >= depth + 4 the clamp is never reached
+      stack[min(sp, stack_depth - 1)] = l_near ? pid_r : pid_l;
+      sp = min(sp + 1, stack_depth);
+      cur = l_near ? pid_l : pid_r;
+    } else if (want_l || want_r) {
+      cur = want_l ? pid_l : pid_r;
+    } else if (sp > 0) {
+      cur = stack[--sp];
+    } else {
+      break;
+    }
   }
   store_hit(h, i, t_out, u_out, v_out, f_out);
 }
 
-__global__ void __launch_bounds__(kThreads) trace_paired_kernel(
+template <int L>
+__global__ void __launch_bounds__(kWalkThreads) trace_paired_kernel(
     const float4* __restrict__ pairs, int n_pairs,
-    const float4* __restrict__ leaves, int n_leaf_rows, int leaf_size,
-    int stack_depth, const float* __restrict__ orig,
-    const float* __restrict__ dirs, int n_rays, float* __restrict__ t_out,
-    float* __restrict__ u_out, float* __restrict__ v_out,
-    int* __restrict__ f_out) {
-  pair_walk<kRow4, kRow4>(
-      pairs, n_pairs, leaves, n_leaf_rows, leaf_size, stack_depth, orig, dirs,
-      n_rays, t_out, u_out, v_out, f_out);
+    const float4* __restrict__ leaves, int n_leaf_rows, int stack_depth,
+    const float* __restrict__ orig, const float* __restrict__ dirs,
+    int n_rays, float* __restrict__ t_out, float* __restrict__ u_out,
+    float* __restrict__ v_out, int* __restrict__ f_out) {
+  pair_walk<kRow4, kRow4, L>(pairs, n_pairs, leaves, n_leaf_rows,
+                             stack_depth, orig, dirs, n_rays, t_out, u_out,
+                             v_out, f_out);
 }
 
-// trace_dense — replaces pallas_ray_trace_dense / _kernel_dense
-// (pallas_intersect.py:1102, 1221) over the _pack_dense rows (:1059): the
-// near-first pair walk of trace_paired with every record taken from its
-// slot: pair p at row p / 8, lanes 16 * (p % 8) + {0..6, 8..14}; leaf l at
-// row l / 2, lanes 64 * (l % 2) + 12 * k + {0..9}. The TPU kernel reads the
-// whole 128-lane row and picks the slot with a chain of scalar selects
-// (slot_scalar, :1115-1124), because Mosaic cannot index lanes
-// dynamically; a thread can, so the slot is addressed: the dense pair
-// array is a contiguous run of 64-byte records and the leaf array one of
-// 256-byte slots.
-// What "dense" buys on the TPU is residency (the 102K-face tree's dense
-// layout is 9.7 MB where its paired layout is 30.9 MB). This card keeps
-// either layout in its 50 MB L2 and neither in shared memory, so the
-// counterpart is trace_paired's per-ray walk with denser rows: a pop is
-// the same four 16-byte loads, but eight records share a 512-byte line
-// span where trace_paired's rows have one each, and a leaf's triangles
-// come from a 256-byte-aligned slot. Bound as trace_paired: a dependent
-// load per step, divergent warps. A cp.async prefetch of the near child's
-// record while the leaves are folded is where pipelining would go.
-__global__ void __launch_bounds__(kThreads) trace_dense_kernel(
+template <int L>
+__global__ void __launch_bounds__(kWalkThreads) trace_dense_kernel(
     const float4* __restrict__ pairs, int n_pairs,
-    const float4* __restrict__ leaves, int n_leaf_rows, int leaf_size,
-    int stack_depth, const float* __restrict__ orig,
-    const float* __restrict__ dirs, int n_rays, float* __restrict__ t_out,
-    float* __restrict__ u_out, float* __restrict__ v_out,
-    int* __restrict__ f_out) {
-  pair_walk<kPair4, kSlot4>(
-      pairs, n_pairs, leaves, n_leaf_rows, leaf_size, stack_depth, orig, dirs,
-      n_rays, t_out, u_out, v_out, f_out);
+    const float4* __restrict__ leaves, int n_leaf_rows, int stack_depth,
+    const float* __restrict__ orig, const float* __restrict__ dirs,
+    int n_rays, float* __restrict__ t_out, float* __restrict__ u_out,
+    float* __restrict__ v_out, int* __restrict__ f_out) {
+  pair_walk<kPair4, kSlot4, L>(pairs, n_pairs, leaves, n_leaf_rows,
+                               stack_depth, orig, dirs, n_rays, t_out, u_out,
+                               v_out, f_out);
+}
+
+// Pop the entries of trace_ordered's stack, (desc', tlo) each, until one
+// whose box the ray enters no later than its best hit: its desc' into
+// code. False when the stack runs out.
+__device__ __forceinline__ bool pop_entered(const int2* stack, int& sp,
+                                            float t_best, int& code) {
+  while (sp > 0) {
+    const int2 e = stack[--sp];
+    if (__int_as_float(e.y) <= t_best) {
+      code = e.x;
+      return true;
+    }
+  }
+  return false;
 }
 
 // trace_ordered — replaces pallas_ray_trace_ordered / _kernel_ordered
-// (pallas_intersect.py:436, 579). Near-child-first walk with pop-time
-// pruning over the unpaired nodes (N, 8) and tris (P, 12) of a preorder
-// tree: pop a node and slab-test it against the CURRENT t_best; a hit leaf
-// tests its leaf_size triangle rows; a hit internal node slab-tests both
-// children (left = desc, right = the left child's skip pointer, the
-// preorder invariant of :498-502) and pushes the far one, then the near
-// one. Any leaf_size, so it takes the trees whose leaf row is too wide for
-// the paired layout. Near/far is this ray's own entry distance, where the
-// TPU used the tile's mean (:507-513), so equal-t ties may pick another
-// face.
-// Design: one ray per thread, as trace_paired; the tree stays in global
-// memory and each row is read as float4s (2 per node, 3 per triangle)
-// through the read-only cache; a visited internal node costs three
-// dependent node reads (itself, left child, right child), which is what
-// the paired layout folds into one. The per-thread stack lives in local
-// memory; its depth is checked on the host.
-__global__ void __launch_bounds__(kThreads)
-    trace_ordered_kernel(const float4* __restrict__ nodes, int n_nodes,
-                         const float4* __restrict__ tris, int n_tri_rows,
-                         int leaf_size, int stack_depth,
-                         const float* __restrict__ orig,
-                         const float* __restrict__ dirs, int n_rays,
-                         float* __restrict__ t_out, float* __restrict__ u_out,
-                         float* __restrict__ v_out, int* __restrict__ f_out) {
+// (pallas_intersect.py:436, 579): the near-first walk with pop-time
+// pruning of a preorder tree with any leaf_size, which takes the trees
+// whose leaf row is too wide for the paired layout. The TPU kernel walks
+// the nodes (N, 8): pop a node and slab-test it against the CURRENT
+// t_best; a hit leaf tests its leaf_size triangle rows; a hit internal
+// node slab-tests both children (left = desc, right = the left child's
+// skip pointer, :498-502) and pushes the far one, then the near one.
+// Near/far is this ray's own entry distance, where the TPU used the
+// tile's mean (:507-513), so equal-t ties may pick another face.
+// Design:
+//  - The walk goes over trace_paired's pair records (they exist for any
+//    leaf size), so an internal node costs one 64-byte read where the
+//    node walk read the node, then its left child, then the right child
+//    at the left child's skip pointer: three dependent reads.
+//  - Children are pushed with the entry distance tlo of the test that
+//    admitted them, so the pop-time test is the compare tlo <= t_best: the
+//    full test at the pop would repeat the pushed test's arithmetic,
+//    thi >= max(tlo, 0) included, and give the same bit. Only the root
+//    (nodes row 0; a leaf in a one-node tree) takes a full test there. The
+//    near child stays in a register and is not pushed.
+//  - A leaf (16 triangles on the 6,014-face tree, 77% of the walk's FP32
+//    work) is folded four triangles at a time, their twelve loads first.
+//  - A "while-while" walk (Aila and Laine): every lane steps through
+//    records until its next node is a leaf, or its walk ends, and waits
+//    there; then the lanes that wait fold their leaves together and pop.
+//    In a one-step loop the lanes at a leaf and the lanes at a record take
+//    turns every step and a fold runs for few lanes; here a fold pass runs
+//    for all the warp's lanes that have reached a leaf. Each lane's own
+//    order of visits, folds and pops is the one-step walk's, so the hits
+//    are the same bits. Lanes past the last ray take part in the votes.
+__global__ void __launch_bounds__(kWalkThreads) trace_ordered_kernel(
+    const float4* __restrict__ nodes, const float4* __restrict__ pairs,
+    int n_pairs, const float4* __restrict__ tris, int n_leaf_rows,
+    int leaf_size, int stack_depth, const float* __restrict__ orig,
+    const float* __restrict__ dirs, int n_rays, float* __restrict__ t_out,
+    float* __restrict__ u_out, float* __restrict__ v_out,
+    int* __restrict__ f_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  const Ray r = load_ray(orig, dirs, i);
+  if (i - static_cast<int>(threadIdx.x & 31) >= n_rays) return;  // warp
+  const bool live = i < n_rays;
+  const Ray r = load_ray(orig, dirs, live ? i : n_rays - 1);
   Hit h{kTMiss, 0.0f, 0.0f, -1};
-  int stack[kStackCap];
-  stack[0] = 0;  // the root node, 0-based
-  int sp = 1;
-  // each node is pushed at most once per walk; the cap only keeps a
+  int2 stack[kStackCap];
+  const float4 ra = __ldg(nodes);
+  const float4 rb = __ldg(nodes + 1);
+  float tlo;
+  bool done =
+      !live || !slab(r, ra.x, ra.y, ra.z, ra.w, rb.x, rb.y, h.t, &tlo);
+  int code = rb.w > 0.0f ? 1 : 0;  // the root: record 0, or leaf row 0
+  int sp = 0;
+  // each node is visited at most once per walk; the cap only keeps a
   // corrupt tree from hanging the card
-  const int max_steps = 2 * n_nodes + 2;
-  for (int step = 0; sp > 0 && step < max_steps; ++step) {
-    const int node = stack[--sp];
-    const float4 a = __ldg(nodes + 2 * node);
-    const float4 b = __ldg(nodes + 2 * node + 1);
-    float tlo;
-    if (!slab(r, a.x, a.y, a.z, a.w, b.x, b.y, h.t, &tlo)) continue;
-    const float desc = b.w;
-    if (desc <= 0.0f) {
-      const int base = static_cast<int>(-desc);
-      for (int k = 0; k < leaf_size; ++k) {
-        const int row = min(max(base + k, 0), n_tri_rows - 1);
-        const float4* tr = tris + 3 * row;
-        mt_fold(r, __ldg(tr), __ldg(tr + 1), __ldg(tr + 2), h);
+  int steps_left = 4 * n_pairs + 4;
+  while (__any_sync(kFullMask, !done)) {
+    // records until this ray's next node is a leaf, or its walk ends
+    while (!done && code > 0) {
+      const float4* rec = pairs + 4 * min(code - 1, n_pairs - 1);
+      const float4 a = __ldg(rec);
+      const float4 b = __ldg(rec + 1);
+      const float4 c = __ldg(rec + 2);
+      const float4 d = __ldg(rec + 3);
+      float tlo_l, tlo_r;
+      const bool hit_l = slab(r, a.x, a.y, a.z, a.w, b.x, b.y, h.t, &tlo_l);
+      const bool hit_r = slab(r, c.x, c.y, c.z, c.w, d.x, d.y, h.t, &tlo_r);
+      const int code_l = static_cast<int>(b.z);
+      const int code_r = static_cast<int>(d.z);
+      if (hit_l && hit_r) {
+        const bool l_near = tlo_l <= tlo_r;
+        // the TPU kernel's clamped push (:519-531), never reached with
+        // the host's stack_depth >= depth + 4
+        stack[min(sp, stack_depth - 1)] =
+            l_near ? make_int2(code_r, __float_as_int(tlo_r))
+                   : make_int2(code_l, __float_as_int(tlo_l));
+        sp = min(sp + 1, stack_depth);
+        code = l_near ? code_l : code_r;
+      } else if (hit_l || hit_r) {
+        code = hit_l ? code_l : code_r;
+      } else {
+        done = !pop_entered(stack, sp, h.t, code);
       }
-      continue;
+      done = done || --steps_left <= 0;
     }
-    const int child_l = min(max(static_cast<int>(desc) - 1, 0), n_nodes - 1);
-    const float4 la = __ldg(nodes + 2 * child_l);
-    const float4 lb = __ldg(nodes + 2 * child_l + 1);
-    const int child_r = min(max(static_cast<int>(lb.z) - 1, 0), n_nodes - 1);
-    const float4 ra = __ldg(nodes + 2 * child_r);
-    const float4 rb = __ldg(nodes + 2 * child_r + 1);
-    float tlo_l, tlo_r;
-    const bool hit_l = slab(r, la.x, la.y, la.z, la.w, lb.x, lb.y, h.t, &tlo_l);
-    const bool hit_r = slab(r, ra.x, ra.y, ra.z, ra.w, rb.x, rb.y, h.t, &tlo_r);
-    const bool l_near = (hit_l && hit_r) ? (tlo_l <= tlo_r) : hit_l;
-    const int far_id = l_near ? child_r : child_l;
-    const int near_id = l_near ? child_l : child_r;
-    const bool push_far = hit_l && hit_r;
-    const bool push_near = hit_l || hit_r;
-    // same clamped pushes as the TPU kernel (:519-531)
-    if (push_far) stack[min(sp, stack_depth - 1)] = far_id;
-    const int sp3 = sp + (push_far ? 1 : 0);
-    if (push_near) stack[min(sp3, stack_depth - 1)] = near_id;
-    sp = min(sp3 + (push_near ? 1 : 0), stack_depth);
+    if (done) continue;
+    // the lanes whose next node is a leaf fold it together, then pop
+    const float4* lf =
+        tris + static_cast<size_t>(min(-code, n_leaf_rows - 1)) * 3 * leaf_size;
+    int k = 0;
+    for (; k + 4 <= leaf_size; k += 4) fold_leaf<4>(r, lf + 3 * k, h);
+    for (; k < leaf_size; ++k) fold_leaf<1>(r, lf + 3 * k, h);
+    done = !pop_entered(stack, sp, h.t, code) || --steps_left <= 0;
   }
-  store_hit(h, i, t_out, u_out, v_out, f_out);
+  if (live) store_hit(h, i, t_out, u_out, v_out, f_out);
 }
 
 // ------------------------------------------------------------ packet walks
@@ -1005,6 +1078,62 @@ int launch_packet_pair(PairKernel kernel, int width, long long leaf4,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------- per-ray launches
+
+using WalkKernel = void (*)(const float4*, int, const float4*, int, int,
+                            const float*, const float*, int, float*, float*,
+                            float*, int*);
+
+// The pair walk's instantiations by leaf size: 1-10 triangles in a
+// 128-float leaf row, 1-5 in a 64-float dense slot; nullptr otherwise.
+inline WalkKernel paired_kernel_of(int leaf_size) {
+  switch (leaf_size) {
+    case 1: return trace_paired_kernel<1>;
+    case 2: return trace_paired_kernel<2>;
+    case 3: return trace_paired_kernel<3>;
+    case 4: return trace_paired_kernel<4>;
+    case 5: return trace_paired_kernel<5>;
+    case 6: return trace_paired_kernel<6>;
+    case 7: return trace_paired_kernel<7>;
+    case 8: return trace_paired_kernel<8>;
+    case 9: return trace_paired_kernel<9>;
+    case 10: return trace_paired_kernel<10>;
+    default: return nullptr;
+  }
+}
+
+inline WalkKernel dense_kernel_of(int leaf_size) {
+  switch (leaf_size) {
+    case 1: return trace_dense_kernel<1>;
+    case 2: return trace_dense_kernel<2>;
+    case 3: return trace_dense_kernel<3>;
+    case 4: return trace_dense_kernel<4>;
+    case 5: return trace_dense_kernel<5>;
+    default: return nullptr;
+  }
+}
+
+// Launch of a pair walk: one ray a thread, kWalkThreads a block.
+int launch_pair_walk(WalkKernel kernel, const void* pairs, int n_pairs,
+                     const void* leaves, int n_leaf_rows, int stack_depth,
+                     const void* orig, const void* dirs, int n_rays,
+                     void* t_out, void* u_out, void* v_out, void* f_out,
+                     void* stream) {
+  if (n_rays <= 0) return 0;
+  if (kernel == nullptr || stack_depth < 1 || stack_depth > kStackCap ||
+      n_pairs < 1 || n_leaf_rows < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  kernel<<<(n_rays + kWalkThreads - 1) / kWalkThreads, kWalkThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(pairs), n_pairs,
+      static_cast<const float4*>(leaves), n_leaf_rows, stack_depth,
+      static_cast<const float*>(orig), static_cast<const float*>(dirs), n_rays,
+      static_cast<float*>(t_out), static_cast<float*>(u_out),
+      static_cast<float*>(v_out), static_cast<int*>(f_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -1042,36 +1171,33 @@ int iris_trace_paired(const void* pairs, int n_pairs, const void* leaves,
                       const void* orig, const void* dirs, int n_rays,
                       void* t_out, void* u_out, void* v_out, void* f_out,
                       void* stream) {
-  if (n_rays <= 0) return 0;
-  if (stack_depth < 1 || stack_depth > kStackCap) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  trace_paired_kernel<<<blocks_for(n_rays), kThreads, 0, s>>>(
-      static_cast<const float4*>(pairs), n_pairs,
-      static_cast<const float4*>(leaves), n_leaf_rows, leaf_size, stack_depth,
-      static_cast<const float*>(orig), static_cast<const float*>(dirs), n_rays,
-      static_cast<float*>(t_out), static_cast<float*>(u_out),
-      static_cast<float*>(v_out), static_cast<int*>(f_out));
-  return static_cast<int>(cudaGetLastError());
+  return launch_pair_walk(paired_kernel_of(leaf_size), pairs, n_pairs, leaves,
+                          n_leaf_rows, stack_depth, orig, dirs, n_rays, t_out,
+                          u_out, v_out, f_out, stream);
 }
 
-int iris_trace_ordered(const void* nodes, int n_nodes, const void* tris,
-                       int n_tri_rows, int leaf_size, int stack_depth,
-                       const void* orig, const void* dirs, int n_rays,
-                       void* t_out, void* u_out, void* v_out, void* f_out,
-                       void* stream) {
+// nodes: the (N, 8) rows, of which the walk reads the root; pairs: the
+// _pair_rows records (any pointer when the root is a leaf, n_pairs 0);
+// tris: the (P, 12) rows, n_leaf_rows = P / leaf_size whole leaves.
+int iris_trace_ordered(const void* nodes, const void* pairs, int n_pairs,
+                       const void* tris, int n_leaf_rows, int leaf_size,
+                       int stack_depth, const void* orig, const void* dirs,
+                       int n_rays, void* t_out, void* u_out, void* v_out,
+                       void* f_out, void* stream) {
   if (n_rays <= 0) return 0;
-  if (stack_depth < 1 || stack_depth > kStackCap || n_nodes < 1) {
+  if (stack_depth < 1 || stack_depth > kStackCap || n_pairs < 0 ||
+      n_leaf_rows < 1 || leaf_size < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  trace_ordered_kernel<<<blocks_for(n_rays), kThreads, 0, s>>>(
-      static_cast<const float4*>(nodes), n_nodes,
-      static_cast<const float4*>(tris), n_tri_rows, leaf_size, stack_depth,
-      static_cast<const float*>(orig), static_cast<const float*>(dirs), n_rays,
-      static_cast<float*>(t_out), static_cast<float*>(u_out),
-      static_cast<float*>(v_out), static_cast<int*>(f_out));
+  trace_ordered_kernel<<<(n_rays + kWalkThreads - 1) / kWalkThreads,
+                         kWalkThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(nodes), static_cast<const float4*>(pairs),
+      n_pairs, static_cast<const float4*>(tris), n_leaf_rows, leaf_size,
+      stack_depth, static_cast<const float*>(orig),
+      static_cast<const float*>(dirs), n_rays, static_cast<float*>(t_out),
+      static_cast<float*>(u_out), static_cast<float*>(v_out),
+      static_cast<int*>(f_out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1108,19 +1234,9 @@ int iris_trace_dense(const void* pairs, int n_pairs, const void* leaves,
                      const void* orig, const void* dirs, int n_rays,
                      void* t_out, void* u_out, void* v_out, void* f_out,
                      void* stream) {
-  if (n_rays <= 0) return 0;
-  if (stack_depth < 1 || stack_depth > kStackCap || n_pairs < 1 ||
-      n_leaf_rows < 1 || leaf_size < 1 || 3 * leaf_size > kSlot4) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  trace_dense_kernel<<<blocks_for(n_rays), kThreads, 0, s>>>(
-      static_cast<const float4*>(pairs), n_pairs,
-      static_cast<const float4*>(leaves), n_leaf_rows, leaf_size, stack_depth,
-      static_cast<const float*>(orig), static_cast<const float*>(dirs), n_rays,
-      static_cast<float*>(t_out), static_cast<float*>(u_out),
-      static_cast<float*>(v_out), static_cast<int*>(f_out));
-  return static_cast<int>(cudaGetLastError());
+  return launch_pair_walk(dense_kernel_of(leaf_size), pairs, n_pairs, leaves,
+                          n_leaf_rows, stack_depth, orig, dirs, n_rays, t_out,
+                          u_out, v_out, f_out, stream);
 }
 
 int iris_trace_streamed(const void* nodes, int n_nodes, const void* leaves,
@@ -1190,6 +1306,33 @@ int iris_packet_config(int kernel, int width, int leaf_size, int* out) {
   if (opt != 0) return opt;
   rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &out[2], fn, threads, static_cast<size_t>(shared));
+  return static_cast<int>(rc);
+}
+
+// What the per-ray walk a launch of this leaf size runs takes on the
+// current device: kernel 0 = trace_ordered, 1 = trace_paired, 2 =
+// trace_dense; out = {threads per block, registers per thread, local
+// memory per thread in bytes (stack and spills), static shared memory per
+// block in bytes, resident blocks per SM}. 0, or a CUDA error.
+int iris_walk_config(int kernel, int leaf_size, int* out) {
+  const void* fn = nullptr;
+  if (kernel == 0 && leaf_size >= 1) {
+    fn = reinterpret_cast<const void*>(trace_ordered_kernel);
+  } else if (kernel == 1) {
+    fn = reinterpret_cast<const void*>(paired_kernel_of(leaf_size));
+  } else if (kernel == 2) {
+    fn = reinterpret_cast<const void*>(dense_kernel_of(leaf_size));
+  }
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes attr;
+  cudaError_t rc = cudaFuncGetAttributes(&attr, fn);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  out[0] = kWalkThreads;
+  out[1] = attr.numRegs;
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  out[3] = static_cast<int>(attr.sharedSizeBytes);
+  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], fn,
+                                                     kWalkThreads, 0);
   return static_cast<int>(rc);
 }
 

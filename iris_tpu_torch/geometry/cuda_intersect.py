@@ -176,7 +176,8 @@ def _nvcc() -> str:
 
 def build() -> tuple[str, str]:
     """Compile csrc/traverse.cu if needed: (library path, nvcc output,
-    which holds ptxas' register and spill report)."""
+    which holds ptxas' register and spill report; "" when the library was
+    already up to date)."""
     return build_shared([_nvcc()] + NVCC_FLAGS, SOURCE, "libtraverse.so")
 
 
@@ -191,17 +192,21 @@ def get_lib() -> ctypes.CDLL:
             walk = [vp, i32, vp, i32, i32]          # two arrays, leaf_size
             tail = [vp, vp, i32, vp, vp, vp, vp, vp]  # rays, hits, stream
             for name, stack in (("union", False), ("streamed", False),
-                                ("ordered", True), ("paired", True),
-                                ("paired_streamed", True), ("dense", True),
-                                ("dense_streamed", True)):
+                                ("paired", True), ("paired_streamed", True),
+                                ("dense", True), ("dense_streamed", True)):
                 fn = getattr(lib, "iris_trace_" + name)
                 fn.restype = i32
                 # the packet walks also take the packet width
                 fn.argtypes = (walk + ([i32] if stack else []) + tail
                                + ([i32] if "streamed" in name else []))
+            # the root's node row before the two arrays
+            lib.iris_trace_ordered.restype = i32
+            lib.iris_trace_ordered.argtypes = [vp] + walk + [i32] + tail
             lib.iris_packet_config.restype = i32
             lib.iris_packet_config.argtypes = [i32, i32, i32,
                                                ctypes.POINTER(i32)]
+            lib.iris_walk_config.restype = i32
+            lib.iris_walk_config.argtypes = [i32, i32, ctypes.POINTER(i32)]
             _LIB = lib
         return _LIB
 
@@ -228,6 +233,32 @@ def packet_config(name: str, leaf_size: int,
     keys = ("packet_width", "smem_bytes_per_block", "blocks_per_sm",
             "threads_per_block", "smem_limit_bytes", "registers",
             "local_bytes_per_thread")
+    return dict(zip(keys, out))
+
+
+_WALK_KERNELS = ("trace_ordered", "trace_paired", "trace_dense")
+# the pair walk's instantiated leaf sizes (paired_kernel_of, dense_kernel_of)
+_WALK_LEAVES = {"trace_paired": range(1, 11), "trace_dense": range(1, 6)}
+
+
+def walk_config(name: str, leaf_size: int) -> dict:
+    """What the per-ray walk a launch at this leaf size runs takes on the
+    current card, as the CUDA runtime reports it for that instantiation:
+    threads per block, registers per thread, local memory per thread (the
+    stack and any spills), static shared memory per block and resident
+    blocks per SM. Needs the card."""
+    if name not in _WALK_KERNELS:
+        raise ValueError(f"{name}: not one of {_WALK_KERNELS}")
+    if leaf_size < 1 or leaf_size not in _WALK_LEAVES.get(name, (leaf_size,)):
+        raise ValueError(f"{name}: no kernel for leaf size {leaf_size}")
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(torch.cuda.current_device()):
+        rc = get_lib().iris_walk_config(_WALK_KERNELS.index(name), leaf_size,
+                                        out)
+    if rc != 0:
+        raise RuntimeError(f"{name}: walk_config failed: CUDA error {rc}")
+    keys = ("threads_per_block", "registers", "local_bytes_per_thread",
+            "smem_bytes_per_block", "blocks_per_sm")
     return dict(zip(keys, out))
 
 
@@ -268,11 +299,12 @@ def _pair_rows(tracer: Tracer):
     Row r holds both children of internal node r (its preorder rank among
     internal nodes): lanes 0-5 left min/max, 6 its desc', 8-13 right
     min/max, 14 its desc'. desc' > 0: internal child, pair row desc'-1;
-    desc' <= 0: leaf child, leaf row -desc'."""
+    desc' <= 0: leaf child, leaf row -desc' (its triangles are tris rows
+    leaf_size * row ...). Exact for any leaf_size: the paired layout's
+    limit on the leaf row is its callers' (pack_paired_compact,
+    _pairable)."""
     if tracer.layout != "preorder":
         raise ValueError("the paired layout needs a preorder (SAH) tree")
-    if tracer.leaf_size * 12 > 128:
-        raise ValueError("leaf row exceeds one 128-float row")
     if tracer.n_nodes <= 1:
         raise ValueError("the paired layout needs an internal root")
     nodes = tracer.nodes
@@ -401,16 +433,25 @@ def _leaf_rows(tracer: Tracer):
         n_leaf_rows, tracer.leaf_size * 12)
 
 
+def pair_records(tracer: Tracer) -> torch.Tensor:
+    """The _pair_rows records, (n_pairs, 16), cached on the tracer
+    (pairs16): what trace_ordered walks for any leaf_size, and the compact
+    paired layout of the packet walks."""
+    if tracer.pairs16 is None or tracer.pairs16.device != tracer.nodes.device:
+        tracer.pairs16 = _pair_rows(tracer)[0].contiguous()
+    return tracer.pairs16
+
+
 def pack_paired_compact(tracer: Tracer):
     """The paired layout without its padding, as the packet walk reads it:
     (pairs16 (n_pairs, 16), leaf rows (n_leaf_rows, leaf_size * 12),
-    n_pairs, n_leaf_rows). pairs16 is the _pair_rows themselves, cached on
-    the tracer; the leaf rows are tracer.tris itself."""
-    if tracer.pairs16 is None or tracer.pairs16.device != tracer.nodes.device:
-        tracer.pairs16 = _pair_rows(tracer)[0].contiguous()
+    n_pairs, n_leaf_rows). pairs16 is pair_records(tracer); the leaf rows
+    are tracer.tris itself."""
+    if tracer.leaf_size * 12 > 128:
+        raise ValueError("leaf row exceeds one 128-float row")
+    pairs16 = pair_records(tracer)
     leaf_rows = _leaf_rows(tracer)
-    return tracer.pairs16, leaf_rows, tracer.pairs16.shape[0], \
-        leaf_rows.shape[0]
+    return pairs16, leaf_rows, pairs16.shape[0], leaf_rows.shape[0]
 
 
 def pack_dense(tracer: Tracer):
@@ -550,6 +591,20 @@ def trace_union_plain(tracer: Tracer, origins: torch.Tensor,
     return best
 
 
+def warp_counts(pops: torch.Tensor) -> dict:
+    """What per-ray pop counts, in launch order, make of a warp's steps:
+    one ray per thread, a warp of 32 consecutive rays steps until its
+    longest walk is done. "pops" (the sum), "warp_steps" (over the aligned
+    runs of 32 rays, the most pops of any ray of the run, summed; a ragged
+    last run counts as a whole warp) and "lane_busy" = pops / (32 x
+    warp_steps), the share of lane steps that walk."""
+    runs = torch.nn.functional.pad(pops, (0, (-pops.numel()) % 32))
+    steps = int(runs.view(-1, 32).amax(1).sum()) if pops.numel() else 0
+    total = int(pops.sum())
+    return {"pops": total, "warp_steps": steps,
+            "lane_busy": total / (32 * steps) if steps else 0.0}
+
+
 def _pair_walk_plain(rows16, leaf_rows, n_pairs, n_leaf_rows, L, s, origins,
                      dirs, counts):
     """The per-ray near-first walk over pair records rows16 (>= n_pairs,
@@ -564,10 +619,12 @@ def _pair_walk_plain(rows16, leaf_rows, n_pairs, n_leaf_rows, L, s, origins,
     stack = torch.zeros((b, s), dtype=torch.int64, device=dev)
     sp = torch.ones(b, dtype=torch.int64, device=dev)
     alive = torch.arange(b, device=dev)
+    pops = torch.zeros(b, dtype=torch.int64, device=dev)
     n_slab = n_mt = 0
     for _ in range(2 * n_pairs + 2):  # each pair row is popped <= once
         if alive.numel() == 0:
             break
+        pops[alive] += 1
         sp1 = sp[alive] - 1
         row = rows16[stack[alive, sp1]]
         oa, ia, tb = o[alive], inv[alive], best[0][alive]
@@ -607,7 +664,7 @@ def _pair_walk_plain(rows16, leaf_rows, n_pairs, n_leaf_rows, L, s, origins,
     if alive.numel():
         raise RuntimeError("BVH walk did not terminate: corrupt tree")
     if counts is not None:
-        counts.update(slab=n_slab, mt=n_mt)
+        counts.update(slab=n_slab, mt=n_mt, **warp_counts(pops))
     return best
 
 
@@ -617,8 +674,9 @@ def trace_paired_plain(tracer: Tracer, origins: torch.Tensor,
     walk over the paired rows, with a (B, stack_depth) stack tensor and
     stack_depth = auto_stack_depth(tracer) >= depth + 4.
 
-    counts, when given, receives "slab" tests (two per pair row popped)
-    and "mt" triangle tests."""
+    counts, when given, receives "slab" tests (two per pair row popped),
+    "mt" triangle tests, and the pair rows popped with what they make of
+    a warp's steps: "pops", "warp_steps", "lane_busy" (warp_counts)."""
     pairs, leaves, n_pairs, n_leaf_rows = pack_paired(tracer)
     return _pair_walk_plain(pairs[:, :16], leaves, n_pairs, n_leaf_rows,
                             tracer.leaf_size, auto_stack_depth(tracer),
@@ -642,10 +700,14 @@ def trace_ordered_plain(tracer: Tracer, origins: torch.Tensor,
                         dirs: torch.Tensor, counts: dict | None = None):
     """Plain PyTorch version of trace_ordered: the same per-ray near-first
     walk over nodes (N, 8) and tris (P, 12), with a (B, stack_depth) stack
-    tensor.
+    tensor. It slab-tests each popped node against the current t_best; the
+    kernel compares the entry distance the node was pushed with instead,
+    which gives the same bit (the pushed test held thi >= max(tlo, 0)).
 
-    counts, when given, receives "slab" tests (one per node popped, two
-    more per internal node entered) and "mt" triangle tests."""
+    counts, when given, receives "slab": the slab tests the kernel's walk
+    makes (one at the root per ray, two per internal node entered), "mt"
+    triangle tests, and the nodes popped with what they make of a warp's
+    steps: "pops", "warp_steps", "lane_busy" (warp_counts)."""
     if tracer.layout != "preorder":
         raise ValueError("the ordered walk needs a preorder (SAH) tree")
     nodes, tris = tracer.nodes, tracer.tris
@@ -659,10 +721,12 @@ def trace_ordered_plain(tracer: Tracer, origins: torch.Tensor,
     stack = torch.zeros((b, s), dtype=torch.int64, device=dev)
     sp = torch.ones(b, dtype=torch.int64, device=dev)
     alive = torch.arange(b, device=dev)
-    n_slab = n_mt = 0
+    pops = torch.zeros(b, dtype=torch.int64, device=dev)
+    n_slab, n_mt = b, 0
     for _ in range(2 * n + 2):        # each node is popped <= once
         if alive.numel() == 0:
             break
+        pops[alive] += 1
         sp1 = sp[alive] - 1
         nd = nodes[stack[alive, sp1]]
         oa, ia = o[alive], inv[alive]
@@ -698,13 +762,13 @@ def trace_ordered_plain(tracer: Tracer, origins: torch.Tensor,
             near[push_near]
         sp4 = torch.clamp(sp3 + push_near.to(torch.int64), max=s)
         sp[alive] = sp4
-        n_slab += alive.numel() + 2 * int(do_int.sum())
+        n_slab += 2 * int(do_int.sum())
         n_mt += rows.numel() * L
         alive = alive[sp4 > 0]
     if alive.numel():
         raise RuntimeError("BVH walk did not terminate: corrupt tree")
     if counts is not None:
-        counts.update(slab=n_slab, mt=n_mt)
+        counts.update(slab=n_slab, mt=n_mt, **warp_counts(pops))
     return best
 
 
@@ -1055,8 +1119,17 @@ def _launch(wrapper, arrays: dict, head: tuple, origins, dirs, hint="",
     return t, u, v, face
 
 
-def _stack_entries(name: str, tracer: Tracer) -> int:
-    depth = auto_stack_depth(tracer)
+def walk_stack_depth(tracer: Tracer) -> int:
+    """Stack entries of the per-ray walks' kernels (trace_paired,
+    trace_dense, trace_ordered), which keep the near child in a register
+    and push only far children: at most depth entries, sized depth + 4 as
+    auto_stack_depth does, without its 64-entry floor (64 when the depth
+    is unknown). The kernels hold iris_paired_stack_cap() entries."""
+    return tracer.depth + 4 if tracer.depth else 64
+
+
+def _stack_entries(name: str, tracer: Tracer, depth: int) -> int:
+    """depth, once the kernel is known to hold that many stack entries."""
     cap = get_lib().iris_paired_stack_cap()
     if depth > cap:
         raise ValueError(
@@ -1112,31 +1185,48 @@ def trace_streamed(tracer: Tracer, origins: torch.Tensor, dirs: torch.Tensor,
 
 
 def trace_ordered(tracer: Tracer, origins: torch.Tensor, dirs: torch.Tensor):
-    """Closest hits by the near-first, pop-time-pruned walk over the
-    unpaired nodes (N, 8) and tris (P, 12) (replaces
-    pallas_ray_trace_ordered, pallas_intersect.py:579). Preorder trees
-    only, any leaf_size. Returns (t, u, v, face) per ray."""
+    """Closest hits by the near-first walk with pop-time pruning of a
+    preorder tree with any leaf_size (replaces pallas_ray_trace_ordered,
+    pallas_intersect.py:579). One ray a thread, the kernel walks the pair
+    records (pair_records: both children's boxes in one 64-byte read),
+    keeps the near child in a register, pushes the far one with its entry
+    distance and prunes a popped entry by comparing that distance with the
+    best hit; a warp's lanes step through records until each reaches a
+    leaf, then fold their leaves (from tris) together. Each ray's visiting
+    order and hits are trace_ordered_plain's node walk's, bit for bit.
+    Returns (t, u, v, face) per ray."""
     if origins.device.type == "cpu":
         return trace_ordered_plain(tracer, origins, dirs)
     _need_preorder("trace_ordered", tracer)
+    # a tree whose root is a leaf has no records: the kernel reads none
+    pairs = pair_records(tracer) if tracer.n_nodes > 1 else tracer.nodes
+    n_pairs = pairs.shape[0] if tracer.n_nodes > 1 else 0
     return _launch(
-        trace_ordered, {"nodes": tracer.nodes, "tris": tracer.tris},
-        (tracer.nodes.data_ptr(), tracer.n_nodes, tracer.tris.data_ptr(),
-         tracer.tris.shape[0], tracer.leaf_size,
-         _stack_entries("trace_ordered", tracer)), origins, dirs)
+        trace_ordered, {"nodes": tracer.nodes, "pairs": pairs,
+                        "tris": tracer.tris},
+        (tracer.nodes.data_ptr(), pairs.data_ptr(), n_pairs,
+         tracer.tris.data_ptr(), tracer.tris.shape[0] // tracer.leaf_size,
+         tracer.leaf_size,
+         _stack_entries("trace_ordered", tracer, walk_stack_depth(tracer))),
+        origins, dirs)
 
 
 def trace_paired(tracer: Tracer, origins: torch.Tensor, dirs: torch.Tensor):
-    """Closest hits by the near-first walk over the paired layout
-    (replaces pallas_ray_trace_paired, pallas_intersect.py:782). Preorder
-    trees only. Returns (t, u, v, face) per ray."""
+    """Closest hits by the per-ray near-first walk over the paired layout
+    (replaces pallas_ray_trace_paired, pallas_intersect.py:782): one ray a
+    thread, the near child kept in a register and only the far one
+    pushed, the leaf fold unrolled over leaf_size (1-10) and the entered
+    leaf children of a step folded in one pass where a lane entered one.
+    Preorder trees only. Returns (t, u, v, face) per ray,
+    trace_paired_plain's bit for bit."""
     if origins.device.type == "cpu":
         return trace_paired_plain(tracer, origins, dirs)
     pairs, leaves, n_pairs, n_leaf_rows = pack_paired(tracer)
     return _launch(
         trace_paired, {"pairs": pairs, "leaves": leaves},
         (pairs.data_ptr(), n_pairs, leaves.data_ptr(), n_leaf_rows,
-         tracer.leaf_size, _stack_entries("trace_paired", tracer)),
+         tracer.leaf_size,
+         _stack_entries("trace_paired", tracer, walk_stack_depth(tracer))),
         origins, dirs)
 
 
@@ -1159,24 +1249,26 @@ def trace_paired_streamed(tracer: Tracer, origins: torch.Tensor,
     return _launch(
         trace_paired_streamed, {"pairs16": pairs16, "leaf rows": leaf_rows},
         (pairs16.data_ptr(), n_pairs, leaf_rows.data_ptr(), n_leaf_rows,
-         tracer.leaf_size, _stack_entries("trace_paired_streamed", tracer)),
+         tracer.leaf_size, _stack_entries("trace_paired_streamed", tracer,
+                                          auto_stack_depth(tracer))),
         origins, dirs, hint=_WINDOW_HINT.format(tracer.leaf_size),
         width=width)
 
 
 def trace_dense(tracer: Tracer, origins: torch.Tensor, dirs: torch.Tensor):
-    """Closest hits by the per-ray near-first walk over the dense layout:
+    """Closest hits by trace_paired's per-ray walk over the dense layout:
     64-byte pair records, 8 to a row, and 256-byte leaf slots, 2 to a row
     (replaces pallas_ray_trace_dense, pallas_intersect.py:1221). Preorder
-    trees with leaf_size <= 5 and an internal root. Returns (t, u, v, face)
-    per ray."""
+    trees with leaf_size <= 5 and an internal root. Returns (t, u, v,
+    face) per ray, trace_dense_plain's bit for bit."""
     if origins.device.type == "cpu":
         return trace_dense_plain(tracer, origins, dirs)
     pairs, leaves, n_pairs, n_leaf_rows = pack_dense(tracer)
     return _launch(
         trace_dense, {"dense pairs": pairs, "dense leaves": leaves},
         (pairs.data_ptr(), n_pairs, leaves.data_ptr(), n_leaf_rows,
-         tracer.leaf_size, _stack_entries("trace_dense", tracer)),
+         tracer.leaf_size,
+         _stack_entries("trace_dense", tracer, walk_stack_depth(tracer))),
         origins, dirs)
 
 
@@ -1194,7 +1286,8 @@ def trace_dense_streamed(tracer: Tracer, origins: torch.Tensor,
     return _launch(
         trace_dense_streamed, {"dense pairs": pairs, "dense leaves": leaves},
         (pairs.data_ptr(), n_pairs, leaves.data_ptr(), n_leaf_rows,
-         tracer.leaf_size, _stack_entries("trace_dense_streamed", tracer)),
+         tracer.leaf_size, _stack_entries("trace_dense_streamed", tracer,
+                                          auto_stack_depth(tracer))),
         origins, dirs, hint=_WINDOW_HINT.format(tracer.leaf_size),
         width=width)
 

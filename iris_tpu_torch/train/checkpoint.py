@@ -19,6 +19,7 @@ import pickle
 import numpy as np
 import torch
 
+from iris_tpu_torch.device import resolve_device
 from iris_tpu_torch.models.brdf import NGPBRDF
 from iris_tpu_torch.models.hashgrid import HashGridConfig
 from iris_tpu_torch.train.optim import Optimizer, named_leaves
@@ -79,8 +80,10 @@ def _load_raw(path: str):
         return pickle.load(f)
 
 
-def load_pytree(path: str, device="cpu"):
-    return from_numpy(_load_raw(path), device)
+def load_pytree(path: str, device=None):
+    """A saved tree with its tensors on `device`: None means the card, as
+    at every entry point (device.resolve_device); "cpu" asks for the CPU."""
+    return from_numpy(_load_raw(path), resolve_device(device))
 
 
 def opt_state_to_numpy(opt_state: dict) -> dict:
@@ -116,12 +119,17 @@ def make_state_saver(path: str, every: int = 1000):
 
 
 def load_train_state(state_path: str, params_path: str, params,
-                     optimizer: Optimizer | None = None, device="cpu"):
+                     optimizer: Optimizer | None = None, device=None):
     """Resume helper: the full state if present and readable, else a
     params-only file, else the given fresh params. Returns
-    (params, opt_state | None, start_step). With `optimizer` the saved
-    optimizer state comes back live (restore_opt_state), ready for
-    run_training; without it, as the saved numpy dict."""
+    (params, opt_state | None, start_step). The restored params lie on
+    `device` (None: the card, see load_pytree), and run_training trains
+    on the device its params lie on. With `optimizer` the saved optimizer
+    state comes back live (restore_opt_state), ready for run_training;
+    without it, as the saved numpy dict."""
+    # resolved first, so that a missing card raises here and is not taken
+    # for an unreadable state file below
+    device = resolve_device(device)
     if os.path.exists(state_path):
         try:
             st = _load_raw(state_path)
@@ -144,10 +152,11 @@ def load_train_state(state_path: str, params_path: str, params,
 
 def load_into(path: str, template):
     """Restore a file's leaves into an existing params tree, in place
-    (count, shapes and dtypes follow the template); returns the
+    (count, shapes, dtypes and device follow the template); returns the
     template."""
-    loaded = named_leaves(load_pytree(path))
     leaves = named_leaves(template)
+    device = leaves[0][1].device if leaves else torch.device("cpu")
+    loaded = named_leaves(load_pytree(path, device))
     if len(loaded) != len(leaves):
         raise ValueError("checkpoint/template structure mismatch: "
                          f"{len(loaded)} leaves in {path}, {len(leaves)} in "

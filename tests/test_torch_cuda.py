@@ -13,6 +13,7 @@ from iris_tpu_torch.geometry import cuda_intersect as ci
 from iris_tpu_torch.geometry.bvh import build_bvh
 from iris_tpu_torch.geometry.procedural import (
     camera_rays, make_box_scene, random_rays)
+from test_torch_walks import chain_rays, chain_tree
 
 pytestmark = pytest.mark.cuda
 
@@ -73,11 +74,20 @@ def test_paired_streamed_matches_plain(card, n_clutter, leaf_size, n_rays):
     assert torch.allclose(got[0][both], ref[0][both], rtol=1e-5, atol=0)
 
 
-@pytest.mark.parametrize("n_clutter,leaf_size", [(12, 4), (500, 4),
-                                                 (500, 16)])
+@pytest.mark.parametrize("n_clutter,leaf_size", [
+    (12, 4), (500, 4), (500, 16), (500, 32), (1500, 16)])
 def test_ordered_matches_plain(card, n_clutter, leaf_size):
+    """trace_ordered against its plain version, bit for bit, on record
+    arrays of up to 35 KB (500 boxes at leaf 16 or 32: its path's size)
+    and past 48 KB (500 at leaf 4, 1,500 at leaf 16), the size that a
+    design staging them in shared memory would have had to read from
+    global memory (staging measured slower and was dropped); 3,648 rays,
+    not a multiple of the block."""
     mesh, _ = make_box_scene(n_clutter=n_clutter, seed=4)
     tracer = build_bvh(mesh.triangles(), leaf_size=leaf_size, device=card)
+    records = ci.pair_records(tracer).shape[0] * 64
+    assert records > 48 * 1024 if (n_clutter, leaf_size) in (
+        (500, 4), (1500, 16)) else records <= 48 * 1024
     o1, d1 = random_rays(2048, seed=3)
     o2, d2, *_ = camera_rays(40)
     o = torch.from_numpy(np.concatenate([o1, o2])).to(card)
@@ -89,6 +99,63 @@ def test_ordered_matches_plain(card, n_clutter, leaf_size):
     want = ci.trace_ordered_plain(tracer, o, d)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("leaf_size", [1, 2, 3, 4, 5, 10])
+def test_per_ray_pair_walks_match_plain(card, leaf_size):
+    """trace_paired (leaf sizes 1-10) and trace_dense (1-5), one template
+    instantiation per leaf size, against their plain versions on a
+    6,014-face tree and 2,600 rays (not a multiple of the block)."""
+    mesh, _ = make_box_scene(n_clutter=500, seed=4)
+    tracer = build_bvh(mesh.triangles(), leaf_size=leaf_size, device=card)
+    o1, d1 = random_rays(1000, seed=8)
+    o2, d2, *_ = camera_rays(40)
+    o = torch.from_numpy(np.concatenate([o1, o2])).to(card)
+    d = torch.from_numpy(np.concatenate([d1, d2])).to(card)
+    walks = [(ci.trace_paired, ci.trace_paired_plain)]
+    if leaf_size <= 5:
+        walks.append((ci.trace_dense, ci.trace_dense_plain))
+    for kernel, plain in walks:
+        before = kernel.launches
+        got = kernel(tracer, o, d)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        for g, w in zip(got, plain(tracer, o, d)):
+            assert torch.equal(g, w), (kernel.__name__, leaf_size)
+
+
+def test_ordered_of_a_tree_whose_root_is_a_leaf(card):
+    mesh, _ = make_box_scene(n_clutter=0, seed=1)
+    tracer = build_bvh(mesh.triangles()[:2], leaf_size=2, device=card)
+    assert tracer.n_nodes == 1
+    o, d = random_rays(1000, seed=9)
+    o, d = torch.from_numpy(o).to(card), torch.from_numpy(d).to(card)
+    got = ci.trace_ordered(tracer, o, d)
+    torch.cuda.synchronize()
+    for g, w in zip(got, ci.trace_ordered_plain(tracer, o, d)):
+        assert torch.equal(g, w)
+
+
+def test_deepest_tree_the_stacks_admit(card):
+    """A chain of depth 124 needs 128 stack entries (depth + 4), all the
+    kernels hold: the three per-ray walks match their plain versions on
+    rays that push a far child at every level. Depth 125 is refused with
+    a ValueError before anything is launched."""
+    deep = chain_tree(124, device=card)
+    o, d = (x.to(card) for x in chain_rays(124, 500))
+    for kernel, plain in ((ci.trace_ordered, ci.trace_ordered_plain),
+                          (ci.trace_paired, ci.trace_paired_plain),
+                          (ci.trace_dense, ci.trace_dense_plain)):
+        got = kernel(deep, o, d)
+        torch.cuda.synchronize()
+        for g, w in zip(got, plain(deep, o, d)):
+            assert torch.equal(g, w), kernel.__name__
+    too_deep = chain_tree(125, device=card)
+    for kernel in (ci.trace_ordered, ci.trace_paired, ci.trace_dense):
+        before = kernel.launches
+        with pytest.raises(ValueError, match="128"):
+            kernel(too_deep, o, d)
+        assert kernel.launches == before
 
 
 def test_new_kernels_refuse_what_they_do_not_take(card):
@@ -203,6 +270,22 @@ def test_shipped_packet_widths(card):
     d = torch.ones((8, 3), device=card)
     with pytest.raises(ValueError, match="packet width"):
         ci.trace_streamed(tracer, o, d, width=2)
+
+
+def test_walk_config_of_the_per_ray_walks(card):
+    """Every instantiation of the per-ray walks reports 128-thread blocks,
+    no shared memory, a local stack of at least kStackCap entries, and
+    keeps at least 2 blocks resident on an SM."""
+    cap = ci.get_lib().iris_paired_stack_cap()
+    for name, leaves in (("trace_ordered", (4, 16, 32)),
+                         ("trace_paired", range(1, 11)),
+                         ("trace_dense", range(1, 6))):
+        for leaf_size in leaves:
+            cfg = ci.walk_config(name, leaf_size)
+            assert cfg["threads_per_block"] == 128, (name, leaf_size)
+            assert cfg["registers"] > 0 and cfg["blocks_per_sm"] >= 2
+            assert cfg["smem_bytes_per_block"] == 0
+            assert cfg["local_bytes_per_thread"] >= 4 * cap
 
 
 def test_windows_past_the_shared_memory_limit_raise(card):

@@ -15,6 +15,7 @@ import torch
 
 from iris_tpu_torch import convert
 from iris_tpu_torch.demo import make_demo_batch, make_demo_scene
+from iris_tpu_torch.device import resolve_device
 from iris_tpu_torch.models import crf as tcrf
 from iris_tpu_torch.models.brdf import NGPBRDF, ngp_brdf_apply
 from iris_tpu_torch.render.integrator import path_tracing_single
@@ -91,7 +92,8 @@ def test_kill_and_resume_is_bit_for_bit(world, tmp_path, chunk_steps):
                  state_hooks=[ck.make_state_saver(path, every=2)], **kw)
     assert os.listdir(tmp_path) == ["state.pkl"]        # no .tmp left
     params, opt_state, start = ck.load_train_state(
-        path, str(tmp_path / "none.pkl"), params0(), optimizer=opt)
+        path, str(tmp_path / "none.pkl"), params0(), optimizer=opt,
+        device="cpu")
     assert start == k and isinstance(params["material"], NGPBRDF)
     assert params["material"].cfg == params0()["material"].cfg
     resumed, res_state = run_training(
@@ -107,8 +109,9 @@ def test_kill_and_resume_is_bit_for_bit(world, tmp_path, chunk_steps):
         for name in ("exp_avg", "exp_avg_sq", "step"):
             np.testing.assert_array_equal(a[i][name], b[i][name])
     # guard against passing vacuously: without the moments it differs
-    bad = run_training(loss_fn, ck.load_pytree(path)["params"], batches(k),
-                       opt, N_STEPS, start_step=k, **kw)
+    bad = run_training(loss_fn,
+                       ck.load_pytree(path, device="cpu")["params"],
+                       batches(k), opt, N_STEPS, start_step=k, **kw)
     assert any(np.abs(x - y).max() > 0 for x, y in zip(
         _leaves(bad).values(), _leaves(full).values()))
 
@@ -200,7 +203,7 @@ def test_save_pytree_round_trip_and_no_tmp(tmp_path):
     path = str(tmp_path / "sub" / "p.pkl")      # the directory is made
     ck.save_pytree(path, _tree())
     assert os.listdir(tmp_path / "sub") == ["p.pkl"]
-    back = ck.load_pytree(path)
+    back = ck.load_pytree(path, device="cpu")
     assert torch.equal(back["w"], _tree()["w"])
     assert torch.equal(back["nested"]["b"][0], torch.ones(2))
     assert int(back["step"]) == 3
@@ -226,7 +229,8 @@ def test_save_pytree_survives_a_write_that_raises(tmp_path, monkeypatch):
     monkeypatch.undo()
     assert open(path, "rb").read() == old
     assert os.listdir(tmp_path) == ["p.pkl"]
-    assert torch.equal(ck.load_pytree(path)["w"], _tree()["w"])
+    assert torch.equal(ck.load_pytree(path, device="cpu")["w"],
+                       _tree()["w"])
 
 
 def test_state_saver_cadence(tmp_path):
@@ -239,7 +243,7 @@ def test_state_saver_cadence(tmp_path):
         hook(step, params, state)
     assert not os.path.exists(path)
     hook(2, params, state)
-    assert int(ck.load_pytree(path)["step"]) == 3
+    assert int(ck.load_pytree(path, device="cpu")["step"]) == 3
     ck.make_state_saver(str(tmp_path / "never.pkl"), every=0)(2, params,
                                                               state)
     assert not os.path.exists(tmp_path / "never.pkl")
@@ -251,17 +255,20 @@ def test_load_train_state_three_fallbacks(tmp_path, capsys):
     state_path, params_path = (str(tmp_path / "state.pkl"),
                                str(tmp_path / "params.pkl"))
     # 3: nothing on disk -> the fresh params
-    got = ck.load_train_state(state_path, params_path, fresh, opt)
+    got = ck.load_train_state(state_path, params_path, fresh, opt,
+                              device="cpu")
     assert got[0] is fresh and got[1:] == (None, 0)
     # 2: a params-only file -> its params, optimizer state reset
     ck.save_pytree(params_path, {"w": torch.ones(3)})
-    p, o, s = ck.load_train_state(state_path, params_path, fresh, opt)
+    p, o, s = ck.load_train_state(state_path, params_path, fresh, opt,
+                              device="cpu")
     assert torch.equal(p["w"], torch.ones(3)) and o is None and s == 0
     assert "params only" in capsys.readouterr().out
     # an unreadable state file falls through to the params file
     with open(state_path, "wb") as f:
         f.write(b"not a pickle")
-    p, o, s = ck.load_train_state(state_path, params_path, fresh, opt)
+    p, o, s = ck.load_train_state(state_path, params_path, fresh, opt,
+                              device="cpu")
     assert torch.equal(p["w"], torch.ones(3)) and o is None and s == 0
     assert "unreadable state file" in capsys.readouterr().out
     # 1: the full state -> params, a live optimizer state, the step
@@ -269,13 +276,15 @@ def test_load_train_state_three_fallbacks(tmp_path, capsys):
     st = opt.init(trained)
     opt.update(trained, {"w": torch.ones(3)}, st)
     ck.make_state_saver(state_path, every=1)(4, trained, st)
-    p, o, s = ck.load_train_state(state_path, params_path, fresh, opt)
+    p, o, s = ck.load_train_state(state_path, params_path, fresh, opt,
+                              device="cpu")
     assert s == 5 and torch.equal(p["w"], trained["w"])
     assert o["opt"].state_dict()["state"][0]["exp_avg"].abs().sum() > 0
     assert o["opt"].param_groups[0]["params"][0] is p["w"]
     assert "full state" in capsys.readouterr().out
     # without an optimizer the saved state comes back as numpy
-    _, raw, _ = ck.load_train_state(state_path, params_path, fresh)
+    _, raw, _ = ck.load_train_state(state_path, params_path, fresh,
+                                  device="cpu")
     assert isinstance(raw["opt"]["state"][0]["exp_avg"], np.ndarray)
 
 
@@ -289,3 +298,31 @@ def test_load_into_fills_the_template_in_place(tmp_path):
     assert torch.equal(a, torch.arange(6.0).reshape(2, 3))
     with pytest.raises(ValueError, match="structure mismatch"):
         ck.load_into(path, {"a": torch.zeros(6)})
+
+
+def test_checkpoint_loaders_default_to_the_card(tmp_path, monkeypatch,
+                                                capsys):
+    """load_pytree and load_train_state put the restored tensors on the
+    card unless asked for the CPU: with no card their default raises what
+    device.resolve_device raises, before any file is read, so a present
+    state file is not taken for an unreadable one. load_into follows its
+    template's device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError) as no_card:
+        resolve_device(None)
+    path = str(tmp_path / "p.pkl")
+    ck.save_pytree(path, _tree())
+    with pytest.raises(RuntimeError) as got:
+        ck.load_pytree(path)
+    assert str(got.value) == str(no_card.value)
+    opt = make_optimizer()
+    params = {"w": torch.zeros(3)}
+    ck.make_state_saver(path, every=1)(0, params, opt.init(params))
+    for params_path in (path, str(tmp_path / "none.pkl")):
+        with pytest.raises(RuntimeError) as got:
+            ck.load_train_state(path, params_path, params, opt)
+        assert str(got.value) == str(no_card.value)
+    assert "falling back" not in capsys.readouterr().out
+    template = {"w": torch.ones(3)}
+    ck.save_pytree(path, {"w": torch.arange(3.0)})
+    assert torch.equal(ck.load_into(path, template)["w"], torch.arange(3.0))
