@@ -19,14 +19,20 @@ from csrc/bvh_builder.cpp, then:
    clutter tree, trace_ordered on a 6,014-face tree built with leaf_size 16
    (its leaf row is too wide for the paired layout); the three packet
    walks at every instantiated packet width on the camera rays (the
-   random rays at the shipped width only);
+   random rays at the shipped width only); and trace_union again on a
+   tree the L1 cannot hold, the Morton (heap) tree of the 102,014-face
+   scene, on the same two sets; trace_union and the packet walks must be
+   bit-equal to their plain versions on every ray;
 4. renders the flagship frame (camera_rays(90) = 8,100 pixels) at the
    production width — 4-level x 16-feature x 2^19 row-mode hash grid (a
    128 MB table), MLP 64-64-64-5, 3-basis EMoR CRF, 64^3 SLF seeded with
    nonzero radiance — at spp 8 and indir_depth 5, for --rounds rounds
    after one warm-up round (a cut of the 64 rounds that SPP=512 takes),
-   with the AOV pass and CRF to LDR; and holds a small render on the card
-   against the same render on the CPU;
+   with the AOV pass and CRF to LDR; counts one more round's material
+   evaluations (one at the camera hits, one per bounce, one in the AOV
+   pass: 8) and, under torch.profiler, the kernels it launches and their
+   device time; and holds a small render on the card against the same
+   render on the CPU;
 5. renders one round of the 102,014-face scene the same way
    (trace_paired_streamed), and one round at depth 2 of the 6,014-face
    scene with leaf_size 16 (trace_ordered) and with leaf_size 4
@@ -60,7 +66,8 @@ from csrc/bvh_builder.cpp, then:
    in turns there and back, and compares their hits pairwise; then times
    every instantiated packet width of the three packet walks on those
    rays, there and back, and prints one line per kernel: W -> ms; for the
-   per-ray walks trace_ordered, trace_paired and trace_dense it prints the
+   per-ray walks trace_union, trace_ordered, trace_paired and trace_dense
+   it prints the
    plain versions' pops, warp_steps and lane_busy on each path's rays and
    on the 518,400 rays, and the registers, local memory (stack and
    spills), shared memory and resident blocks per SM of the instantiation
@@ -70,9 +77,10 @@ from csrc/bvh_builder.cpp, then:
    plain version's time (one run) and its roofline bound, measured on the
    largest input a main path gave the kernel (the five big-tree kernels on
    the same rays; the bound of the packet walks counts the per-ray walk's
-   tests); the rows of the three per-ray walks add this run's pops,
+   tests); the rows of the four per-ray walks add this run's pops,
    warp_steps and lane_busy, and those four numbers of the path's
-   instantiation;
+   instantiation; trace_union's row adds its time and bound on the
+   518,400 rays of the 102K train step;
 12. prints the card line again and, last, the run's JSON verdict.
 
 Any failed check raises, and the script then exits non-zero with no
@@ -132,7 +140,8 @@ PLAIN_ON_CHECK_SET = ("trace_streamed",)
 PACKET_KERNELS = ("trace_streamed", "trace_paired_streamed",
                   "trace_dense_streamed")
 # the per-ray walks whose plain versions count pops and warp steps
-WALK_KERNELS = ("trace_ordered", "trace_paired", "trace_dense")
+WALK_KERNELS = ("trace_union", "trace_ordered", "trace_paired",
+                "trace_dense")
 WALK_COUNTS = ("pops", "warp_steps", "lane_busy")
 WALK_RESOURCES = ("registers", "local_bytes_per_thread",
                   "smem_bytes_per_block", "blocks_per_sm")
@@ -386,6 +395,39 @@ def render_scene(label, tracer, em, mat_fn, crf, rays, n_rounds, seed,
              "ldr_mean": ldr.mean(0).tolist(),
              "largest_trace_rays": captured["n"]}
     return stats, captured
+
+
+def round_census(tracer, em, mat_fn, rays, seed):
+    """One render round (render_chunk + aov_chunk, spp 8, depth 5) after a
+    warm-up round, with mat_fn's calls counted and the card's kernels
+    recorded by torch.profiler: (material evaluations, kernels launched,
+    device-busy ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from iris_tpu_torch.pipeline.render import make_render_fns
+    from profile_render import device_kernels, device_time_us
+
+    calls = [0]
+
+    def counted(x):
+        calls[0] += 1
+        return mat_fn(x)
+
+    render_chunk, aov_chunk = make_render_fns(tracer, em, counted, SPP,
+                                              INDIR_DEPTH)
+    gen = torch.Generator(device=rays.device).manual_seed(seed)
+    render_chunk(rays, gen)
+    aov_chunk(rays, gen)
+    torch.cuda.synchronize()
+    calls[0] = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        render_chunk(rays, gen)
+        aov_chunk(rays, gen)
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    return (calls[0], sum(e.count for e in kernels),
+            sum(device_time_us(e) for e in kernels) / 1e3)
 
 
 def only_launched(launches, name, n=None):
@@ -1124,7 +1166,7 @@ def main(argv=None) -> int:
                 plain_ms, want = timed_once(
                     lambda: plain(tracer, o_t, d_t, counts=counts, **kw))
                 err, same = compare_hits(got, want)
-                if name in PACKET_KERNELS:
+                if name in PACKET_KERNELS + ("trace_union",):
                     check(same == n_check, f"{name} {label} width {width}: "
                           f"{same}/{n_check} rays bit-equal to plain")
                 max_err[name] = max(max_err.get(name, 0.0), err)
@@ -1134,6 +1176,31 @@ def main(argv=None) -> int:
                       f"{int((got[3] >= 0).sum())}, bit-equal "
                       f"{same}/{n_check}, max |t| error {err:.3e}; plain "
                       f"{plain_ms:.1f} ms")
+
+    # trace_union on a tree the L1 cannot hold and past every gate: the
+    # Morton (heap) tree of the 102K scene, which kernel_for sends to
+    # trace_union
+    morton = build_bvh(big[4].triangles(), method="morton", device=dev)
+    check(kernel_for(morton) is ci.trace_union
+          and not ci.resident_available(morton), "Morton 102K dispatch")
+    morton_bytes = morton.n_nodes * 32 + morton.tris.shape[0] * 48
+    for label, (o, d) in ray_sets.items():
+        o_t = torch.from_numpy(np.ascontiguousarray(o)).to(dev)
+        d_t = torch.from_numpy(np.ascontiguousarray(d)).to(dev)
+        got = ci.trace_union(morton, o_t, d_t)
+        torch.cuda.synchronize()
+        plain_ms, want = timed_once(
+            lambda: ci.trace_union_plain(morton, o_t, d_t))
+        err, same = compare_hits(got, want)
+        check(same == n_check, f"trace_union Morton 102K {label}: "
+              f"{same}/{n_check} rays bit-equal to plain")
+        max_err["trace_union"] = max(max_err["trace_union"], err)
+        print(f"check trace_union {label} on the Morton tree of the 102K "
+              f"scene ({morton.n_nodes} nodes, {morton_bytes} B, depth "
+              f"{morton.depth}; {n_check} rays): hits "
+              f"{int((got[3] >= 0).sum())}, bit-equal {same}/{n_check}, "
+              f"max |t| error {err:.3e}; plain {plain_ms:.1f} ms")
+    del morton
 
     launches = dict.fromkeys(KERNELS, 0)
 
@@ -1159,6 +1226,19 @@ def main(argv=None) -> int:
           "flagship render: launches of trace_union alone expected")
     add_launches(flag_stats)
     report_render("flagship", flag_stats, " (cut from SPP=512's 64)")
+    # one material evaluation at the camera hits, one per bounce (the
+    # first bounce's is handed on to the indirect tail), one in the AOV
+    # pass
+    n_mat, n_kernels, busy_ms = round_census(
+        flag[0], flag[1], demo_mat_fn(flag[2]), rays, args.seed)
+    check(n_mat == INDIR_DEPTH + 3, f"flagship round: {n_mat} material "
+          f"evaluations, expected {INDIR_DEPTH + 3}")
+    flag_stats.update(material_evaluations_per_round=n_mat,
+                      kernels_per_round=n_kernels,
+                      device_busy_ms_per_round=busy_ms)
+    print(f"flagship round census (torch.profiler, one round after a "
+          f"warm-up): {n_mat} material evaluations, {n_kernels} kernels "
+          f"launched, device busy {busy_ms:.2f} ms")
     frac, worst = small_reference_check(flag[0], flag[1], flag[2], dev,
                                         args.seed)
     print(f"flagship card vs CPU (64 px, spp 2): {frac:.4f} of radiance "
@@ -1321,9 +1401,11 @@ def main(argv=None) -> int:
     per_ray_of = {"trace_paired_streamed": "near_first",
                   "trace_dense_streamed": "near_first",
                   "trace_streamed": "stackless"}
-    print(f"counts trace_paired / trace_dense on the {o_big.shape[0]} rays "
-          "of the 102K train step: " + ", ".join(
-              f"{k} {per_ray['near_first'][k]}" for k in WALK_COUNTS))
+    for label, key in (("trace_paired / trace_dense", "near_first"),
+                       ("trace_union", "stackless")):
+        print(f"counts {label} on the {o_big.shape[0]} rays of the 102K "
+              "train step: " + ", ".join(
+                  f"{k} {per_ray[key][k]}" for k in WALK_COUNTS))
     rows = []
     for name, (kernel, plain, tracer, paired, replaces) in \
             kernel_specs.items():
@@ -1404,13 +1486,20 @@ def main(argv=None) -> int:
     paired_ms = statistics.median(
         t for n, t in turns if n == "trace_paired")
     union_ms = statistics.median(t for n, t in turns if n == "trace_union")
+    union_bound = roofline(big[0], per_ray["stackless"], o_big.shape[0],
+                           False)[0]
     for row in rows:
         if row["name"] in agree and row["name"] != "trace_union":
             row["trace_paired_ms_same_input"] = paired_ms
             row["turns_ms"] = [t for n, t in turns if n == row["name"]]
+        if row["name"] == "trace_union":
+            # a tree past the L1, on sorted rays
+            row.update(ms_102k_rays=union_ms, bound_ms_102k_rays=union_bound)
     print(f"per-ray walks of the 102K tree on those rays: trace_union "
-          f"(stackless, trace_streamed's packet width 1) {union_ms:.4f} ms, "
-          f"trace_paired (near-first) {paired_ms:.4f} ms")
+          f"(stackless, trace_streamed's packet width 1) "
+          f"{union_ms:.4f} ms (bound "
+          f"{union_bound:.5f} ms), trace_paired (near-first) "
+          f"{paired_ms:.4f} ms")
     # every packet width of the three packet walks on the same rays
     sweep = width_sweep(big[0], o_big, d_big, flush)
     for ln in report_sweep(sweep):

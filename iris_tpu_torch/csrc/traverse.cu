@@ -28,9 +28,10 @@
 // depend on the data (how deep each ray walks). On the sorted bounce rays
 // of the 102,014-face scene the walks are bound by the instructions a
 // step executes, not by a load's latency: every design that hid latency
-// (cp.async prefetches of records and windows) measured slower, every one
-// that took instructions or branches off a step faster (PERF.md,
-// Findings). Warp coherence is left to the caller's ray order.
+// (cp.async prefetches of records and windows, successors loaded ahead)
+// measured slower or gained less than one that took instructions or
+// branches off a step (PERF.md, Findings). Warp coherence is left to the
+// caller's ray order.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -40,16 +41,12 @@ namespace {
 
 constexpr float kTMiss = 3e37f;   // pallas_intersect.py:30
 constexpr float kMtEps = 1e-9f;   // pallas_intersect.py:31
-// Threads per block of trace_union
-constexpr int kThreads = 256;
 // Stack entries of the near-first walks (per thread in local memory; per
 // packet, in shared memory, in the packet walks). The host refuses trees
 // whose stack need (depth + 4 entries) exceeds it instead of truncating.
 constexpr int kStackCap = 128;
 // The dynamic shared memory a block gets without opting its kernel in.
 constexpr int kDefaultShared = 48 * 1024;
-// The union kernel stages the whole tree in shared memory up to this size.
-constexpr int kStageBytes = kDefaultShared;
 // float4s per 128-float row of the paired layout (pallas_intersect.py:621)
 constexpr int kRow4 = 32;
 // float4s of the 16 useful floats of a pair row (the compact (R, 16) view)
@@ -160,15 +157,6 @@ __device__ __forceinline__ void mt_fold(const Ray& r, float4 a, float4 b,
   }
 }
 
-template <bool kStaged>
-__device__ __forceinline__ float4 ld4(const float4* p) {
-  if constexpr (kStaged) {
-    return *p;
-  } else {
-    return __ldg(p);
-  }
-}
-
 __device__ __forceinline__ void store_hit(const Hit& h, int i,
                                           float* __restrict__ t_out,
                                           float* __restrict__ u_out,
@@ -178,69 +166,6 @@ __device__ __forceinline__ void store_hit(const Hit& h, int i,
   u_out[i] = h.u;
   v_out[i] = h.v;
   f_out[i] = h.face;
-}
-
-// trace_union — replaces pallas_ray_trace / _kernel
-// (pallas_intersect.py:176, 240). Stackless preorder skip-pointer walk over
-// nodes (N, 8) and tris (P, 12): descend to desc on a slab hit, otherwise
-// jump to skip; a hit leaf (desc <= 0) tests leaf_size rows from -desc.
-// The TPU's tile-union walk visits a superset of this ray's nodes; the
-// extra visits are misses for this lane (child boxes nest in parent boxes
-// and t_best only shrinks), and triangles are met in the same preorder, so
-// the hits and their tie-breaking are the same.
-// Design: the TPU kernel keeps the tree VMEM-resident; here a tree of up to
-// kStageBytes (the flagship scene's is 39 KB) is staged into shared memory
-// once per block, so every dependent node/triangle load in the walk is a
-// shared-memory read. Rows are read as float4s (2 per node, 3 per
-// triangle). Bigger trees are read through the read-only cache.
-template <bool kStaged>
-__global__ void __launch_bounds__(kThreads)
-    trace_union_kernel(const float4* __restrict__ nodes_g, int n_nodes,
-                       const float4* __restrict__ tris_g, int n_tri_rows,
-                       int leaf_size, const float* __restrict__ orig,
-                       const float* __restrict__ dirs, int n_rays,
-                       float* __restrict__ t_out, float* __restrict__ u_out,
-                       float* __restrict__ v_out, int* __restrict__ f_out) {
-  extern __shared__ float4 stage[];
-  const float4* nodes = nodes_g;
-  const float4* tris = tris_g;
-  if constexpr (kStaged) {
-    const int nn = 2 * n_nodes;
-    const int nt = 3 * n_tri_rows;
-    for (int k = threadIdx.x; k < nn; k += blockDim.x) stage[k] = __ldg(nodes_g + k);
-    for (int k = threadIdx.x; k < nt; k += blockDim.x) stage[nn + k] = __ldg(tris_g + k);
-    __syncthreads();
-    nodes = stage;
-    tris = stage + nn;
-  }
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  const Ray r = load_ray(orig, dirs, i);
-  Hit h{kTMiss, 0.0f, 0.0f, -1};
-  // a walk of a well-formed tree visits each node at most once; the cap
-  // only keeps a corrupt tree from hanging the card
-  const int max_steps = 2 * n_nodes + 2;
-  int cur = 1;
-  for (int step = 0; cur > 0 && step < max_steps; ++step) {
-    const int node = min(max(cur - 1, 0), n_nodes - 1);
-    const float4 a = ld4<kStaged>(nodes + 2 * node);
-    const float4 b = ld4<kStaged>(nodes + 2 * node + 1);
-    float tlo;
-    const bool hit = slab(r, a.x, a.y, a.z, a.w, b.x, b.y, h.t, &tlo);
-    const float desc = b.w;
-    const bool leaf = desc <= 0.0f;
-    if (hit && leaf) {
-      const int base = static_cast<int>(-desc);
-      for (int k = 0; k < leaf_size; ++k) {
-        const int row = min(max(base + k, 0), n_tri_rows - 1);
-        const float4* tr = tris + 3 * row;
-        mt_fold(r, ld4<kStaged>(tr), ld4<kStaged>(tr + 1),
-                ld4<kStaged>(tr + 2), h);
-      }
-    }
-    cur = (hit && !leaf) ? static_cast<int>(desc) : static_cast<int>(b.z);
-  }
-  store_hit(h, i, t_out, u_out, v_out, f_out);
 }
 
 // ------------------------------------------------------- per-ray walks
@@ -298,6 +223,121 @@ __device__ __forceinline__ void fold_leaf(const Ray& r,
   for (int k = 0; k < L; ++k) {
     mt_fold(r, q[3 * k], q[3 * k + 1], q[3 * k + 2], h);
   }
+}
+
+// trace_union — replaces pallas_ray_trace / _kernel
+// (pallas_intersect.py:176, 240). Stackless preorder skip-pointer walk over
+// nodes (N, 8) and tris (P, 12): descend to desc on a slab hit, otherwise
+// jump to skip; a hit leaf (desc <= 0) tests leaf_size rows from -desc.
+// The TPU's tile-union walk visits a superset of this ray's nodes; the
+// extra visits are misses for this lane (child boxes nest in parent boxes
+// and t_best only shrinks), and triangles are met in the same preorder, so
+// the hits and their tie-breaking are the same.
+// What bounds it: the instructions a warp executes. A leaf fold (leaf_size
+// Moller-Trumbore tests) costs several node visits, and a one-step loop
+// runs it for the whole warp whenever any lane stands on a hit leaf: on
+// the flagship train step's 518,400 unsorted rays over the 398-face tree
+// (17.1 visits and 8.6 triangle tests a ray, lane_busy 0.61) that is
+// nearly every step, for a few lanes at a time.
+// Design:
+//  - The while-while walk (Aila and Laine), as their nested loop: a lane
+//    steps through nodes until it finds a hit leaf (its cursor already on
+//    the skip pointer) or its walk ends; then the lanes holding a leaf
+//    fold it together, once every walking lane holds one. Each lane's own
+//    visits and folds keep the one-step walk's order, so the hits are the
+//    same bits; lanes past the last ray walk nothing.
+//  - Leaves unrolled by leaf size (L = 1-10, fold_leaf<L>, loads first);
+//    L = 0 takes any leaf_size by 4 triangles, then by 1.
+//  - 128-thread blocks; the tree is read through the L1 (__ldg) and staged
+//    nowhere: the flagship's 39 KB tree stays in the L1, a bigger one in
+//    the L2.
+//  - A step cap (2 * n_nodes + 2 visits) keeps a corrupt tree from hanging
+//    the card; the cursor and the leaf's rows are clamped into the arrays.
+// Timed on those rays and on the 102K train step's 518,400 sorted rays
+// over the 102,014-face preorder tree, which kernel_for sends to
+// trace_paired_streamed, not here (H100, ms, medians of 20; each design
+// bit-equal to the plain version; PERF.md's Findings have every row):
+// this kernel 0.0987; 0.0980 and 1.5329; 1.5382 against the previous
+// one's 0.1226; 0.1224 and 1.7748; 1.7558 (chip_smoke.py, change, parent,
+// parent, change; the previous kernel staged trees of up to 48 KB in
+// shared memory in every 256-thread block and folded in a one-step loop);
+// on a Morton tree of the 102K scene, the big tree that does come here,
+// 102.80 against 127.24. Built beside it and dropped, each against the
+// previous kernel in its own call:
+//  - the tree through the L1 instead of staged, one-step loop: 0.1208 (256
+//    threads; staging cost 1%), 0.1185 (128);
+//  - leaves unrolled, one-step loop: 0.1066 and 1.2489;
+//  - both successors loaded while the node is tested (trace_streamed's
+//    load): 0.1172 and 1.2034 (more L1 traffic and registers than the
+//    latency it hides is worth on a tree in the L1);
+//  - a vote loop, where the lanes holding a leaf fold once fold_k x (lanes
+//    holding) >= (lanes walking) and the others step on: fold_k 1, 2, 4
+//    and 8 took 0.1263, 0.1105, 0.1179 and 0.1289 on the flagship rays,
+//    1.7426, 1.0321, 1.0122 and 1.0890 on the sorted 102K rays, and (2
+//    and 4) 84.44 and 101.80 on the Morton tree. It wins only on sorted
+//    rays, whose neighbouring lanes reach their leaves together, and no
+//    path sends sorted rays here today;
+//  - staging once per resident block in a persistent grid: 0.1208 at best;
+//  - 64 or 256 threads, the leaf's rows loaded when a lane finds it,
+//    launch bounds that trade registers for resident blocks: level or
+//    slower.
+template <int L>
+__device__ __forceinline__ void fold_rows(const Ray& r,
+                                          const float4* __restrict__ lf,
+                                          int leaf_size, Hit& h) {
+  if constexpr (L > 0) {
+    fold_leaf<L>(r, lf, h);
+  } else {
+    int k = 0;
+    for (; k + 4 <= leaf_size; k += 4) fold_leaf<4>(r, lf + 3 * k, h);
+    for (; k < leaf_size; ++k) fold_leaf<1>(r, lf + 3 * k, h);
+  }
+}
+
+template <int L>
+__global__ void __launch_bounds__(kWalkThreads) trace_union_kernel(
+    const float4* __restrict__ nodes, int n_nodes,
+    const float4* __restrict__ tris, int n_tri_rows, int leaf_size,
+    const float* __restrict__ orig, const float* __restrict__ dirs,
+    int n_rays, float* __restrict__ t_out, float* __restrict__ u_out,
+    float* __restrict__ v_out, int* __restrict__ f_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i - static_cast<int>(threadIdx.x & 31) >= n_rays) return;  // warp
+  const bool live = i < n_rays;
+  const Ray r = load_ray(orig, dirs, live ? i : n_rays - 1);
+  Hit h{kTMiss, 0.0f, 0.0f, -1};
+  const int rows = L > 0 ? L : leaf_size;  // triangle rows of a leaf
+  float4 a = __ldg(nodes);                 // the node under the cursor
+  float4 b = __ldg(nodes + 1);
+  int cur = 1;
+  bool done = !live;
+  bool holding = false;  // a hit leaf not folded yet, from triangle row `row`
+  int row = 0;
+  // a walk of a well-formed tree visits each node at most once
+  int steps_left = 2 * n_nodes + 2;
+  while (__any_sync(kFullMask, !done)) {
+    // nodes until this lane holds a hit leaf, or its walk ends
+    while (!done && !holding) {
+      float tlo;
+      const bool hit = slab(r, a.x, a.y, a.z, a.w, b.x, b.y, h.t, &tlo);
+      const float desc = b.w;
+      const bool leaf = desc <= 0.0f;
+      holding = hit && leaf;
+      row = min(max(static_cast<int>(-desc), 0), n_tri_rows - rows);
+      cur = (hit && !leaf) ? static_cast<int>(desc) : static_cast<int>(b.z);
+      const int node = min(max(cur - 1, 0), n_nodes - 1);
+      a = __ldg(nodes + 2 * node);
+      b = __ldg(nodes + 2 * node + 1);
+      --steps_left;
+      if (!holding) done = cur <= 0 || steps_left <= 0;
+    }
+    if (holding) {
+      fold_rows<L>(r, tris + 3 * static_cast<size_t>(row), leaf_size, h);
+      holding = false;
+      done = cur <= 0 || steps_left <= 0;
+    }
+  }
+  if (live) store_hit(h, i, t_out, u_out, v_out, f_out);
 }
 
 // trace_paired — replaces pallas_ray_trace_paired / _kernel_paired
@@ -910,9 +950,9 @@ __global__ void __launch_bounds__(kPacketWarps * 32)
 //    waste the copy and wait as before.
 //  - Loading only the left child ahead (the skip target when taken): 8-12%
 //    slower than loading both.
-// The per-ray walk of the same tree (trace_union's unstaged path, a packet
-// of 1) takes 1.8-1.9 ms on the same rays and beats every width here:
-// chip_smoke.py times it beside this kernel.
+// The per-ray walk of the same tree (trace_union, a packet of 1) took
+// 1.8-1.9 ms on the same rays before its own redesign (0.95 ms after) and
+// beats every width here: chip_smoke.py times it beside this kernel.
 template <int W>
 __global__ void __launch_bounds__(kPacketWarps * 32) trace_streamed_kernel(
     const float4* __restrict__ nodes, int n_nodes,
@@ -981,8 +1021,6 @@ __global__ void __launch_bounds__(kPacketWarps * 32) trace_streamed_kernel(
   }
   if (live) store_hit(h, i, t_out, u_out, v_out, f_out);
 }
-
-inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 // --------------------------------------------------- packet walk launches
 
@@ -1113,6 +1151,29 @@ inline WalkKernel dense_kernel_of(int leaf_size) {
   }
 }
 
+using UnionKernel = void (*)(const float4*, int, const float4*, int, int,
+                             const float*, const float*, int, float*, float*,
+                             float*, int*);
+
+// The union walk's instantiations: leaves of 1-10 triangles unrolled, any
+// other leaf size by the runtime-size fold (L = 0); nullptr for a leaf
+// size below 1.
+inline UnionKernel union_kernel_of(int leaf_size) {
+  switch (leaf_size) {
+    case 1: return trace_union_kernel<1>;
+    case 2: return trace_union_kernel<2>;
+    case 3: return trace_union_kernel<3>;
+    case 4: return trace_union_kernel<4>;
+    case 5: return trace_union_kernel<5>;
+    case 6: return trace_union_kernel<6>;
+    case 7: return trace_union_kernel<7>;
+    case 8: return trace_union_kernel<8>;
+    case 9: return trace_union_kernel<9>;
+    case 10: return trace_union_kernel<10>;
+    default: return leaf_size >= 1 ? trace_union_kernel<0> : nullptr;
+  }
+}
+
 // Launch of a pair walk: one ray a thread, kWalkThreads a block.
 int launch_pair_walk(WalkKernel kernel, const void* pairs, int n_pairs,
                      const void* leaves, int n_leaf_rows, int stack_depth,
@@ -1140,29 +1201,23 @@ extern "C" {
 
 int iris_paired_stack_cap() { return kStackCap; }
 
+// nodes: the (N, 8) rows; tris: the (P, 12) rows, P >= leaf_size.
 int iris_trace_union(const void* nodes, int n_nodes, const void* tris,
-                     int n_tri_rows, int leaf_size, const void* orig,
-                     const void* dirs, int n_rays, void* t_out, void* u_out,
-                     void* v_out, void* f_out, void* stream) {
+                     int n_tri_rows, int leaf_size, const void* orig, const void* dirs, int n_rays,
+                     void* t_out, void* u_out, void* v_out, void* f_out,
+                     void* stream) {
   if (n_rays <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t stage_bytes = static_cast<size_t>(n_nodes) * 32 +
-                             static_cast<size_t>(n_tri_rows) * 48;
-  const auto* n4 = static_cast<const float4*>(nodes);
-  const auto* t4 = static_cast<const float4*>(tris);
-  const auto* o = static_cast<const float*>(orig);
-  const auto* d = static_cast<const float*>(dirs);
-  auto* t = static_cast<float*>(t_out);
-  auto* u = static_cast<float*>(u_out);
-  auto* v = static_cast<float*>(v_out);
-  auto* f = static_cast<int*>(f_out);
-  if (stage_bytes <= static_cast<size_t>(kStageBytes)) {
-    trace_union_kernel<true><<<blocks_for(n_rays), kThreads, stage_bytes, s>>>(
-        n4, n_nodes, t4, n_tri_rows, leaf_size, o, d, n_rays, t, u, v, f);
-  } else {
-    trace_union_kernel<false><<<blocks_for(n_rays), kThreads, 0, s>>>(
-        n4, n_nodes, t4, n_tri_rows, leaf_size, o, d, n_rays, t, u, v, f);
+  const UnionKernel kernel = union_kernel_of(leaf_size);
+  if (kernel == nullptr || n_nodes < 1 || n_tri_rows < leaf_size) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  kernel<<<(n_rays + kWalkThreads - 1) / kWalkThreads, kWalkThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(nodes), n_nodes,
+      static_cast<const float4*>(tris), n_tri_rows, leaf_size,
+      static_cast<const float*>(orig), static_cast<const float*>(dirs), n_rays,
+      static_cast<float*>(t_out), static_cast<float*>(u_out),
+      static_cast<float*>(v_out), static_cast<int*>(f_out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1311,9 +1366,10 @@ int iris_packet_config(int kernel, int width, int leaf_size, int* out) {
 
 // What the per-ray walk a launch of this leaf size runs takes on the
 // current device: kernel 0 = trace_ordered, 1 = trace_paired, 2 =
-// trace_dense; out = {threads per block, registers per thread, local
-// memory per thread in bytes (stack and spills), static shared memory per
-// block in bytes, resident blocks per SM}. 0, or a CUDA error.
+// trace_dense, 3 = trace_union; out = {threads per block, registers per
+// thread, local memory per thread in bytes (stack and spills), static
+// shared memory per block in bytes, resident blocks per SM}. 0, or a CUDA
+// error.
 int iris_walk_config(int kernel, int leaf_size, int* out) {
   const void* fn = nullptr;
   if (kernel == 0 && leaf_size >= 1) {
@@ -1322,6 +1378,8 @@ int iris_walk_config(int kernel, int leaf_size, int* out) {
     fn = reinterpret_cast<const void*>(paired_kernel_of(leaf_size));
   } else if (kernel == 2) {
     fn = reinterpret_cast<const void*>(dense_kernel_of(leaf_size));
+  } else if (kernel == 3) {
+    fn = reinterpret_cast<const void*>(union_kernel_of(leaf_size));
   }
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes attr;

@@ -236,8 +236,10 @@ def packet_config(name: str, leaf_size: int,
     return dict(zip(keys, out))
 
 
-_WALK_KERNELS = ("trace_ordered", "trace_paired", "trace_dense")
-# the pair walk's instantiated leaf sizes (paired_kernel_of, dense_kernel_of)
+_WALK_KERNELS = ("trace_ordered", "trace_paired", "trace_dense",
+                 "trace_union")
+# the pair walk's instantiated leaf sizes (paired_kernel_of, dense_kernel_of);
+# trace_ordered and trace_union take any
 _WALK_LEAVES = {"trace_paired": range(1, 11), "trace_dense": range(1, 6)}
 
 
@@ -556,7 +558,9 @@ def trace_union_plain(tracer: Tracer, origins: torch.Tensor,
     walk, vectorized over the rays still walking (a cursor per ray).
 
     counts, when given, receives this run's work: "slab" tests (one per
-    node visit) and "mt" triangle tests."""
+    node visit) and "mt" triangle tests, and the nodes visited with what
+    they make of a warp's steps: "pops", "warp_steps", "lane_busy"
+    (warp_counts)."""
     nodes, tris = tracer.nodes, tracer.tris
     n, p, L = tracer.n_nodes, tris.shape[0], tracer.leaf_size
     o, d = origins, dirs
@@ -564,10 +568,12 @@ def trace_union_plain(tracer: Tracer, origins: torch.Tensor,
     best = _new_best(o.shape[0], o.device)
     cur = torch.ones(o.shape[0], dtype=torch.int64, device=o.device)
     alive = torch.arange(o.shape[0], device=o.device)
+    pops = torch.zeros(o.shape[0], dtype=torch.int64, device=o.device)
     n_slab = n_mt = 0
     for _ in range(2 * n + 2):      # a well-formed walk visits <= n nodes
         if alive.numel() == 0:
             break
+        pops[alive] += 1
         nd = nodes[torch.clamp(cur[alive] - 1, 0, n - 1)]
         hit, _ = _slab(o[alive], inv[alive], nd[:, 0:6], best[0][alive])
         desc = nd[:, 7]
@@ -587,7 +593,7 @@ def trace_union_plain(tracer: Tracer, origins: torch.Tensor,
     if alive.numel():
         raise RuntimeError("BVH walk did not terminate: corrupt tree")
     if counts is not None:
-        counts.update(slab=n_slab, mt=n_mt)
+        counts.update(slab=n_slab, mt=n_mt, **warp_counts(pops))
     return best
 
 
@@ -1115,7 +1121,8 @@ def _launch(wrapper, arrays: dict, head: tuple, origins, dirs, hint="",
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}"
                            + (f" ({hint})" if hint and rc == 1 else ""))
-    wrapper.launches += 1
+    if b:   # the C entries launch nothing for zero rays
+        wrapper.launches += 1
     return t, u, v, face
 
 
@@ -1145,7 +1152,7 @@ def _need_preorder(name: str, tracer: Tracer) -> None:
 
 def trace_union(tracer: Tracer, origins: torch.Tensor, dirs: torch.Tensor):
     """Closest hits by the stackless skip-pointer walk (replaces
-    pallas_ray_trace, pallas_intersect.py:240). Any layout.
+    pallas_ray_trace, pallas_intersect.py:240). Any layout, any leaf size.
     Returns (t, u, v, face) per ray."""
     if origins.device.type == "cpu":
         return trace_union_plain(tracer, origins, dirs)

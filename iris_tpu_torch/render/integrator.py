@@ -180,16 +180,21 @@ def path_tracing_single(gen, tracer: Tracer, em: Emitter, mat_fn: MatFn,
 
 @torch.no_grad()
 def trace_indirect(gen, tracer: Tracer, em: Emitter, mat_fn: MatFn,
-                   position, wo, normal, active, indir_depth: int,
+                   position, wo, normal, mat, active, indir_depth: int,
                    samples: dict | None = None):
     """No-grad multi-bounce indirect tail (reference :409-502), a Python
     loop over depth with masked fixed-size state; the radiance cache
     (trace_roughness 0.6) ends lanes as in the reference.
 
+    `mat` is the material at the start vertices, mat_fn(position), which
+    the caller has already evaluated. The JAX package evaluates it again
+    here (iris_tpu/render/integrator.py:227); the two agree bit for bit
+    where mat_fn makes no draws, which holds for every render (the exact
+    encode). A stochastic mat_fn would have drawn afresh there.
+
     `samples`: per-depth stacked draws 's1' (D, n), 's2' (D, n, 2), 's1b',
     's2b'."""
     n = position.shape[0]
-    mat = mat_fn(position)
     throughput = torch.ones((n, 3), device=position.device)
     l = torch.zeros((n, 3), device=position.device)
     for depth in range(indir_depth):
@@ -218,14 +223,17 @@ def path_tracing(gen, tracer: Tracer, em: Emitter, mat_fn: MatFn,
     b = rays_o.shape[0]
     position, normal, wo, mat, l, active = _first_hit(
         gen, tracer, em, mat_fn, rays_o, rays_d, dx_du, dy_dv, spp, samples)
-    (nee, bounce, pos_n, nrm_n, wo_n, _, active_n,
+    (nee, bounce, pos_n, nrm_n, wo_n, mat_n, active_n,
      brdf_w) = _nee_and_bounce(
         gen, tracer, em, mat_fn, position, wo, normal, mat, active,
         1e-6, 0.0, trace_roughness=None, samples=samples)
     l = l + nee + bounce
+    # the first bounce's material, evaluated once: trace_indirect starts
+    # from those vertices
     l_indir = trace_indirect(gen, tracer, em, mat_fn, pos_n.detach(),
-                             wo_n.detach(), nrm_n.detach(), active_n,
-                             indir_depth,
+                             wo_n.detach(), nrm_n.detach(),
+                             {k: v.detach() for k, v in mat_n.items()},
+                             active_n, indir_depth,
                              samples=None if samples is None
                              else samples["indirect"])
     l = l + torch.where(active_n[:, None], brdf_w * l_indir, 0.0)

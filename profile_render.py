@@ -43,6 +43,22 @@ def device_time_us(evt) -> float:
     return 0.0
 
 
+def device_kernels(prof):
+    """The card's kernels in a torch.profiler run, summed by name. Kernel
+    events only: CPU ops also carry their kernels' device time, and a
+    record_function range (Optimizer.step#Adam.step) shows up on the
+    device timeline spanning kernels that are counted themselves. Raises
+    when the profiler recorded none."""
+    kernels = [e for e in prof.key_averages()
+               if device_time_us(e) > 0
+               and str(getattr(e, "device_type", "")).endswith("CUDA")
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith(("Optimizer.", "ProfilerStep"))]
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device kernels")
+    return kernels
+
+
 def policies():
     from iris_tpu_torch.geometry.intersect import TraversalPolicy
 
@@ -131,16 +147,7 @@ def profile_cell(label, path, n_clutter, seed, out, grid, policy):
     prof.export_chrome_trace(out.replace(
         ".json", f"_{path}_{label.replace(' ', '_')}.json"))
 
-    # kernel events only: CPU ops also carry their kernels' device time,
-    # and a record_function range (Optimizer.step#Adam.step) shows up on
-    # the device timeline spanning kernels that are counted themselves
-    kernels = [e for e in prof.key_averages()
-               if device_time_us(e) > 0
-               and str(getattr(e, "device_type", "")).endswith("CUDA")
-               and not getattr(e, "is_user_annotation", False)
-               and not e.key.startswith(("Optimizer.", "ProfilerStep"))]
-    if not kernels:
-        raise RuntimeError("the profiler recorded no device kernels")
+    kernels = device_kernels(prof)
     busy_ms = sum(device_time_us(e) for e in kernels) / 1e3
     n_kernels = sum(e.count for e in kernels)
     trav_ms = sum(device_time_us(e) for e in kernels

@@ -47,6 +47,80 @@ def test_kernels_match_plain(card, n_clutter, method):
             assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("leaf_size", [1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 16])
+def test_union_matches_plain_at_every_leaf_size(card, leaf_size):
+    """trace_union at every unrolled leaf size (1-10) and past them (16,
+    the runtime-size fold), on the flagship scene's tree (398 faces, under
+    48 KB: the size the previous kernel staged in shared memory), on a
+    6,014-face preorder tree and on its Morton tree (past 48 KB); 2,600
+    rays, not a multiple of the block, bit for bit."""
+    o1, d1 = random_rays(1000, seed=11)
+    o2, d2, *_ = camera_rays(40)
+    o = torch.from_numpy(np.concatenate([o1, o2])).to(card)
+    d = torch.from_numpy(np.concatenate([d1, d2])).to(card)
+    for n_clutter, method in ((32, "sah"), (500, "sah"), (500, "morton")):
+        mesh, _ = make_box_scene(n_clutter=n_clutter, seed=4)
+        tracer = build_bvh(mesh.triangles(), leaf_size=leaf_size,
+                           method=method, device=card)
+        tree = tracer.n_nodes * 32 + tracer.tris.shape[0] * 48
+        assert (tree <= 48 * 1024) == (n_clutter == 32)
+        before = ci.trace_union.launches
+        got = ci.trace_union(tracer, o, d)
+        torch.cuda.synchronize()
+        assert ci.trace_union.launches == before + 1
+        want = ci.trace_union_plain(tracer, o, d)
+        assert int((want[3] >= 0).sum()) > 500
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (n_clutter, method, leaf_size)
+
+
+@pytest.mark.parametrize("n_rays", [1, 31, 33, 128, 129, 4097])
+def test_union_ragged_ray_counts(card, n_rays):
+    """Ray counts that leave a warp or a block part-filled: the lanes past
+    the last ray walk nothing and write nothing."""
+    mesh, _ = make_box_scene(n_clutter=32, seed=4)
+    tracer = build_bvh(mesh.triangles(), device=card)
+    o, d = random_rays(n_rays, seed=12)
+    o, d = torch.from_numpy(o).to(card), torch.from_numpy(d).to(card)
+    got = ci.trace_union(tracer, o, d)
+    torch.cuda.synchronize()
+    for g, w in zip(got, ci.trace_union_plain(tracer, o, d)):
+        assert g.shape == (n_rays,) and torch.equal(g, w)
+
+
+def test_union_of_no_rays(card):
+    """Zero rays: four empty outputs, nothing launched or counted."""
+    mesh, _ = make_box_scene(n_clutter=32, seed=4)
+    tracer = build_bvh(mesh.triangles(), device=card)
+    empty = torch.zeros((0, 3), device=card)
+    before = ci.trace_union.launches
+    got = ci.trace_union(tracer, empty, empty)
+    torch.cuda.synchronize()
+    assert [g.shape for g in got] == [(0,)] * 4
+    assert got[3].dtype == torch.int32
+    assert ci.trace_union.launches == before
+
+
+def test_union_refuses_what_it_does_not_take(card):
+    """The C entry refuses a leaf size below 1, fewer triangle rows than a
+    leaf and an empty tree, before any launch."""
+    mesh, _ = make_box_scene(n_clutter=12, seed=4)
+    tracer = build_bvh(mesh.triangles(), device=card)
+    o = torch.zeros((8, 3), device=card)
+    d = torch.ones((8, 3), device=card)
+    hits = ci._outputs(8, card)
+    lib = ci.get_lib()
+    n, p = tracer.n_nodes, tracer.tris.shape[0]
+    for n_nodes, rows, leaf in ((n, p, 0), (n, 3, 4), (0, p, 4)):
+        rc = lib.iris_trace_union(
+            tracer.nodes.data_ptr(), n_nodes, tracer.tris.data_ptr(), rows,
+            leaf, o.data_ptr(), d.data_ptr(), 8,
+            *(h.data_ptr() for h in hits),
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == 1                     # cudaErrorInvalidValue
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("n_clutter,leaf_size,n_rays", [
     (12, 4, 2048), (500, 4, 2048), (500, 4, 1000), (500, 10, 777)])
 def test_paired_streamed_matches_plain(card, n_clutter, leaf_size, n_rays):
@@ -274,18 +348,23 @@ def test_shipped_packet_widths(card):
 
 def test_walk_config_of_the_per_ray_walks(card):
     """Every instantiation of the per-ray walks reports 128-thread blocks,
-    no shared memory, a local stack of at least kStackCap entries, and
-    keeps at least 2 blocks resident on an SM."""
+    no shared memory, and keeps at least 2 blocks resident on an SM; the
+    three stack walks a local stack of at least kStackCap entries, the
+    stackless union walk no stack."""
     cap = ci.get_lib().iris_paired_stack_cap()
     for name, leaves in (("trace_ordered", (4, 16, 32)),
                          ("trace_paired", range(1, 11)),
-                         ("trace_dense", range(1, 6))):
+                         ("trace_dense", range(1, 6)),
+                         ("trace_union", range(1, 17))):
         for leaf_size in leaves:
             cfg = ci.walk_config(name, leaf_size)
             assert cfg["threads_per_block"] == 128, (name, leaf_size)
             assert cfg["registers"] > 0 and cfg["blocks_per_sm"] >= 2
             assert cfg["smem_bytes_per_block"] == 0
-            assert cfg["local_bytes_per_thread"] >= 4 * cap
+            if name == "trace_union":
+                assert cfg["local_bytes_per_thread"] < 4 * cap
+            else:
+                assert cfg["local_bytes_per_thread"] >= 4 * cap
 
 
 def test_windows_past_the_shared_memory_limit_raise(card):

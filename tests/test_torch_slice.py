@@ -14,6 +14,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from iris_tpu.demo import demo_mat_fn as jax_mat_fn
 from iris_tpu.demo import make_demo_scene as jax_demo_scene
@@ -94,6 +95,72 @@ def test_path_tracing(scene):
                             DEPTH, samples=_map(tt, s))
     assert np.abs(np.asarray(ref)).max() > 0
     _close(out.detach(), ref)
+
+
+def _counting(mat_fn):
+    """mat_fn, and a list that gets one entry per call of it."""
+    calls = []
+
+    def counted(x):
+        calls.append(x.shape[0])
+        return mat_fn(x)
+
+    return counted, calls
+
+
+def _path_tracing_second_eval(gen, tracer, em, mat_fn, rays_o, rays_d,
+                              dx_du, dy_dv, spp, depth, samples=None):
+    """path_tracing as the JAX package writes it: trace_indirect's start
+    material evaluated again at the first bounce's hit points."""
+    b = rays_o.shape[0]
+    position, normal, wo, mat, l, active = tint._first_hit(
+        gen, tracer, em, mat_fn, rays_o, rays_d, dx_du, dy_dv, spp, samples)
+    nee, bounce, pos_n, nrm_n, wo_n, _, active_n, brdf_w = \
+        tint._nee_and_bounce(gen, tracer, em, mat_fn, position, wo, normal,
+                             mat, active, 1e-6, 0.0, trace_roughness=None,
+                             samples=samples)
+    l = l + nee + bounce
+    with torch.no_grad():
+        mat_again = mat_fn(pos_n)
+    l_indir = tint.trace_indirect(
+        gen, tracer, em, mat_fn, pos_n, wo_n, nrm_n, mat_again, active_n,
+        depth, samples=None if samples is None else samples["indirect"])
+    l = l + torch.where(active_n[:, None], brdf_w * l_indir, 0.0)
+    return l.reshape(b, spp, 3).mean(1)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_path_tracing_evaluates_the_first_bounce_material_once(scene,
+                                                               depth):
+    """One material evaluation at the camera hits, one per bounce: D + 2
+    in all (the JAX package's trace_indirect makes a D + 3rd at the first
+    bounce's hit points, which the port takes from _nee_and_bounce)."""
+    _, (pt, pe, pm), rays = scene
+    counted, calls = _counting(pm)
+    s = _samples(3, rays.shape[0], SPP, depth)
+    tint.path_tracing(None, pt, pe, counted, *map(tt, _ray_args(rays)), SPP,
+                      depth, samples=_map(tt, s))
+    n = rays.shape[0] * SPP
+    assert calls == [n, n] + [n] * depth
+
+
+@pytest.mark.parametrize("draws", ["samples", "generator"])
+def test_path_tracing_equals_the_second_evaluation(scene, draws):
+    """The render's material makes no draws, so the material passed to
+    trace_indirect is the second evaluation's, bit for bit: the image is
+    the same bits, under replayed draws and under a generator."""
+    _, (pt, pe, pm), rays = scene
+    args = (pt, pe, pm, *map(tt, _ray_args(rays)), SPP, DEPTH)
+    if draws == "samples":
+        s = _map(tt, _samples(4, rays.shape[0], SPP, DEPTH))
+        got = tint.path_tracing(None, *args, samples=s)
+        want = _path_tracing_second_eval(None, *args, samples=s)
+    else:
+        got = tint.path_tracing(torch.Generator().manual_seed(9), *args)
+        want = _path_tracing_second_eval(torch.Generator().manual_seed(9),
+                                         *args)
+    assert float(want.abs().max()) > 0
+    assert torch.equal(got, want)
 
 
 def test_path_tracing_single_forward(scene):

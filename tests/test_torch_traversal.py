@@ -78,6 +78,27 @@ def test_union_plain_matches_pallas(scene12, method, kind):
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("method", ["sah", "morton"])
+@pytest.mark.parametrize("leaf_size", [1, 10, 16])
+def test_union_plain_matches_pallas_at_leaf_sizes(scene12, method,
+                                                  leaf_size):
+    """The union walk's leaf fold at one triangle a leaf, at the widest
+    leaf the unrolled kernels take (10) and past it (16, a tree under 5K
+    faces built so goes to trace_union), on a preorder and a heap tree:
+    the same hits as the Pallas kernel to the last bit."""
+    jt = jax_build_bvh(scene12, method=method, leaf_size=leaf_size)
+    assert jt.leaf_size == leaf_size
+    o, d = _rays("random", seed=7)
+    jr = pallas_ray_trace(jt, jnp.asarray(o), jnp.asarray(d), tile=128,
+                          interpret=True)
+    t, u, v, f = ci.trace_union_plain(port_tracer(jt), tt(o), tt(d))
+    assert_hits_agree(np.asarray(jr[0]), np.asarray(jr[3]), t, f)
+    ok = np.asarray(jr[4])
+    assert ok.sum() > 0
+    np.testing.assert_array_equal(f.numpy(), np.asarray(jr[3]))
+    np.testing.assert_array_equal(t.numpy()[ok], np.asarray(jr[0])[ok])
+
+
 @pytest.mark.parametrize("kind", ["random", "camera"])
 def test_paired_plain_matches_pallas(scene12, kind):
     jt = jax_build_bvh(scene12)

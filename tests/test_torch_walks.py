@@ -13,7 +13,8 @@ import torch
 
 from iris_tpu_torch.geometry import cuda_intersect as ci
 from iris_tpu_torch.geometry.bvh import Tracer, build_bvh
-from iris_tpu_torch.geometry.procedural import make_box_scene, random_rays
+from iris_tpu_torch.geometry.procedural import (
+    camera_rays, make_box_scene, random_rays)
 from test_torch_packets import _hand_rays, _hand_tree
 from torch_parity import tt
 
@@ -69,12 +70,16 @@ def chain_rays(depth: int, n: int, seed: int = 0):
 
 @pytest.mark.parametrize("walk,pops", [
     ("trace_paired_plain", [2, 2, 2, 1]), ("trace_dense_plain", [2, 2, 2, 1]),
-    ("trace_ordered_plain", [3, 3, 3, 1])])
+    ("trace_ordered_plain", [3, 3, 3, 1]),
+    ("trace_union_plain", [5, 5, 5, 1])])
 def test_pop_counts_on_a_tree_walked_by_hand(walk, pops):
     """The pair walks pop the root's record, then L's (rays onto A) or R's
     (the ray onto D); the ray past the tree pops the root's alone. The
     ordered walk pops root, L, A (or root, R, D), and the root alone for
-    the ray that misses it. 32 copies of one ray keep every lane busy; 33
+    the ray that misses it. The union walk visits root, L, A, then B and
+    R by skip pointers (rays onto A), or root, L (missed), R, C (missed),
+    D (the ray onto D): five visits; the root alone for the ray past the
+    tree. 32 copies of one ray keep every lane busy; 33
     rays make a ragged second warp that steps as long as the first."""
     tracer = _hand_tree()
     o, d = _hand_rays()
@@ -91,6 +96,25 @@ def test_pop_counts_on_a_tree_walked_by_hand(walk, pops):
         assert c["pops"] == n * pops[0]
         assert c["warp_steps"] == steps * pops[0]
         assert c["lane_busy"] == n / (32 * steps)
+
+
+@pytest.mark.parametrize("method", ["sah", "morton"])
+@pytest.mark.parametrize("kind", ["random", "camera"])
+def test_union_pops_are_its_slab_tests(method, kind):
+    """trace_union_plain visits one node per slab test: on the flagship
+    tree (398 faces), preorder and heap, its per-ray visits sum to its
+    slab count, and a warp steps as long as its longest walk."""
+    mesh, _ = make_box_scene(n_clutter=32, seed=0)
+    tracer = build_bvh(mesh.triangles(), method=method, device="cpu")
+    assert tracer.n_faces == 398
+    o, d = (random_rays(1000, seed=6) if kind == "random"
+            else camera_rays(24)[:2])
+    c = {}
+    ci.trace_union_plain(tracer, tt(o), tt(d), counts=c)
+    assert c["pops"] == c["slab"] > 0
+    assert c["pops"] / o.shape[0] > 1
+    assert c["warp_steps"] * 32 >= c["pops"]
+    assert 0 < c["lane_busy"] <= 1
 
 
 def test_warp_counts_of_ragged_runs():
@@ -204,11 +228,21 @@ def test_walk_config_names_the_instantiated_leaf_sizes():
         assert all(c == t for c, t in cases)
         assert [int(c) for c, _ in cases] == list(ci._WALK_LEAVES[name])
     assert "trace_ordered" not in ci._WALK_LEAVES
+    # the union walk: leaves of 1-10 triangles unrolled, any other leaf
+    # size by the runtime-size instantiation
+    body = src[src.index("inline UnionKernel union_kernel_of("):]
+    body = body[:body.index("\n}")]
+    cases = re.findall(r"case (\d+): return trace_union_kernel<(\d+)>", body)
+    assert all(c == t for c, t in cases)
+    assert [int(c) for c, _ in cases] == list(range(1, 11))
+    assert "leaf_size >= 1 ? trace_union_kernel<0> : nullptr" in body
+    assert "trace_union" not in ci._WALK_LEAVES
 
 
 @pytest.mark.parametrize("name, leaf_size", [
     ("trace_dense", 6), ("trace_paired", 11), ("trace_paired", 0),
-    ("trace_ordered", 0), ("trace_union", 4)])
+    ("trace_ordered", 0), ("trace_union", 0), ("trace_union", -4),
+    ("trace_streamed", 4)])
 def test_walk_config_refuses_what_has_no_kernel(name, leaf_size):
     """Refused on the host, before the library is built or a card asked."""
     with pytest.raises(ValueError):
