@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--rounds 2]
     python3 chip_smoke.py --sweep-only [--counts]
+    python3 chip_smoke.py --stages-only
 
 Needs one NVIDIA card (sm_90a: H100/H200), nvcc and g++. It builds the
 traversal kernels from iris_tpu_torch/csrc/traverse.cu and the SAH builder
@@ -61,7 +62,33 @@ from csrc/bvh_builder.cpp, then:
    compared. The same on the flagship scene with the unpacked (flat
    float32) table through trace_union; and a small render and train step
    of both table modes on the card against the CPU;
-10. times the five big-tree kernels, and trace_union's per-ray walk of
+10. runs the shading-cache stages of the pipeline on two datasets that
+   the port's generator (data/make_demo_dataset.py) writes at 240 x 320
+   pixels, 2 train and 1 val frames (cuts of a capture's frame size and
+   count), spp 48, depth 2: the flagship scene (398 faces, trace_union,
+   the generator's fixed cameras) and the 102,014-face scene
+   (trace_paired_streamed; its cameras from the generator's orbit search,
+   since its 8,500 boxes enclose the fixed ones). Every frame must see
+   lit surfaces and a train frame the light. On each, through
+   each CLI's main(argv) on the card: slf_bake at 256^3 (run twice: the
+   same bits), extract_emitter at threshold 0.99 (its per-face mean taken
+   twice: the same bits; on the flagship the light's two faces found, 8
+   faces at most) and its update mode with the light's radiance,
+   bake_shading and refine_shading on one frame at the reference's spp
+   (256 diffuse, 64 and 128 x 5 specular; 128 / 64 at depth 5 with the
+   production 4 x 16 x 2^19 row-mode material from --seed, exact
+   encode) and chunk budgets. Per stage it prints wall seconds, rays
+   traced and rays per second, launches by kernel, peak device memory
+   and, for the two bakes, ms per chunk and the largest trace; every EXR
+   written must read back finite and >= 0 under the expected names, each
+   bake's diffuse map must be nonzero, and only the dataset's kernel may
+   launch. The largest trace of each bake (655,360 secondary rays of
+   bake_shading, 2,621,440 of refine_shading's fused trace) is kept as the
+   kernel received it, for phase 12. On the flagship, path_tracing_det_diff and
+   path_tracing_det_spec on 1,024 first hits run on the card and on the
+   CPU under the same samples (ConstantBRDF within 1e-5, the NGP material
+   on 95% of values within rtol 2e-3 / atol 1e-4);
+11. times the five big-tree kernels, and trace_union's per-ray walk of
    the same tree, on the same 518,400 rays of the 102,014-face train step,
    in turns there and back, and compares their hits pairwise; then times
    every instantiated packet width of the three packet walks on those
@@ -72,22 +99,32 @@ from csrc/bvh_builder.cpp, then:
    on the 518,400 rays, and the registers, local memory (stack and
    spills), shared memory and resident blocks per SM of the instantiation
    each path launched, as the CUDA runtime reports them;
-11. prints one JSON line {"kernels": [...]} with each kernel's launches on
-   the main paths, its error against the plain version, its time, the
-   plain version's time (one run) and its roofline bound, measured on the
-   largest input a main path gave the kernel (the five big-tree kernels on
-   the same rays; the bound of the packet walks counts the per-ray walk's
-   tests); the rows of the four per-ray walks add this run's pops,
-   warp_steps and lane_busy, and those four numbers of the path's
+12. holds trace_union and trace_paired_streamed on the stages' traffic:
+   each bake's largest trace on each dataset, bit-equal to the plain
+   version on every ray (trace_paired_streamed's on the first 131,072 of
+   each batch), timed and bounded; then prints one JSON line
+   {"kernels": [...]} with each kernel's launches on the main paths, its
+   error against the plain version on every input compared, its time,
+   the plain version's time (one run) and its roofline bound, measured on
+   the largest input a main path gave the kernel (for trace_union and
+   trace_paired_streamed the refine_shading trace; their train-step
+   input's numbers under "train_step_input" and each stage batch's under
+   "stage_traffic"; the other big-tree kernels on the train step's rays;
+   the bound of the packet walks counts the per-ray walk's tests); the
+   rows of the four per-ray walks add this run's pops, warp_steps and
+   lane_busy on the row's input, and those four numbers of the path's
    instantiation; trace_union's row adds its time and bound on the
    518,400 rays of the 102K train step;
-12. prints the card line again and, last, the run's JSON verdict.
+13. prints the card line again and, last, the run's JSON verdict.
 
 Any failed check raises, and the script then exits non-zero with no
 verdict line. It imports nothing of JAX or of the JAX package.
 
+--stages-only runs phases 1-2, 10 and the stage-traffic holds of 12 alone
+(about two minutes on an H100) and prints no verdict line.
+
 --sweep-only runs phases 1-2, builds the 102,014-face scene, takes the
-518,400 rays of one train step and runs the width sweep of phase 10 alone
+518,400 rays of one train step and runs the width sweep of phase 11 alone
 (about a minute); --counts adds the plain versions' counters (visits or
 pops, lane slab tests, window reloads and how many of them a forward
 prefetch serves, far pops) at every packet width on the camera check rays.
@@ -100,6 +137,7 @@ import argparse
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -147,6 +185,29 @@ WALK_RESOURCES = ("registers", "local_bytes_per_thread",
                   "smem_bytes_per_block", "blocks_per_sm")
 SPIN_CYCLES = 500_000          # ~0.3 ms of a spin kernel before a timed run
 DEVICE = "cuda"
+# the shading-cache stages (phase 10) on datasets the port's generator
+# writes: the frame size and the frame count are cuts of a real capture;
+# the reference's sample counts and chunk budgets are not cut
+STAGE_HW = (240, 320)
+STAGE_SPLITS = (2, 1)          # train and val frames
+STAGE_GEN_SPP = 48             # the generator's render
+STAGE_GEN_DEPTH = 2
+STAGE_VOXELS = 256
+# (label, clutter boxes, the kernel kernel_for must pick, orbit cameras):
+# the 102K scene's 8,500 boxes fill the room, so that its fixed cameras sit
+# inside boxes and see black; the generator's orbit search places them clear
+STAGE_DATASETS = (("flagship", FLAGSHIP_CLUTTER, "trace_union", False),
+                  ("clutter102k", CLUTTER_102K, "trace_paired_streamed",
+                   True))
+# the stage traffic each kernel is held and timed on (phases 10 and 12):
+# the largest trace of each bake; trace_paired_streamed's plain version
+# (~9 s per 518,400 rays) is held on the first rays of each batch
+STAGE_CAPTURES = ("bake_shading", "refine_shading")
+STAGE_PLAIN_RAYS = {"trace_union": None, "trace_paired_streamed": 131_072}
+STAGES = ("slf_bake", "extract_emitter", "bake_shading", "refine_shading")
+DET_CHECK_HITS = 1024
+DET_CHECK_SPP = 4
+STAGE_DIR = os.path.join("outputs", "chip_smoke_stages")
 
 
 def check(ok: bool, what: str) -> None:
@@ -337,6 +398,485 @@ def seed_slf(em, seed, dev):
     gen = torch.Generator(device=dev).manual_seed(seed + 17)
     rad = torch.rand(em.slf.radiance.shape, generator=gen, device=dev)
     em.slf.radiance = 0.05 + 0.45 * rad
+
+
+class count_traced_rays:
+    """While active, sums the rays that geometry.intersect.ray_trace is
+    given (every traversal of the port goes through it)."""
+
+    def __enter__(self):
+        from iris_tpu_torch.geometry import intersect
+
+        self._intersect = intersect
+        self._ray_trace = ray_trace = intersect.ray_trace
+        counted = self.counted = {"rays": 0, "calls": 0}
+
+        def counting(tr, xs, ds):
+            counted["rays"] += xs.shape[0]
+            counted["calls"] += 1
+            return ray_trace(tr, xs, ds)
+
+        intersect.ray_trace = counting
+        return counted
+
+    def __exit__(self, *exc):
+        self._intersect.ray_trace = self._ray_trace
+
+
+class time_calls:
+    """While active, times every call of module.<name> on the host clock,
+    the card synchronized before and after each call."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+
+    def __enter__(self):
+        import torch
+
+        orig = self.orig = getattr(self.module, self.name)
+        times = self.times = []
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(*a, **k)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            return out
+
+        setattr(self.module, self.name, timed)
+        return times
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def run_stage(main_fn, argv, frame_fn=None):
+    """One stage CLI's main(argv) on the card, launch counts set to 0 just
+    before and read just after: wall seconds (the CLI's own set-up, its BVH
+    build and dataset reads included), rays traced, launches by kernel,
+    peak device memory; with frame_fn = (module, name) of the stage's
+    per-frame function, also the seconds spent in it."""
+    import contextlib
+
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with count_traced_rays() as counted, (
+            time_calls(*frame_fn) if frame_fn
+            else contextlib.nullcontext([])) as frame_times:
+        t0 = time.perf_counter()
+        main_fn(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_launches()
+    st = {"wall_s": wall, "rays": counted["rays"],
+          "traces": counted["calls"], "rays_per_s": counted["rays"] / wall,
+          "launches": launches,
+          "peak_memory_mb": torch.cuda.max_memory_allocated() / 2 ** 20}
+    if frame_fn:
+        st.update(frame_s=sum(frame_times),
+                  frame_rays_per_s=counted["rays"] / sum(frame_times))
+    return st
+
+
+def frames_seen(tracer, mesh, root):
+    """What each frame of the dataset sees: the share of pixels whose
+    first hit is a surface, the share that sees the light (the last two
+    faces), the mean LDR value."""
+    import numpy as np
+    import torch
+
+    from iris_tpu_torch.data.datasets import load_dataset
+    from iris_tpu_torch.geometry.intersect import ray_intersect
+
+    dev = tracer.nodes.device
+    seen = {}
+    for split in ("train", "val"):
+        ds = load_dataset("synthetic", root, split=split, img_dir="ldr",
+                          load_gt=False)
+        for i in range(ds.n_frames):
+            fr = ds.frame(i)
+            rays = torch.from_numpy(fr["rays"]).to(dev)
+            _, _, _, tri, valid = ray_intersect(tracer, rays[:, :3],
+                                                rays[:, 3:6])
+            light = (tri >= mesh.n_faces - 2).float().mean().item()
+            seen[f"{split}/{i}"] = {
+                "hit_share": valid.float().mean().item(),
+                "light_share": light,
+                "ldr_mean": float(np.mean(fr["rgbs"]))}
+    return seen
+
+
+def check_exrs(out_dir, n_levels=6):
+    """The maps a bake wrote for frame 0: the expected file names, each
+    finite and >= 0. Returns the diffuse map's mean."""
+    import numpy as np
+
+    from iris_tpu_torch.utils.exr import read_exr
+
+    want = {"diffuse": ["000.exr"],
+            "specular": sorted(f"000_{f}_{r}.exr" for f in (0, 1)
+                               for r in range(n_levels))}
+    for sub, names in want.items():
+        got = sorted(os.listdir(os.path.join(out_dir, sub)))
+        check(got == names, f"{out_dir}/{sub}: files {got}")
+        for name in names:
+            img = read_exr(os.path.join(out_dir, sub, name))
+            check(img.shape == (*STAGE_HW, 3) and bool(
+                np.isfinite(img).all()) and float(img.min()) >= 0,
+                f"{out_dir}/{sub}/{name}: shape {img.shape}, min "
+                f"{float(np.nanmin(img))}")
+    return float(read_exr(os.path.join(out_dir, "diffuse",
+                                       "000.exr")).mean())
+
+
+def refine_material(voxel_min, voxel_max, seed, dev):
+    """The refine stage's checkpointed material: the production 4 x 16 x
+    2^19 row-mode NGP BRDF from `seed`, its coarse level drawn from
+    uniform(-1, 1) so that the material varies over the scene (the init
+    scale of 1e-4 gives a near-constant field)."""
+    import torch
+
+    from iris_tpu_torch.models.brdf import init_ngp_brdf
+    from iris_tpu_torch.models.hashgrid import HashGridConfig
+
+    levels, feats = PRODUCTION_GRID["hash_levels"], PRODUCTION_GRID[
+        "hash_features"]
+    cfg = HashGridConfig(n_levels=levels, n_features=feats,
+                         log2_table_size=LOG2_TABLE,
+                         per_level_scale=1.3 ** (31.0 / (levels - 1)),
+                         row_gather=True)
+    ngp = init_ngp_brdf(seed, voxel_min, voxel_max, cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 31)
+    rows = 1 << LOG2_TABLE
+    ngp.table[:rows] = torch.rand((rows, feats), generator=gen,
+                                  device=dev) * 2 - 1
+    return ngp
+
+
+def shading_cache_stages(label, n_clutter, kernel, orbit, dev, seed):
+    """Phase 10 on one dataset: the port's generator writes it, then the
+    four stage CLIs run on it through main(argv) on the card, each with
+    the launches, rays, wall time and peak memory it took; the hard checks
+    of the phase. Returns (stats, what the card-vs-CPU check needs, the
+    largest trace of each bake as record_largest_trace keeps it)."""
+    import numpy as np
+    import torch
+
+    from iris_tpu_torch.data.make_demo_dataset import (
+        GT_RADIANCE, make_dataset,
+    )
+    from iris_tpu_torch.geometry.intersect import kernel_for
+    from iris_tpu_torch.pipeline import (
+        bake_shading, extract_emitter, refine_shading, slf_bake,
+    )
+    from iris_tpu_torch.pipeline.common import load_scene, stage_dataset
+    from iris_tpu_torch.train.checkpoint import save_pytree
+
+    root = os.path.join(STAGE_DIR, label)
+    out = root + "_out"
+    for d in (root, out):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    make_dataset(root, img_hw=STAGE_HW, n_train=STAGE_SPLITS[0],
+                 n_val=STAGE_SPLITS[1], spp=STAGE_GEN_SPP,
+                 indir_depth=STAGE_GEN_DEPTH, n_clutter=n_clutter,
+                 seed=seed, orbit=orbit, device=dev)
+    torch.cuda.synchronize()
+    stats = {"dataset_s": time.perf_counter() - t0}
+    mesh, tracer = load_scene("synthetic", root, device=dev)
+    check(kernel_for(tracer).__name__ == kernel,
+          f"{label} dataset: kernel_for gives "
+          f"{kernel_for(tracer).__name__}, not {kernel}")
+    seen = frames_seen(tracer, mesh, root)
+    stats.update(faces=mesh.n_faces, kernel=kernel, orbit=orbit,
+                 frames_seen=seen)
+    # every frame sees lit surfaces, and a train frame sees the light
+    check(all(v["ldr_mean"] > 0 for v in seen.values())
+          and any(v["light_share"] > 0 for k, v in seen.items()
+                  if k.startswith("train")),
+          f"{label} frames see {seen}")
+    n_px = STAGE_HW[0] * STAGE_HW[1]
+    args = ["--dataset", "synthetic", "--scene", root, "--ldr_img_dir",
+            "ldr", "--device", str(dev)]
+    art = ["--slf_path", os.path.join(out, "vslf.npz"), "--emitter_path",
+           os.path.join(out, "emitter.npz")]
+
+    # stage 1 twice: the same bits
+    stats["slf_bake"] = run_stage(slf_bake.main, args + [
+        "--output", out, "--voxel_num", str(STAGE_VOXELS)])
+    slf_bake.main(args + ["--output", out + "_again", "--voxel_num",
+                          str(STAGE_VOXELS)])
+    z1 = np.load(os.path.join(out, "vslf.npz"))
+    z2 = np.load(os.path.join(out + "_again", "vslf.npz"))
+    for k in z1.files:
+        check(np.array_equal(z1[k], z2[k]), f"{label} slf_bake twice: "
+              f"{k} differs")
+    check(z1["mask"].any() and bool(np.isfinite(z1["radiance"]).all())
+          and float(z1["radiance"].max()) > 0,
+          f"{label} SLF: {int(z1['mask'].sum())} voxels, radiance max "
+          f"{float(z1['radiance'].max())}")
+    stats["slf_voxels"] = int(z1["mask"].sum())
+
+    # stage 2, and its per-face mean twice: the same bits
+    stats["extract_emitter"] = run_stage(extract_emitter.main, args + [
+        "--output", out, "--threshold", "0.99"])
+    _, dataset = stage_dataset(argparse.Namespace(
+        dataset="synthetic", scene=root, dataset_root=None,
+        ldr_img_dir="ldr", res_scale=1.0))
+    m1, m2 = (extract_emitter.face_means(tracer, mesh.n_faces, dataset)
+              for _ in range(2))
+    check(np.array_equal(m1, m2), f"{label} face means differ run to run")
+    is_em = np.load(os.path.join(out, "emitter.npz"))["is_emitter"]
+    found = np.flatnonzero(is_em).tolist()
+    stats["emitter_faces"] = found
+    if label == "flagship":
+        check(mesh.n_faces - 2 in found and mesh.n_faces - 1 in found
+              and len(found) <= 8, f"flagship emitter faces {found}")
+    # stage 4's update, with the generator's light in place of a trained
+    # radiance, so that the bakes see the light as well as the SLF
+    # (extract_emitter writes one zero row where it finds no face)
+    ckpt = os.path.join(out, "emitter_ckpt.pkl")
+    save_pytree(ckpt, {"radiance": torch.full((max(len(found), 1), 3),
+                                              GT_RADIANCE)})
+    extract_emitter.main(args + ["--output", out, "--mode", "update",
+                                 "--ckpt", ckpt])
+
+    # stage 5
+    captured = {}
+    with record_largest_trace() as captured["bake_shading"]:
+        stats["bake_shading"] = run_stage(
+            bake_shading.main, args + art + [
+                "--output", os.path.join(out, "bake"), "--max_frames", "1"],
+            (bake_shading, "_bake_maps_for_frame"))
+    plan = bake_shading.chunk_plan(n_px)
+    chunks = sum(c for _, _, c in plan)
+    stats["bake_shading"].update(
+        chunks=chunks, launches_expected=1 + chunks,
+        ms_per_chunk=stats["bake_shading"]["frame_s"] * 1e3 / chunks,
+        diffuse_mean=check_exrs(os.path.join(out, "bake")))
+
+    # stage 9-prep, on the production material from the seed
+    ngp = refine_material(float(z1["voxel_min"]), float(z1["voxel_max"]),
+                          seed, dev)
+    mat_ckpt = os.path.join(out, "material.pkl")
+    save_pytree(mat_ckpt, {"material": ngp})
+    with record_largest_trace() as captured["refine_shading"]:
+        stats["refine_shading"] = run_stage(
+            refine_shading.main, args + art + [
+                "--output", os.path.join(out, "refine"), "--max_frames",
+                "1", "--ckpt", mat_ckpt],
+            (refine_shading, "refine_frame"))
+    depth = 5
+    chunks = (-(-n_px // refine_shading.chunk_pixels(n_px, 128))
+              + 6 * -(-n_px // refine_shading.chunk_pixels(n_px, 64)))
+    stats["refine_shading"].update(
+        chunks=chunks, launches_expected=1 + chunks * (1 + depth),
+        ms_per_chunk=stats["refine_shading"]["frame_s"] * 1e3 / chunks,
+        diffuse_mean=check_exrs(os.path.join(out, "refine")))
+    for stage in STAGES:
+        check(only_launched(stats[stage]["launches"], kernel),
+              f"{label} {stage}: launches {stats[stage]['launches']}, "
+              f"only {kernel} expected")
+    for stage in STAGE_CAPTURES:
+        check(stats[stage]["diffuse_mean"] > 0,
+              f"{label} {stage}: the diffuse map is all zero")
+        stats[stage]["largest_trace_rays"] = captured[stage]["n"]
+    return stats, (mesh, tracer, out, ngp), captured
+
+
+def det_card_vs_cpu(mesh, tracer, out, ngp, seed):
+    """path_tracing_det_diff and path_tracing_det_spec on 1,024 first hits
+    of the dataset's first frame, on the card and on the CPU under the
+    same samples (spp 4, depth 5), with the stage's SLF and emitter.
+    ConstantBRDF: 1e-5 (its roughness 0.45 stays under the cache gate, so
+    no path reads the SLF, where an ulp in a direction could move a hit
+    into the next voxel); the NGP material: 95% of values within rtol
+    2e-3 / atol 1e-4 (bf16 MLP sums, ROADMAP Queue 3)."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from iris_tpu_torch.data.datasets import load_dataset
+    from iris_tpu_torch.geometry.bvh import build_bvh
+    from iris_tpu_torch.geometry.intersect import ray_intersect
+    from iris_tpu_torch.models import brdf as B
+    from iris_tpu_torch.pipeline.common import load_emitter, load_vslf
+    from iris_tpu_torch.render.integrator import (
+        path_tracing_det_diff, path_tracing_det_spec,
+    )
+
+    dev = tracer.nodes.device
+    root = out[: -len("_out")]
+    rays = load_dataset("synthetic", root, split="train", img_dir="ldr",
+                        load_gt=False).frame(0)["rays"]
+    pos, nrm, uv, tri, valid = ray_intersect(
+        tracer, torch.from_numpy(rays[:, :3]).to(dev),
+        torch.from_numpy(rays[:, 3:6]).to(dev))
+    rows = torch.nonzero(valid)[:DET_CHECK_HITS, 0]
+    hits = [x[rows].cpu() for x in (pos, nrm, uv, tri)]
+    wis = torch.nn.functional.normalize(
+        torch.from_numpy(rays[:, 3:6])[rows.cpu()], dim=-1)
+    n, depth = rows.shape[0] * DET_CHECK_SPP, 5
+    rng = np.random.default_rng(seed)
+
+    def u(*shape):
+        return torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32))
+
+    samples = {"det_s2": u(n, 2),
+               "indirect": {"s1": u(depth, n), "s2": u(depth, n, 2),
+                            "s1b": u(depth, n), "s2b": u(depth, n, 2)}}
+    const = B.ConstantBRDF(torch.tensor([0.6, 0.5, 0.4]),
+                           torch.tensor([0.45]), torch.tensor([0.1]))
+    trees = {dev.type: tracer, "cpu": build_bvh(mesh.triangles(),
+                                                device="cpu")}
+    results = {}
+    for d in (dev, torch.device("cpu")):
+        slf, _ = load_vslf(os.path.join(out, "vslf.npz"), device=d)
+        em = load_emitter(os.path.join(out, "emitter.npz"), mesh, slf=slf,
+                          device=d)
+        p, nr, uv_, tr_ = (x.to(d) for x in hits)
+        smp = move(samples, d)
+        for name, mat_fn in (
+                ("const", functools.partial(B.constant_brdf_apply,
+                                            move(const, d))),
+                ("ngp", functools.partial(B.ngp_brdf_apply, move(ngp, d)))):
+            with torch.no_grad():
+                dif = path_tracing_det_diff(
+                    None, trees[d.type], em, mat_fn, p, wis.to(d), nr, uv_,
+                    tr_, DET_CHECK_SPP, depth, samples=smp)
+                s0, s1 = path_tracing_det_spec(
+                    None, trees[d.type], em, mat_fn, 0.412, p, wis.to(d), nr,
+                    uv_, tr_, DET_CHECK_SPP, depth, samples=smp)
+            results[d.type, name] = [x.cpu().numpy() for x in (dif, s0, s1)]
+    report = {}
+    for name in ("const", "ngp"):
+        card, cpu = results[dev.type, name], results["cpu", name]
+        for kind, a, c in zip(("diff", "spec0", "spec1"), card, cpu):
+            check(bool(np.isfinite(a).all()) and float(np.abs(c).max()) > 0,
+                  f"det {name} {kind}: non-finite or all-zero")
+            if name == "const":
+                ok = np.allclose(a, c, rtol=1e-5, atol=1e-6)
+                share = float(np.isclose(a, c, rtol=1e-5, atol=1e-6).mean())
+            else:
+                share = float((np.abs(a - c) <= 1e-4 + 2e-3 * np.abs(c))
+                              .mean())
+                ok = share >= 0.95
+            check(ok, f"det {name} {kind} card vs CPU: {share:.4f} close, "
+                  f"max |diff| {float(np.abs(a - c).max()):.3e}")
+            report[f"{name}_{kind}"] = {
+                "share_close": share,
+                "max_abs_diff": float(np.abs(a - c).max())}
+    return report
+
+
+def stage_phase(dev, seed):
+    """Phase 10 on both datasets, printed; returns the stats by dataset
+    and, for each, (label, kernel name, tracer, the bakes' largest
+    traces)."""
+    print(f"stages: datasets of {STAGE_HW[0]} x {STAGE_HW[1]} pixels, "
+          f"{STAGE_SPLITS[0]} train + {STAGE_SPLITS[1]} val frames (cuts "
+          f"of the frame size and frame count), generator spp "
+          f"{STAGE_GEN_SPP} depth {STAGE_GEN_DEPTH}; slf_bake at "
+          f"{STAGE_VOXELS}^3, bake_shading and refine_shading on one frame "
+          f"at the reference's spp and chunk budgets")
+    stage_stats, traffic = {}, []
+    for label, n_clutter, kernel, orbit in STAGE_DATASETS:
+        st, ctx, captured = shading_cache_stages(label, n_clutter, kernel,
+                                                 orbit, dev, seed)
+        print(f"stages {label}: {st['faces']} faces -> {kernel}; "
+              f"{'orbit' if orbit else 'fixed'} cameras; dataset "
+              f"written in {st['dataset_s']:.1f} s; frames see "
+              + ", ".join(f"{k}: hit {v['hit_share']:.3f}, light "
+                          f"{v['light_share']:.4f}, LDR mean "
+                          f"{v['ldr_mean']:.3f}"
+                          for k, v in st["frames_seen"].items())
+              + f"; SLF {st['slf_voxels']} voxels; emitter faces "
+              f"{st['emitter_faces']}")
+        for stage in STAGES:
+            report_stage(label, stage, st[stage])
+        if label == "flagship":
+            st["det_card_vs_cpu"] = det_card_vs_cpu(*ctx, seed)
+            print("det integrators card vs CPU (flagship, 1,024 first "
+                  "hits, spp 4, depth 5): " + ", ".join(
+                      f"{k} {v['share_close']:.4f} close, max |diff| "
+                      f"{v['max_abs_diff']:.3e}"
+                      for k, v in st["det_card_vs_cpu"].items()))
+        stage_stats[label] = st
+        traffic.append((label, kernel, ctx[1], captured))
+        del ctx
+    shutil.rmtree(STAGE_DIR, ignore_errors=True)
+    return stage_stats, traffic
+
+
+def hold_stage_traffic(traffic, flush):
+    """Each stage kernel on the largest trace of each bake, as the kernel
+    received it: held against its plain version (every ray compared
+    bit-equal; trace_paired_streamed on the first STAGE_PLAIN_RAYS rays),
+    timed (median of 20, L2 flushed) and bounded from the work this batch
+    needs (for trace_union its own walk's tests; for the packet walk the
+    per-ray near-first walk's on the whole batch, as roofline says).
+    Returns {kernel name: [measurement, ...]}, printed."""
+    import torch
+
+    from iris_tpu_torch.geometry import cuda_intersect as ci
+
+    held = {}
+    for label, name, tracer, captured in traffic:
+        kernel, plain = getattr(ci, name), getattr(ci, name + "_plain")
+        paired = name != "trace_union"
+        for stage in STAGE_CAPTURES:
+            o, d = captured[stage]["o"], captured[stage]["d"]
+            n = o.shape[0]
+            n_plain = min(n, STAGE_PLAIN_RAYS[name] or n)
+            got = kernel(tracer, o, d)
+            torch.cuda.synchronize()
+            counts = {}
+            plain_ms, want = timed_once(lambda: plain(
+                tracer, o[:n_plain], d[:n_plain], counts=counts))
+            err, same = compare_hits(tuple(x[:n_plain] for x in got), want)
+            check(same == n_plain, f"{name} on {label} {stage}'s {n}-ray "
+                  f"trace: {same}/{n_plain} rays bit-equal to plain")
+            ms = time_ms(lambda: kernel(tracer, o, d), 20, flush)
+            need = counts
+            if paired:
+                need = {}
+                ci.trace_paired_plain(tracer, o, d, counts=need)
+            bound_ms, bound_by, nbytes, ops = roofline(tracer, need, n,
+                                                       paired)
+            m = {"dataset": label, "stage": stage, "rays": n, "ms": ms,
+                 "plain_ms": plain_ms, "plain_rays": n_plain,
+                 "bound_ms": bound_ms, "bound_by": bound_by,
+                 "max_abs_err": err, "bit_equal_rays": same}
+            if not paired:
+                m.update({k: counts[k] for k in WALK_COUNTS})
+            held.setdefault(name, []).append(m)
+            print(f"{name} on {label} {stage}'s largest trace ({n} rays, "
+                  f"{tracer.n_faces} faces): {ms:.4f} ms (bound "
+                  f"{bound_ms:.5f} ms by {bound_by}: {nbytes} B, {ops} FP32 "
+                  f"ops from {need['slab']} slab + {need['mt']} triangle "
+                  f"tests); plain {plain_ms:.1f} ms on {n_plain} rays, "
+                  f"bit-equal {same}/{n_plain}, max |t| error {err:.3e}")
+    return held
+
+
+def report_stage(label, stage, st):
+    launched = {k: v for k, v in st["launches"].items() if v}
+    extra = ""
+    if "chunks" in st:
+        extra = (f"; the frame {st['frame_s']:.2f} s, "
+                 f"{st['frame_rays_per_s']:.0f} rays/s, {st['chunks']} "
+                 f"chunks, {st['ms_per_chunk']:.2f} ms/chunk (the frame's "
+                 f"time over its chunks: first hit, denoise and host copies "
+                 f"included), launches expected {st['launches_expected']}")
+    print(f"stage {label} {stage}: {st['wall_s']:.2f} s, {st['rays']} rays "
+          f"in {st['traces']} traces, {st['rays_per_s']:.0f} rays/s; "
+          f"launches {launched}; peak memory {st['peak_memory_mb']:.0f} MB"
+          + extra)
 
 
 def frame_rays(dev):
@@ -1001,6 +1541,9 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep-only", action="store_true",
                     help="time the packet walks' widths on a train step's "
                     "rays and stop (no verdict line)")
+    ap.add_argument("--stages-only", action="store_true",
+                    help="run the shading-cache stages (phase 10) and stop "
+                    "(no verdict line)")
     ap.add_argument("--counts", action="store_true",
                     help="with --sweep-only: the plain versions' counters "
                     "at every packet width on the camera check rays")
@@ -1060,6 +1603,17 @@ def main(argv=None) -> int:
               f"{time.perf_counter() - t0:.1f} s")
         check(mesh.n_faces == 12 * (n_clutter + 1) + 2, "scene face count")
         return tracer, em, ngp, crf, mesh
+
+    if args.stages_only:
+        stage_stats, traffic = stage_phase(dev, args.seed)
+        flush = torch.empty(64 * 2 ** 20 // 4, dtype=torch.float32,
+                            device=dev)
+        held = hold_stage_traffic(traffic, flush)
+        print("run: " + json.dumps({"shading_cache_stages": stage_stats,
+                                    "stage_traffic": held,
+                                    "total_s": time.perf_counter() - t_run}))
+        print(f"card: {card_line()}")
+        return 0
 
     if args.sweep_only:
         big = scene(CLUTTER_102K)
@@ -1386,9 +1940,18 @@ def main(argv=None) -> int:
               f"leaves, least cosine {cos:.6f}")
     del ref, flat, flat_ngp
 
-    # 10-11. each kernel on the largest input a main path gave it; the five
-    # big-tree kernels on the same 518,400 rays of the 102K train step
+    # 10. the shading-cache stages on two datasets of the port's generator
+    stage_stats, traffic = stage_phase(dev, args.seed)
+    for st in stage_stats.values():
+        for stage in STAGES:
+            add_launches(st[stage])
+
+    # 11-12. each kernel on the largest input a main path gave it; the five
+    # big-tree kernels on the same 518,400 rays of the 102K train step;
+    # trace_union and trace_paired_streamed also on the stages' traffic
     flush = torch.empty(64 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
+    held = hold_stage_traffic(traffic, flush)
+    del traffic
     inputs = {"trace_union": flag_in, "trace_paired": mid_in,
               "trace_ordered": wide_in}
     trees = {"trace_paired": mid_tracer}
@@ -1465,6 +2028,22 @@ def main(argv=None) -> int:
                   + ", ".join(f"{k} {counts[k]}" for k in WALK_COUNTS))
             print(f"resources {name} at leaf size {tracer.leaf_size}: "
                   + ", ".join(f"{k} {v}" for k, v in res.items()))
+        if name in held:
+            # the stages' traffic: the row's numbers are those of the
+            # largest input, the train step's input kept beside them
+            row = rows[-1]
+            row["max_abs_err"] = max([row["max_abs_err"]] + [
+                m["max_abs_err"] for m in held[name]])
+            row["stage_traffic"] = held[name]
+            top = max(held[name], key=lambda m: m["rays"])
+            if top["rays"] > row["rays"]:
+                moved = ("rays", "ms", "plain_ms", "bound_ms", "bound_by",
+                         "plain_rays", "plain_input") + tuple(
+                             k for k in WALK_COUNTS if k in row)
+                row["train_step_input"] = {k: row.pop(k) for k in moved}
+                row.update({k: top[k] for k in moved if k in top})
+                row["plain_input"] = (f"{top['dataset']} {top['stage']}'s "
+                                      "largest trace")
     # the five big-tree kernels on the same rays, and trace_union's per-ray
     # walk of the same tree (the packet width 1 of trace_streamed), in
     # turns there and back
@@ -1523,6 +2102,7 @@ def main(argv=None) -> int:
         "clutter6k_leaf16": wide_stats, "clutter6k_leaf4": mid_stats,
         "train_flagship": flag_train, "train_clutter102k": big_train,
         "stages": stages, "ref32x2": ref_stats,
+        "shading_cache_stages": stage_stats,
         "five_on_102k_ms": turns, "five_on_102k_hits": agree,
         "packet_sweep_ms": sweep,
         "build_s": build_s, "total_s": time.perf_counter() - t_run}))
@@ -1531,7 +2111,7 @@ def main(argv=None) -> int:
               "main path")
     print(json.dumps({"kernels": rows}))
 
-    # 12. verdict
+    # 13. verdict
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,9 @@
 """BRDF model: analytic GGX+Lambert lobes and the neural (hash-grid) field
 (counterpart of iris_tpu/models/brdf.py; reference model/brdf.py
-diffuse_sampler :20, specular_sampler :36, eval_specular :90,
-sample_specular :112, eval_brdf :138, sample_brdf :177, NGPBRDF :213).
+diffuse_sampler :20, specular_sampler :36, eval_diffuse :70,
+sample_diffuse :78, eval_specular :90, sample_specular :112, eval_brdf
+:138, sample_brdf :177, NGPBRDF :213), and the fixed ConstantBRDF of the
+shading bakes and the analytic oracles.
 
 The reference's `.data` detach points (the GGX NDF inside sampling pdfs and
 the sampler's alpha) are `.detach()` here, at the same places as the JAX
@@ -55,6 +57,19 @@ def specular_sampler(sample2: torch.Tensor, roughness: torch.Tensor,
 
 
 # ------------------------------------------------------------ eval / sample
+
+def eval_diffuse(wi, normal):
+    """Lambert lobe * NoL and its cosine pdf: (brdf (B,3), pdf (B,1))."""
+    pdf = torch.relu(dot(normal, wi)) / PI
+    return pdf.expand(*pdf.shape[:-1], 3), pdf
+
+
+def sample_diffuse(sample2, normal):
+    """Cosine-hemisphere sample: (wi, pdf (B,1), brdf/pdf weight = 1)."""
+    wi = diffuse_sampler(sample2, normal)
+    pdf = torch.relu(dot(normal, wi)) / PI
+    return wi, pdf, torch.ones_like(normal)
+
 
 def _half_products(wi, wo, normal):
     h = normalize(wi + wo)
@@ -178,4 +193,24 @@ def ngp_brdf_apply(params: NGPBRDF, position: torch.Tensor,
         "albedo": out[..., 0:3],
         "roughness": out[..., 3:4] * 0.98 + 0.02,
         "metallic": out[..., 4:5],
+    }
+
+
+@dataclass
+class ConstantBRDF:
+    """Fixed material for tests and shading bakes (reference BaseBRDF
+    role): albedo (3,), roughness and metallic scalars or (1,)."""
+
+    albedo: torch.Tensor
+    roughness: torch.Tensor
+    metallic: torch.Tensor
+
+
+def constant_brdf_apply(params: ConstantBRDF, position: torch.Tensor
+                        ) -> dict:
+    b = position.shape[0]
+    return {
+        "albedo": torch.broadcast_to(params.albedo, (b, 3)),
+        "roughness": torch.broadcast_to(params.roughness, (b, 1)),
+        "metallic": torch.broadcast_to(params.metallic, (b, 1)),
     }

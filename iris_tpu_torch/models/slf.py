@@ -1,15 +1,21 @@
 """Voxel surface-light-field radiance cache (counterpart of
 iris_tpu/models/slf.py; reference model/slf.py VoxelSLF :16-70): a dense
 H^3 index grid maps occupied voxels to a compact (K, 3) radiance table;
-queries outside occupied voxels return 0."""
+queries outside occupied voxels return 0.
+
+The bake's scatter-add is a deterministic segment sum
+(core/segment.py): the same bits on every run, on the card as on the
+CPU. It adds in another order than the JAX package's `.at[].add`, so the
+two agree to float rounding."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
+from iris_tpu_torch.core.segment import segment_sum
 from iris_tpu_torch.device import resolve_device
 
 
@@ -60,3 +66,27 @@ def slf_query(slf: VoxelSLF, x: torch.Tensor) -> torch.Tensor:
     idx = spatial_idx(slf, x)
     rgb = slf.radiance[torch.clamp(idx, min=0)]
     return torch.where((idx >= 0)[..., None], rgb, 0.0)
+
+
+def slf_scatter_add(slf: VoxelSLF, x: torch.Tensor, radiance: torch.Tensor,
+                    mask: torch.Tensor | None = None) -> VoxelSLF:
+    """Accumulate radiance (B, 3) at positions (B, 3) into their voxels;
+    rows outside occupied voxels or off `mask` add nothing. Returns the
+    updated SLF (functional)."""
+    idx = spatial_idx(slf, x)
+    ok = idx >= 0
+    if mask is not None:
+        ok = ok & mask
+    k = slf.radiance.shape[0]
+    # rows that add nothing go to an overflow bucket: no host sync
+    seg = torch.where(ok, idx, k)
+    rows = torch.cat([radiance, torch.ones_like(radiance[:, :1])], -1)
+    acc = segment_sum(torch.where(ok[:, None], rows, 0.0), seg, k + 1)[:k]
+    return replace(slf, radiance=slf.radiance + acc[:, :3],
+                   count=slf.count + acc[:, 3])
+
+
+def slf_finalize_mean(slf: VoxelSLF) -> VoxelSLF:
+    """Mean-pool accumulated radiance (reference slf_bake.py:138)."""
+    return replace(slf, radiance=slf.radiance
+                   / torch.clamp(slf.count, min=1.0)[:, None])

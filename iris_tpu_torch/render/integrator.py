@@ -1,6 +1,7 @@
 """Path-tracing integrators (counterpart of iris_tpu/render/integrator.py;
-reference utils/path_tracing.py path_tracing :214, path_tracing_single
-:320, trace_indirect :409).
+reference utils/path_tracing.py path_tracing_det_diff :50,
+path_tracing_det_spec :127, path_tracing :214, path_tracing_single :320,
+trace_indirect :409).
 
 Like the JAX package, every lane of a fixed-size batch computes and a
 boolean `active` mask gates contributions (the reference compacts the ray
@@ -238,3 +239,83 @@ def path_tracing(gen, tracer: Tracer, em: Emitter, mat_fn: MatFn,
                              else samples["indirect"])
     l = l + torch.where(active_n[:, None], brdf_w * l_indir, 0.0)
     return l.reshape(b, spp, 3).mean(1)
+
+
+def _det_common(gen, tracer, em, mat_fn, positions, wis, normals,
+                triangle_idxs, spp, indir_depth, sample_fn,
+                samples: dict | None = None):
+    """The shading bakes' common path from deterministic first hits:
+    sample_fn(gen, wo, normal, s2) -> (wi, [weights]) picks the lobe; one
+    traced bounce, then trace_indirect. Returns one (B, 3) result per
+    weight, zero where the first hit missed (triangle_idxs == -1).
+
+    `samples`: 'det_s2' (B*spp, 2) lobe draws, rows i*spp + j, and
+    'indirect', trace_indirect's stacked per-depth draws."""
+    emit_mask = triangle_idxs != -1
+    position = torch.repeat_interleave(positions, spp, dim=0)
+    normal = torch.repeat_interleave(normals, spp, dim=0)
+    wo = torch.repeat_interleave(-wis, spp, dim=0)
+    active = torch.repeat_interleave(emit_mask, spp, dim=0)
+
+    wi, weights = sample_fn(gen, wo, normal,
+                            None if samples is None else samples["det_s2"])
+    pos_next, nrm_next, _, tri, _ = ray_intersect(
+        tracer, position + RAY_EPS * wi, wi)
+    mat_next = mat_fn(pos_next)
+    le, _, valid_next = eval_emitter(em, pos_next, wi, tri,
+                                     mat_next["roughness"])
+    results = [torch.where(active[:, None], w * le, 0.0) for w in weights]
+
+    active_next = active & valid_next
+    # the material at the bounce vertices, evaluated once: the JAX package
+    # evaluates it again inside trace_indirect (integrator.py:227), which
+    # gives the same bits under the exact encode
+    l_indir = trace_indirect(gen, tracer, em, mat_fn, pos_next, -wi,
+                             nrm_next, mat_next, active_next, indir_depth,
+                             samples=None if samples is None
+                             else samples["indirect"])
+    b = positions.shape[0]
+    out = []
+    for r, w in zip(results, weights):
+        r = r + torch.where(active_next[:, None], w * l_indir, 0.0)
+        r = r.reshape(b, spp, 3).mean(1)
+        out.append(torch.where(emit_mask[:, None], r, 0.0))
+    return out
+
+
+def path_tracing_det_diff(gen, tracer: Tracer, em: Emitter, mat_fn: MatFn,
+                          positions, wis, normals, uvs, triangle_idxs,
+                          spp: int, indir_depth: int,
+                          samples: dict | None = None):
+    """Diffuse shading bake from deterministic first hits (reference
+    :50-124): (B, 3) cosine-importance-sampled incident diffuse shading."""
+
+    def sample(g, wo, normal, s2):
+        if s2 is None:
+            s2 = draw_uniform(g, (normal.shape[0], 2), normal.device)
+        wi, _, w = B.sample_diffuse(s2, normal)
+        return wi, [w]
+
+    (out,) = _det_common(gen, tracer, em, mat_fn, positions, wis, normals,
+                         triangle_idxs, spp, indir_depth, sample,
+                         samples=samples)
+    return out
+
+
+def path_tracing_det_spec(gen, tracer: Tracer, em: Emitter, mat_fn: MatFn,
+                          roughness_level, positions, wis, normals, uvs,
+                          triangle_idxs, spp: int, indir_depth: int,
+                          samples: dict | None = None):
+    """Specular shading bake at a fixed roughness level (reference
+    :127-212): (L0, L1), the two Fresnel-split components, each (B, 3)."""
+
+    def sample(g, wo, normal, s2):
+        if s2 is None:
+            s2 = draw_uniform(g, (normal.shape[0], 2), normal.device)
+        wi, _, w0, w1 = B.sample_specular(s2, wo, normal, roughness_level)
+        return wi, [w0, w1]
+
+    l0, l1 = _det_common(gen, tracer, em, mat_fn, positions, wis, normals,
+                         triangle_idxs, spp, indir_depth, sample,
+                         samples=samples)
+    return l0, l1

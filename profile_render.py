@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Where one render round or one train step of iris_tpu_torch spends its
-time on the card.
+"""Where one render round, one train step or one refine_shading chunk of
+iris_tpu_torch spends its time on the card.
 
-    python3 profile_render.py [--path render|train] [--hash 4x16|32x2|32x2flat]
+    python3 profile_render.py [--path render|train|refine]
+                              [--hash 4x16|32x2|32x2flat]
                               [--policy default|dense|streamed|dense_streamed]
                               [--seed 0] [--out outputs/render_trace.json]
 
@@ -12,7 +13,10 @@ times it a few times without the profiler, and then once under
 torch.profiler (CPU and CUDA activities). The unit is one render round
 (render_chunk + aov_chunk at spp 8, depth 5) or, with --path train, one
 train step (fwd+bwd of the benchmark loss at spp 32 = 259,200 camera
-samples, then Adam, one step of run_training). --hash picks the model: the
+samples, then Adam, one step of run_training) or, with --path refine, one
+chunk of refine_shading's diffuse bake (path_tracing_det_diff at spp 128,
+depth 5, exact encode, from the 8,100 pixels' first hits: 1,036,800 paths,
+the size of the stage's 1.31M-path chunks). --hash picks the model: the
 production 4-level x 16-feature row-mode grid, or the reference's 32-level
 x 2-feature grid, packed (32x2) or unpacked (32x2flat). --policy picks the
 TraversalPolicy of both trees; on the 102,014-face tree "dense",
@@ -96,6 +100,24 @@ def make_unit(path, n_clutter, seed, grid="4x16", policy="default"):
     seed_slf(em, seed, dev)
     rays = frame_rays(dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    if path == "refine":
+        from iris_tpu_torch.core.vecmath import normalize
+        from iris_tpu_torch.geometry.intersect import ray_intersect
+        from iris_tpu_torch.render.integrator import path_tracing_det_diff
+
+        pos, nrm, uv, tri, _ = ray_intersect(tracer, rays[:, :3],
+                                             rays[:, 3:6])
+        wi = normalize(rays[:, 3:6])
+        mat_fn = demo_mat_fn(ngp)
+
+        @torch.no_grad()
+        def unit():
+            path_tracing_det_diff(gen, tracer, em, mat_fn, pos, wi, nrm, uv,
+                                  tri, 128, INDIR_DEPTH)
+            torch.cuda.synchronize()
+
+        return unit, kernel
+
     if path == "render":
         from iris_tpu_torch.pipeline.render import make_render_fns
 
@@ -152,7 +174,8 @@ def profile_cell(label, path, n_clutter, seed, out, grid, policy):
     n_kernels = sum(e.count for e in kernels)
     trav_ms = sum(device_time_us(e) for e in kernels
                   if "trace_" in e.key and "_kernel" in e.key) / 1e3
-    what = "round" if path == "render" else "train step"
+    what = {"render": "round", "train": "train step",
+            "refine": "refine chunk"}[path]
     print(f"{label}: {what} wall {wall_ms:.2f} ms under the profiler, "
           f"{plain_ms:.2f} ms without (median of 3); device busy "
           f"{busy_ms:.2f} ms, idle share "
@@ -173,7 +196,8 @@ def profile_cell(label, path, n_clutter, seed, out, grid, policy):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--path", choices=("render", "train"), default="render")
+    ap.add_argument("--path", choices=("render", "train", "refine"),
+                    default="render")
     ap.add_argument("--hash", choices=("4x16", "32x2", "32x2flat"),
                     default="4x16", help="the hash grid: levels x features")
     ap.add_argument("--policy", choices=("default", "dense", "streamed",

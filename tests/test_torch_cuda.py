@@ -394,3 +394,46 @@ def test_windows_past_the_shared_memory_limit_raise(card):
             torch.cuda.current_stream().cuda_stream, width)
         assert rc == 1                     # cudaErrorInvalidValue
     torch.cuda.synchronize()
+
+
+def test_segment_sum_same_bits_twice(card):
+    """The bakes' segment sum adds in an order fixed by the ids alone: two
+    runs on the card give the same bits (index_add_ would add with
+    atomics, in an order that changes from run to run), and so does the
+    CPU."""
+    from iris_tpu_torch.core.segment import segment_sum
+
+    gen = torch.Generator().manual_seed(0)
+    ids = torch.randint(0, 97, (1 << 20,), generator=gen)
+    vals = torch.rand((1 << 20, 4), generator=gen)
+    a = segment_sum(vals.to(card), ids.to(card), 98)
+    b = segment_sum(vals.to(card), ids.to(card), 98)
+    assert torch.equal(a, b)
+    assert torch.equal(a.cpu(), segment_sum(vals, ids, 98))
+    want = torch.zeros(98, 4, dtype=torch.float64).index_add_(
+        0, ids, vals.double())
+    assert torch.allclose(a.cpu().double(), want, rtol=1e-5)
+
+
+def test_slf_bake_same_bits_twice(card, tmp_path):
+    """bake_slf on the card twice, on a small dataset of the port's
+    generator: the same mask and the same bits of radiance and counts."""
+    from iris_tpu_torch.data.datasets import load_dataset
+    from iris_tpu_torch.data.make_demo_dataset import make_dataset
+    from iris_tpu_torch.models.crf import init_emor_crf
+    from iris_tpu_torch.pipeline.common import load_scene
+    from iris_tpu_torch.pipeline.slf_bake import bake_slf
+
+    root = str(tmp_path / "ds")
+    make_dataset(root, img_hw=(32, 40), n_train=2, n_val=1, spp=4,
+                 indir_depth=2, n_clutter=12, device=card)
+    _, tracer = load_scene("synthetic", root, device=card)
+    dataset = load_dataset("synthetic", root, split="train", img_dir="ldr",
+                           load_gt=False)
+    crf = init_emor_crf(dim=11, device=card)
+    (a, ma), (b, mb) = (bake_slf(tracer, dataset, crf, 64,
+                                 log=lambda *_: None) for _ in range(2))
+    assert ma.any() and np.array_equal(ma, mb)
+    assert torch.equal(a.radiance, b.radiance)
+    assert torch.equal(a.count, b.count)
+    assert float(a.radiance.max()) > 0
