@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--seed 0] [--rounds 2]
     python3 chip_smoke.py --sweep-only [--counts]
     python3 chip_smoke.py --stages-only
+    python3 chip_smoke.py --pipeline-only
 
 Needs one NVIDIA card (sm_90a: H100/H200), nvcc and g++. It builds the
 traversal kernels from iris_tpu_torch/csrc/traverse.cu and the SAH builder
@@ -84,11 +85,37 @@ from csrc/bvh_builder.cpp, then:
    bake's diffuse map must be nonzero, and only the dataset's kernel may
    launch. The largest trace of each bake (655,360 secondary rays of
    bake_shading, 2,621,440 of refine_shading's fused trace) is kept as the
-   kernel received it, for phase 12. On the flagship, path_tracing_det_diff and
+   kernel received it, for phase 13. On the flagship, path_tracing_det_diff and
    path_tracing_det_spec on 1,024 first hits run on the card and on the
    CPU under the same samples (ConstantBRDF within 1e-5, the NGP material
    on 95% of values within rtol 2e-3 / atol 1e-4);
-11. times the five big-tree kernels, and trace_union's per-ray walk of
+11. runs the training half of the pipeline and the render CLI on the
+   same two datasets, from phase 10's SLF bakes, each CLI through its
+   main(argv) on the card, in scripts/run_pipeline.sh's order and at its
+   production settings (batch 8,192, SPP 128 at spp 32, the 4 x 16 x 2^19
+   row-mode grid, lp 0.005 la 0.01 l_crf_weight 0.001), only the steps
+   cut: extract_emitter (the zero-radiance mask), initialize (20 steps in
+   chunks of 10, validation renders and a checkpoint every 10),
+   extract_emitter --mode update, bake_shading on both train frames,
+   train_brdf_crf (brdf0, warm from initialize), slf_refine (twice: the
+   same bits), train_emitter, extract_emitter --mode update,
+   refine_shading --encode stoch on both train frames, train_brdf_crf
+   again on those caches (brdf1) and render on the first val frame with
+   brdf1. Per CLI it prints wall seconds, steps and ms a step (CUDA events
+   around each step, the median after the first chunk), camera samples a
+   second for the two path-tracing trainers, the seconds of each
+   validation render, launches by kernel against the count the settings
+   give, peak device memory, and render's PSNR and SSIM against the
+   frame's LDR. Hard checks: every logged loss finite; every artifact
+   loads back onto the card equal to its full-state file's params; on the
+   flagship, initialize run for 10 steps and --resume'd to 20 gives the
+   uninterrupted run's losses and checkpoint bits; slf_refine twice the
+   same bits; the emitter radiance after each update finite and > 0; the
+   validation PNGs at steps 0 and 10 and every file of render under the
+   JAX package's names, metrics.txt finite; only the dataset's kernel
+   launched. The largest trace of each trainer's steps is kept as the
+   kernel received it, for phase 13;
+12. times the five big-tree kernels, and trace_union's per-ray walk of
    the same tree, on the same 518,400 rays of the 102,014-face train step,
    in turns there and back, and compares their hits pairwise; then times
    every instantiated packet width of the three packet walks on those
@@ -99,10 +126,12 @@ from csrc/bvh_builder.cpp, then:
    on the 518,400 rays, and the registers, local memory (stack and
    spills), shared memory and resident blocks per SM of the instantiation
    each path launched, as the CUDA runtime reports them;
-12. holds trace_union and trace_paired_streamed on the stages' traffic:
-   each bake's largest trace on each dataset, bit-equal to the plain
-   version on every ray (trace_paired_streamed's on the first 131,072 of
-   each batch), timed and bounded; then prints one JSON line
+13. holds trace_union and trace_paired_streamed on the stages' and the
+   trainers' traffic: each bake's largest trace and each trainer's
+   (initialize, train_brdf_crf, train_emitter: RayBatcher's spatially
+   sorted batches) on each dataset, bit-equal to the plain version on
+   every ray (trace_paired_streamed's on the first 131,072 of each batch),
+   timed and bounded; then prints one JSON line
    {"kernels": [...]} with each kernel's launches on the main paths, its
    error against the plain version on every input compared, its time,
    the plain version's time (one run) and its roofline bound, measured on
@@ -115,16 +144,20 @@ from csrc/bvh_builder.cpp, then:
    lane_busy on the row's input, and those four numbers of the path's
    instantiation; trace_union's row adds its time and bound on the
    518,400 rays of the 102K train step;
-13. prints the card line again and, last, the run's JSON verdict.
+14. prints the card line again and, last, the run's JSON verdict.
 
 Any failed check raises, and the script then exits non-zero with no
 verdict line. It imports nothing of JAX or of the JAX package.
 
---stages-only runs phases 1-2, 10 and the stage-traffic holds of 12 alone
+--stages-only runs phases 1-2, 10 and the stage-traffic holds of 13 alone
 (about two minutes on an H100) and prints no verdict line.
 
+--pipeline-only runs phases 1-2, then phase 11 on two new datasets (their
+SLF baked first) and the trainer-traffic holds of 13 alone (about three
+minutes on an H100), and prints no verdict line.
+
 --sweep-only runs phases 1-2, builds the 102,014-face scene, takes the
-518,400 rays of one train step and runs the width sweep of phase 11 alone
+518,400 rays of one train step and runs the width sweep of phase 12 alone
 (about a minute); --counts adds the plain versions' counters (visits or
 pops, lane slab tests, window reloads and how many of them a forward
 prefetch serves, far pops) at every packet width on the camera check rays.
@@ -208,6 +241,13 @@ STAGES = ("slf_bake", "extract_emitter", "bake_shading", "refine_shading")
 DET_CHECK_HITS = 1024
 DET_CHECK_SPP = 4
 STAGE_DIR = os.path.join("outputs", "chip_smoke_stages")
+# phase 11: scripts/run_pipeline.sh's production settings, steps cut
+PIPE_BATCH = 8192
+PIPE_SPP = 128                 # SPP: 4 rounds of TRAIN_SPP a step
+PIPE_STEPS = 20
+PIPE_CHUNK = 10                # chunk_steps, val_step and save_every
+PIPE_CLIS = ("initialize", "bake_shading", "train_brdf_crf", "slf_refine",
+             "train_emitter", "refine_shading", "brdf1", "render")
 
 
 def check(ok: bool, what: str) -> None:
@@ -328,7 +368,8 @@ def read_launches():
 class record_largest_trace:
     """While active, keeps the largest (origins, directions) batch that
     geometry.intersect.ray_trace is given, as the kernel receives it (after
-    the spatial sort)."""
+    the spatial sort), and the tree it was traced against. Entered again,
+    it goes on keeping the largest batch of every stretch it was active."""
 
     def __init__(self):
         self.captured = {}
@@ -342,7 +383,7 @@ class record_largest_trace:
 
         def recording(tr, xs, ds):
             if xs.shape[0] > captured.get("n", 0):
-                captured.update(n=xs.shape[0],
+                captured.update(n=xs.shape[0], tracer=tr,
                                 o=xs.detach().float().contiguous().clone(),
                                 d=ds.detach().float().contiguous().clone())
             return ray_trace(tr, xs, ds)
@@ -510,16 +551,18 @@ def frames_seen(tracer, mesh, root):
     return seen
 
 
-def check_exrs(out_dir, n_levels=6):
-    """The maps a bake wrote for frame 0: the expected file names, each
-    finite and >= 0. Returns the diffuse map's mean."""
+def check_exrs(out_dir, n_frames=1, n_levels=6):
+    """The maps a bake wrote for its first n_frames frames: the expected
+    file names, each finite and >= 0. Returns frame 0's diffuse map's
+    mean."""
     import numpy as np
 
     from iris_tpu_torch.utils.exr import read_exr
 
-    want = {"diffuse": ["000.exr"],
-            "specular": sorted(f"000_{f}_{r}.exr" for f in (0, 1)
-                               for r in range(n_levels))}
+    frames = range(n_frames)
+    want = {"diffuse": [f"{i:03d}.exr" for i in frames],
+            "specular": sorted(f"{i:03d}_{f}_{r}.exr" for i in frames
+                               for f in (0, 1) for r in range(n_levels))}
     for sub, names in want.items():
         got = sorted(os.listdir(os.path.join(out_dir, sub)))
         check(got == names, f"{out_dir}/{sub}: files {got}")
@@ -776,8 +819,8 @@ def det_card_vs_cpu(mesh, tracer, out, ngp, seed):
 
 def stage_phase(dev, seed):
     """Phase 10 on both datasets, printed; returns the stats by dataset
-    and, for each, (label, kernel name, tracer, the bakes' largest
-    traces)."""
+    and, for each, (label, kernel name, the bakes' largest traces). The datasets and the SLF bakes stay under STAGE_DIR for phase
+    11, which removes them."""
     print(f"stages: datasets of {STAGE_HW[0]} x {STAGE_HW[1]} pixels, "
           f"{STAGE_SPLITS[0]} train + {STAGE_SPLITS[1]} val frames (cuts "
           f"of the frame size and frame count), generator spp "
@@ -807,30 +850,33 @@ def stage_phase(dev, seed):
                       f"{v['max_abs_diff']:.3e}"
                       for k, v in st["det_card_vs_cpu"].items()))
         stage_stats[label] = st
-        traffic.append((label, kernel, ctx[1], captured))
+        traffic.append((label, kernel, captured))
         del ctx
-    shutil.rmtree(STAGE_DIR, ignore_errors=True)
     return stage_stats, traffic
 
 
 def hold_stage_traffic(traffic, flush):
-    """Each stage kernel on the largest trace of each bake, as the kernel
-    received it: held against its plain version (every ray compared
-    bit-equal; trace_paired_streamed on the first STAGE_PLAIN_RAYS rays),
-    timed (median of 20, L2 flushed) and bounded from the work this batch
-    needs (for trace_union its own walk's tests; for the packet walk the
-    per-ray near-first walk's on the whole batch, as roofline says).
-    Returns {kernel name: [measurement, ...]}, printed."""
+    """Each stage kernel on the largest trace of each bake (phase 10) or of
+    each trainer's steps (phase 11), as the kernel received it: held
+    against its plain version (every ray compared bit-equal;
+    trace_paired_streamed on the first STAGE_PLAIN_RAYS rays), timed
+    (median of 20, L2 flushed) and bounded from the work this batch needs
+    (for trace_union its own walk's tests; for the packet walk the per-ray
+    near-first walk's on the whole batch, as roofline says). traffic holds
+    (dataset label, kernel name, {stage: record_largest_trace's capture});
+    each capture's own tree is the one held. Returns {kernel name:
+    [measurement, ...]}, printed."""
     import torch
 
     from iris_tpu_torch.geometry import cuda_intersect as ci
 
     held = {}
-    for label, name, tracer, captured in traffic:
+    for label, name, captured in traffic:
         kernel, plain = getattr(ci, name), getattr(ci, name + "_plain")
         paired = name != "trace_union"
-        for stage in STAGE_CAPTURES:
-            o, d = captured[stage]["o"], captured[stage]["d"]
+        for stage, cap in captured.items():
+            o, d = cap["o"], cap["d"]
+            tracer = cap["tracer"]
             n = o.shape[0]
             n_plain = min(n, STAGE_PLAIN_RAYS[name] or n)
             got = kernel(tracer, o, d)
@@ -877,6 +923,456 @@ def report_stage(label, stage, st):
           f"in {st['traces']} traces, {st['rays_per_s']:.0f} rays/s; "
           f"launches {launched}; peak memory {st['peak_memory_mb']:.0f} MB"
           + extra)
+
+
+class time_train_steps:
+    """While active, brackets every step of run_training (the step that
+    train.loop.make_train_step makes) with two CUDA events, read after the
+    run (no host sync inside it), and keeps the largest traversal input of
+    the steps alone (record_largest_trace), not of the hooks between
+    them."""
+
+    def __enter__(self):
+        import torch
+
+        from iris_tpu_torch.train import loop
+
+        self._loop, self._make = loop, loop.make_train_step
+        make, events = self._make, []
+        self.events = events
+        recorder = record_largest_trace()
+        self.captured = recorder.captured
+
+        def make_timed(loss_fn, optimizer):
+            step = make(loss_fn, optimizer)
+
+            def timed(*a, **k):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                with recorder:
+                    out = step(*a, **k)
+                end.record()
+                events.append((start, end))
+                return out
+            return timed
+
+        loop.make_train_step = make_timed
+        return self
+
+    def __exit__(self, *exc):
+        self._loop.make_train_step = self._make
+
+    def step_ms(self):
+        import torch
+
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+class time_validation:
+    """While active, the validation hooks that a trainer module builds
+    (its make_validation_hook) are timed at each validation step, the card
+    synchronized before and after."""
+
+    def __init__(self, module):
+        self.module = module
+
+    def __enter__(self):
+        import torch
+
+        orig = self.orig = self.module.make_validation_hook
+        times = self.times = []
+
+        def make(*a, val_step=250, **k):
+            hook = orig(*a, val_step=val_step, **k)
+
+            def timed(step, params, loss, aux):
+                if step % val_step:
+                    return hook(step, params, loss, aux)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                hook(step, params, loss, aux)
+                torch.cuda.synchronize()
+                times.append((step, time.perf_counter() - t0))
+            return timed
+
+        self.module.make_validation_hook = make
+        return times
+
+    def __exit__(self, *exc):
+        self.module.make_validation_hook = self.orig
+
+
+def train_log(path):
+    """The loss records of a trainer's train_log.jsonl (the scalar log's
+    lines; the diag hook's lines carry no loss), wall time dropped."""
+    recs = []
+    with open(path) as f:
+        for line in f:
+            rec = json.loads(line)
+            if "loss" in rec:
+                recs.append({k: v for k, v in rec.items() if k != "wall_s"})
+    return recs
+
+
+def same_pickle(a, b):
+    """Two checkpoint files hold the same tree, bit for bit."""
+    import pickle
+
+    import numpy as np
+
+    def eq(x, y):
+        if isinstance(x, np.ndarray):
+            return (isinstance(y, np.ndarray) and x.dtype == y.dtype
+                    and x.shape == y.shape
+                    and x.tobytes() == y.tobytes())
+        if isinstance(x, dict):
+            return (isinstance(y, dict) and x.keys() == y.keys()
+                    and all(eq(x[k], y[k]) for k in x))
+        if isinstance(x, (list, tuple)):
+            return (isinstance(y, (list, tuple)) and len(x) == len(y)
+                    and all(eq(p, q) for p, q in zip(x, y)))
+        return x == y
+
+    with open(a, "rb") as f, open(b, "rb") as g:
+        return eq(pickle.load(f), pickle.load(g))
+
+
+def check_checkpoint(label, path, state_path, dev):
+    """A trainer's artifact and its full-state file load back onto the card
+    with every leaf finite, and the artifact's leaves equal the state's
+    params (both were saved from the same final parameters)."""
+    import torch
+
+    from iris_tpu_torch.train.checkpoint import load_pytree
+    from iris_tpu_torch.train.optim import named_leaves
+
+    art = named_leaves(load_pytree(path, dev))
+    st = load_pytree(state_path, dev)
+    params = named_leaves(st["params"])
+    check(len(art) == len(params) and all(
+        n1 == n2 and t1.device.type == dev.type
+        and bool(torch.isfinite(t1).all()) and torch.equal(t1, t2)
+        for (n1, t1), (n2, t2) in zip(art, params)),
+        f"{label}: {path} does not load back equal to {state_path}")
+    check(st["opt_state"]["opt"]["state"] != {},
+          f"{label}: {state_path} holds no optimizer state")
+
+
+def check_val_pngs(label, val_dir, steps):
+    want = sorted(f"{s:05d}_{n}.png" for s in steps
+                  for n in ("L_train", "L_full", "L_gt", "crfs"))
+    got = sorted(os.listdir(val_dir))
+    check(got == want, f"{label}: validation files {got}, want {want}")
+
+
+def emitter_radiance_ok(label, bake):
+    import numpy as np
+
+    rad = np.load(os.path.join(bake, "emitter.npz"))["emitter_radiance"]
+    check(bool(np.isfinite(rad).all()) and float(rad.min()) > 0,
+          f"{label}: emitter radiance {rad.tolist()} not finite and > 0")
+    return rad.tolist()
+
+
+def run_trainer(module, argv, n_steps, samples_per_step=None):
+    """One trainer CLI's main(argv) through run_stage, with its steps
+    timed (CUDA events around each step; ms a step = the median of the
+    steps after the first chunk), its validation renders timed, and the
+    largest traversal input of its steps kept."""
+    with time_train_steps() as steps, time_validation(module) as val:
+        st = run_stage(module.main, argv)
+    ms = steps.step_ms()
+    check(len(ms) == n_steps, f"{module.__name__}: {len(ms)} steps timed, "
+          f"{n_steps} expected")
+    after = ms[PIPE_CHUNK:] or ms
+    st.update(steps=len(ms), ms_per_step=statistics.median(after),
+              step_ms=ms, val_render_s=val)
+    if samples_per_step:
+        st["camera_samples_per_s"] = samples_per_step / (
+            st["ms_per_step"] / 1e3)
+    return st, steps.captured
+
+
+def pipeline_chain(label, kernel, root, bake, dev, resume_check):
+    """Phase 11 on one dataset: the training half of the pipeline and the
+    render CLI in scripts/run_pipeline.sh's order, each through main(argv)
+    on the card. Runs in the chain's own directory (the CLIs write
+    outputs/<experiment>/ and checkpoints/<experiment>/ relative to it),
+    `bake` holding phase 10's SLF (stage 1); stage 2 runs again here, so
+    that the emitter starts from the extracted zero radiance as in a
+    capture. Returns (stats by CLI, {trainer: its steps' largest
+    trace})."""
+    import numpy as np
+
+    from iris_tpu_torch.pipeline import (
+        bake_shading, extract_emitter, initialize, refine_shading, render,
+        slf_refine, train_brdf_crf, train_emitter,
+    )
+
+    stats, captured = {}, {}
+    common = ["--dataset", "synthetic", "--scene", root, "--ldr_img_dir",
+              "ldr", "--device", str(dev)]
+    train = (["--dataset", "synthetic", root, "--ldr_img_dir", "ldr",
+              "--device", str(dev), "--crf_basis", "3", "--has_part", "1",
+              "--batch_size", str(PIPE_BATCH), "--chunk_steps",
+              str(PIPE_CHUNK),
+              "--val_step", str(PIPE_CHUNK), "--save_every",
+              str(PIPE_CHUNK), "--hash_levels",
+              str(PRODUCTION_GRID["hash_levels"]), "--hash_features",
+              str(PRODUCTION_GRID["hash_features"]), "--log2_hashmap_size",
+              str(LOG2_TABLE)])
+    render_spp = ["--SPP", str(PIPE_SPP), "--spp", str(TRAIN_SPP)]
+    brdf_loss = ["--lp", "0.005", "--la", "0.01", "--l_crf_weight", "0.001"]
+    vslf, vslf0, emitter = (os.path.join(bake, n) for n in (
+        "vslf.npz", "vslf_0.npz", "emitter.npz"))
+    rounds = PIPE_SPP // TRAIN_SPP
+    camera_samples = PIPE_BATCH * TRAIN_SPP * rounds
+    val_chunks = -(-STAGE_HW[0] * STAGE_HW[1] // 8192)
+    n_val = PIPE_STEPS // PIPE_CHUNK
+    val_launches = n_val * val_chunks * (2 + 2 + INDIR_DEPTH)
+    val_steps = range(0, PIPE_STEPS, PIPE_CHUNK)
+
+    # 2. the emitter mask (zero radiance)
+    extract_emitter.main(common + ["--output", bake, "--threshold", "0.99"])
+    # 3. initialize
+    init_args = train + render_spp + [
+        "--voxel_path", vslf, "--emitter_path", emitter]
+    steps = ["--max_steps", str(PIPE_STEPS)]
+    stats["initialize"], captured["initialize"] = run_trainer(
+        initialize, init_args + steps + ["--experiment_name", "init"],
+        PIPE_STEPS, camera_samples)
+    stats["initialize"]["launches_expected"] = (
+        PIPE_STEPS * (2 * rounds + 1) + val_launches + val_chunks)
+    if resume_check:
+        # the same 20 steps as 10, then --resume to 20: the same losses
+        # and the same checkpoint bits
+        initialize.main(init_args + ["--max_steps", str(PIPE_STEPS // 2),
+                                     "--experiment_name", "init_rs"])
+        initialize.main(init_args + steps + ["--experiment_name", "init_rs",
+                                             "--resume"])
+        a, b = (train_log(os.path.join("outputs", e, "train_log.jsonl"))
+                for e in ("init", "init_rs"))
+        check(a == b, f"{label} initialize resumed at {PIPE_STEPS // 2}: "
+              f"losses {b} differ from the uninterrupted run's {a}")
+        for f in ("last.pkl", "last_state.pkl"):
+            check(same_pickle(os.path.join("checkpoints", "init", f),
+                              os.path.join("checkpoints", "init_rs", f)),
+                  f"{label} initialize resumed: {f} differs from the "
+                  "uninterrupted run's")
+        stats["initialize"]["resume_same_bits"] = True
+    # 4. the learned radiance into emitter.npz
+    extract_emitter.main(common + ["--output", bake, "--mode", "update",
+                                   "--ckpt", "checkpoints/init/last.pkl"])
+    stats["emitter_after_initialize"] = emitter_radiance_ok(label, bake)
+    # 5. the shading caches of both train frames
+    stats["bake_shading"] = run_stage(bake_shading.main, common + [
+        "--slf_path", vslf, "--emitter_path", emitter, "--output",
+        "shading"])
+    n_px = STAGE_HW[0] * STAGE_HW[1]
+    chunks = sum(c for _, _, c in bake_shading.chunk_plan(n_px))
+    stats["bake_shading"]["launches_expected"] = STAGE_SPLITS[0] * (
+        1 + chunks)
+    # 6. brdf0
+    brdf = train + steps + brdf_loss + [
+        "--ckpt_path", "checkpoints/init/last.pkl", "--emitter_path",
+        emitter]
+    stats["train_brdf_crf"], captured["train_brdf_crf"] = run_trainer(
+        train_brdf_crf, brdf + ["--experiment_name", "brdf0",
+                                "--voxel_path", vslf, "--cache_dir",
+                                "shading"], PIPE_STEPS)
+    stats["train_brdf_crf"]["launches_expected"] = (
+        PIPE_STEPS + val_launches + val_chunks)
+    # 7. the SLF again with the learned CRF, twice: the same bits
+    refine = common + ["--output", bake, "--ckpt",
+                       "checkpoints/brdf0/last.pkl", "--crf_basis", "3"]
+    stats["slf_refine"] = run_stage(slf_refine.main, refine)
+    stats["slf_refine"]["launches_expected"] = STAGE_SPLITS[0]
+    slf_refine.main(refine + ["--save", "vslf_0_again.npz"])
+    z1, z2 = (np.load(os.path.join(bake, n)) for n in (
+        "vslf_0.npz", "vslf_0_again.npz"))
+    check(z1.files == z2.files and all(
+        np.array_equal(z1[k], z2[k]) for k in z1.files),
+        f"{label} slf_refine twice: the bits differ")
+    check(bool(np.isfinite(z1["radiance"]).all())
+          and float(z1["radiance"].max()) > 0,
+          f"{label} slf_refine: radiance max {float(z1['radiance'].max())}")
+    # 8. the emitter
+    stats["train_emitter"], captured["train_emitter"] = run_trainer(
+        train_emitter, train + steps + render_spp + [
+            "--experiment_name", "emitter", "--ckpt_path",
+            "checkpoints/brdf0/last.pkl", "--voxel_path", vslf0,
+            "--emitter_path", emitter], PIPE_STEPS, camera_samples)
+    stats["train_emitter"]["launches_expected"] = (
+        PIPE_STEPS * 2 * rounds + val_launches)
+    extract_emitter.main(common + [
+        "--output", bake, "--mode", "update", "--ckpt",
+        "checkpoints/emitter/emitter_last.pkl"])
+    stats["emitter_after_train_emitter"] = emitter_radiance_ok(label, bake)
+    # 9. the shading caches again with brdf0, stochastic encode, then brdf1
+    stats["refine_shading"] = run_stage(
+        refine_shading.main, common + [
+            "--slf_path", vslf0, "--emitter_path", emitter, "--ckpt",
+            "checkpoints/brdf0/last.pkl", "--output", "shading_1",
+            "--spp_diffuse", "128", "--spp_specular", "64", "--indir_depth",
+            str(INDIR_DEPTH), "--encode", "stoch"],
+        (refine_shading, "refine_frame"))
+    chunks = (-(-n_px // refine_shading.chunk_pixels(n_px, 128))
+              + 6 * -(-n_px // refine_shading.chunk_pixels(n_px, 64)))
+    stats["refine_shading"].update(
+        launches_expected=STAGE_SPLITS[0] * (1 + chunks * (1 + INDIR_DEPTH)),
+        s_per_frame=stats["refine_shading"]["frame_s"] / STAGE_SPLITS[0])
+    for d in ("shading", "shading_1"):
+        check(check_exrs(d, STAGE_SPLITS[0]) > 0,
+              f"{label} {d}: the diffuse map is all zero")
+    stats["brdf1"], _ = run_trainer(
+        train_brdf_crf, brdf + ["--experiment_name", "brdf1",
+                                "--voxel_path", vslf0, "--cache_dir",
+                                "shading_1"], PIPE_STEPS)
+    stats["brdf1"]["launches_expected"] = stats["train_brdf_crf"][
+        "launches_expected"]
+    # 10. render a val frame with brdf1
+    stats["render"] = run_stage(render.main, train + render_spp + [
+        "--experiment_name", "brdf1", "--emitter_path", bake,
+        "--output_path", "render", "--split", "val", "--max_frames", "1"])
+    stats["render"]["launches_expected"] = rounds * (2 + INDIR_DEPTH + 1)
+    stats["render"].update(render_outputs("render"))
+
+    for name, sub, art, st_file in (
+            ("initialize", "init", "last.pkl", "last_state.pkl"),
+            ("train_brdf_crf", "brdf0", "last.pkl", "last_state.pkl"),
+            ("train_emitter", "emitter", "emitter_last.pkl",
+             "emitter_last_state.pkl"),
+            ("brdf1", "brdf1", "last.pkl", "last_state.pkl")):
+        recs = train_log(os.path.join("outputs", sub, "train_log.jsonl"))
+        check(len(recs) == PIPE_STEPS and all(
+            np.isfinite(v) for r in recs for k, v in r.items()
+            if k != "step"), f"{label} {name}: logged losses {recs}")
+        stats[name]["first_loss"], stats[name]["last_loss"] = (
+            recs[0]["loss"], recs[-1]["loss"])
+        check_checkpoint(f"{label} {name}", os.path.join(
+            "checkpoints", sub, art), os.path.join("checkpoints", sub,
+                                                   st_file), dev)
+        check_val_pngs(f"{label} {name}", os.path.join("outputs", sub, "val"),
+                       val_steps)
+    for name in PIPE_CLIS:
+        st = stats[name]
+        check(only_launched(st["launches"], kernel)
+              and st["launches"][kernel] == st["launches_expected"],
+              f"{label} {name}: launches {st['launches']}, "
+              f"{st['launches_expected']} of {kernel} alone expected")
+    return stats, captured
+
+
+def render_outputs(out):
+    """render.main's files for val frame 0, each under its JAX name, and
+    metrics.txt's PSNR and SSIM, finite."""
+    import numpy as np
+
+    want = {"rgb": ["00000_rgb_full.exr", "00000_rgb_full.png",
+                    "metrics.txt"],
+            "diffuse": ["00000_diffuse.exr", "00000_diffuse.png"],
+            "a_prime": ["00000_a_prime.exr", "00000_a_prime.png"],
+            "roughness": ["00000_roughness.exr",
+                          "00000_roughness_color.png"],
+            "metallic": ["00000_metallic.exr", "00000_metallic_color.png"],
+            "emission": ["00000.png", "00000_emission.exr"],
+            "slf": ["00000_slf.exr"], "merge": ["00000_merge.png"]}
+    for sub, names in want.items():
+        got = sorted(os.listdir(os.path.join(out, "val", sub)))
+        check(got == sorted(names), f"render {sub}: files {got}")
+    with open(os.path.join(out, "val", "rgb", "metrics.txt")) as f:
+        lines = f.read().splitlines()
+    check(lines[0] == "Name, PSNR, SSIM" and len(lines) == 3,
+          f"metrics.txt: {lines}")
+    p, q = (float(x) for x in lines[1].split(",")[1:])
+    pm, qm = (float(x) for x in lines[2].split(",")[1:])
+    check(all(np.isfinite(v) for v in (p, q, pm, qm)),
+          f"metrics.txt: {lines}")
+    return {"psnr": p, "ssim": q}
+
+
+def report_pipeline(label, stats):
+    for name in PIPE_CLIS:
+        st = stats[name]
+        launched = {k: v for k, v in st["launches"].items() if v}
+        extra = ""
+        if "ms_per_step" in st:
+            extra += (f"; {st['steps']} steps, {st['ms_per_step']:.2f} "
+                      f"ms/step (median after the first chunk), loss "
+                      f"{st['first_loss']:.6f} -> {st['last_loss']:.6f}, "
+                      f"validation renders "
+                      + ", ".join(f"step {s}: {t:.2f} s"
+                                  for s, t in st["val_render_s"]))
+        if "camera_samples_per_s" in st:
+            extra += (f", {st['camera_samples_per_s']:.0f} camera "
+                      "samples/s")
+        if "psnr" in st:
+            extra += f"; PSNR {st['psnr']:.3f}, SSIM {st['ssim']:.4f}"
+        if "s_per_frame" in st:
+            extra += f"; {st['s_per_frame']:.2f} s a frame"
+        print(f"pipeline {label} {name}: {st['wall_s']:.2f} s, "
+              f"launches {launched} (expected {st['launches_expected']}), "
+              f"peak memory {st['peak_memory_mb']:.0f} MB" + extra)
+    print(f"pipeline {label}: emitter radiance after initialize "
+          f"{stats['emitter_after_initialize']}, after train_emitter "
+          f"{stats['emitter_after_train_emitter']}"
+          + ("; initialize resumed at step "
+             f"{PIPE_STEPS // 2}: the same losses and checkpoint bits"
+             if stats["initialize"].get("resume_same_bits") else "")
+          + "; slf_refine twice: the same bits")
+
+
+def pipeline_phase(dev, seed, new_datasets=True):
+    """Phase 11 on both datasets, printed: the chain on phase 10's
+    datasets and SLF bakes, or with new_datasets on new ones with their
+    SLF baked here (--pipeline-only). Returns the stats by dataset and the
+    trainers' traffic for hold_stage_traffic; removes STAGE_DIR."""
+    from iris_tpu_torch.pipeline import slf_bake
+
+    print(f"pipeline: the training stages and the render CLI on the "
+          f"{STAGE_HW[0]} x {STAGE_HW[1]} datasets, batch {PIPE_BATCH}, SPP "
+          f"{PIPE_SPP}, spp {TRAIN_SPP}, {PIPE_STEPS} steps a trainer in "
+          f"chunks of {PIPE_CHUNK} (validation and a checkpoint every "
+          f"{PIPE_CHUNK}), the 4 x 16 x 2^19 row-mode grid")
+    stats, traffic = {}, []
+    for label, n_clutter, kernel, orbit in STAGE_DATASETS:
+        root = os.path.join(STAGE_DIR, label)
+        slf_dir = root + "_out"
+        if new_datasets:
+            from iris_tpu_torch.data.make_demo_dataset import make_dataset
+
+            shutil.rmtree(root, ignore_errors=True)
+            make_dataset(root, img_hw=STAGE_HW, n_train=STAGE_SPLITS[0],
+                         n_val=STAGE_SPLITS[1], spp=STAGE_GEN_SPP,
+                         indir_depth=STAGE_GEN_DEPTH, n_clutter=n_clutter,
+                         seed=seed, orbit=orbit, device=dev)
+            slf_bake.main(["--dataset", "synthetic", "--scene", root,
+                           "--ldr_img_dir", "ldr", "--device", str(dev),
+                           "--output", slf_dir, "--voxel_num",
+                           str(STAGE_VOXELS)])
+        work = os.path.abspath(os.path.join(STAGE_DIR, label + "_pipeline"))
+        shutil.rmtree(work, ignore_errors=True)
+        bake = os.path.join(work, "bake")
+        os.makedirs(bake)
+        shutil.copy(os.path.join(slf_dir, "vslf.npz"), bake)
+        here = os.getcwd()
+        t0 = time.perf_counter()
+        os.chdir(work)
+        try:
+            st, captured = pipeline_chain(label, kernel, os.path.abspath(
+                os.path.join(here, root)), bake, dev,
+                resume_check=label == "flagship")
+        finally:
+            os.chdir(here)
+        st["total_s"] = time.perf_counter() - t0
+        report_pipeline(label, st)
+        print(f"pipeline {label}: {st['total_s']:.1f} s in all")
+        stats[label] = st
+        traffic.append((label, kernel, captured))
+    shutil.rmtree(STAGE_DIR, ignore_errors=True)
+    return stats, traffic
 
 
 def frame_rays(dev):
@@ -1544,6 +2040,9 @@ def main(argv=None) -> int:
     ap.add_argument("--stages-only", action="store_true",
                     help="run the shading-cache stages (phase 10) and stop "
                     "(no verdict line)")
+    ap.add_argument("--pipeline-only", action="store_true",
+                    help="run the training stages and the render CLI "
+                    "(phase 11) on new datasets and stop (no verdict line)")
     ap.add_argument("--counts", action="store_true",
                     help="with --sweep-only: the plain versions' counters "
                     "at every packet width on the camera check rays")
@@ -1606,11 +2105,23 @@ def main(argv=None) -> int:
 
     if args.stages_only:
         stage_stats, traffic = stage_phase(dev, args.seed)
+        shutil.rmtree(STAGE_DIR, ignore_errors=True)
         flush = torch.empty(64 * 2 ** 20 // 4, dtype=torch.float32,
                             device=dev)
         held = hold_stage_traffic(traffic, flush)
         print("run: " + json.dumps({"shading_cache_stages": stage_stats,
                                     "stage_traffic": held,
+                                    "total_s": time.perf_counter() - t_run}))
+        print(f"card: {card_line()}")
+        return 0
+
+    if args.pipeline_only:
+        pipe_stats, train_traffic = pipeline_phase(dev, args.seed)
+        flush = torch.empty(64 * 2 ** 20 // 4, dtype=torch.float32,
+                            device=dev)
+        held = hold_stage_traffic(train_traffic, flush)
+        print("run: " + json.dumps({"pipeline": pipe_stats,
+                                    "trainer_traffic": held,
                                     "total_s": time.perf_counter() - t_run}))
         print(f"card: {card_line()}")
         return 0
@@ -1946,12 +2457,21 @@ def main(argv=None) -> int:
         for stage in STAGES:
             add_launches(st[stage])
 
-    # 11-12. each kernel on the largest input a main path gave it; the five
+    # 11. the training stages and the render CLI on the same datasets
+    pipe_stats, train_traffic = pipeline_phase(dev, args.seed,
+                                               new_datasets=False)
+    for st in pipe_stats.values():
+        for name in PIPE_CLIS:
+            add_launches(st[name])
+
+    # 12-13. each kernel on the largest input a main path gave it; the five
     # big-tree kernels on the same 518,400 rays of the 102K train step;
-    # trace_union and trace_paired_streamed also on the stages' traffic
+    # trace_union and trace_paired_streamed also on the stages' and the
+    # trainers' traffic
     flush = torch.empty(64 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
     held = hold_stage_traffic(traffic, flush)
-    del traffic
+    trainer_held = hold_stage_traffic(train_traffic, flush)
+    del traffic, train_traffic
     inputs = {"trace_union": flag_in, "trace_paired": mid_in,
               "trace_ordered": wide_in}
     trees = {"trace_paired": mid_tracer}
@@ -2029,12 +2549,14 @@ def main(argv=None) -> int:
             print(f"resources {name} at leaf size {tracer.leaf_size}: "
                   + ", ".join(f"{k} {v}" for k, v in res.items()))
         if name in held:
-            # the stages' traffic: the row's numbers are those of the
-            # largest input, the train step's input kept beside them
+            # the stages' and the trainers' traffic: the row's numbers are
+            # those of the largest input, the train step's input kept
+            # beside them
             row = rows[-1]
             row["max_abs_err"] = max([row["max_abs_err"]] + [
-                m["max_abs_err"] for m in held[name]])
+                m["max_abs_err"] for m in held[name] + trainer_held[name]])
             row["stage_traffic"] = held[name]
+            row["trainer_traffic"] = trainer_held[name]
             top = max(held[name], key=lambda m: m["rays"])
             if top["rays"] > row["rays"]:
                 moved = ("rays", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2102,7 +2624,7 @@ def main(argv=None) -> int:
         "clutter6k_leaf16": wide_stats, "clutter6k_leaf4": mid_stats,
         "train_flagship": flag_train, "train_clutter102k": big_train,
         "stages": stages, "ref32x2": ref_stats,
-        "shading_cache_stages": stage_stats,
+        "shading_cache_stages": stage_stats, "pipeline": pipe_stats,
         "five_on_102k_ms": turns, "five_on_102k_hits": agree,
         "packet_sweep_ms": sweep,
         "build_s": build_s, "total_s": time.perf_counter() - t_run}))
@@ -2111,7 +2633,7 @@ def main(argv=None) -> int:
               "main path")
     print(json.dumps({"kernels": rows}))
 
-    # 13. verdict
+    # 14. verdict
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

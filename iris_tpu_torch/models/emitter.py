@@ -14,6 +14,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from iris_tpu_torch.core.segment import segment_sum
 from iris_tpu_torch.core.vecmath import normalize
 from iris_tpu_torch.device import resolve_device
 from iris_tpu_torch.models.slf import VoxelSLF, slf_query
@@ -22,8 +23,8 @@ from iris_tpu_torch.models.slf import VoxelSLF, slf_query
 class _RadianceRows(torch.autograd.Function):
     """radiance[e_idx] with the JAX package's explicit backward
     (_radiance_rows, emitter.py:25-54): for K <= 256 emitters the adjoint
-    is onehot(e_idx)^T @ g, a skinny matrix product; above, a row
-    scatter-add."""
+    is onehot(e_idx)^T @ g, a skinny matrix product; above, a row segment
+    sum in an order the ids fix (core/segment.py)."""
 
     @staticmethod
     def forward(ctx, radiance, e_idx):
@@ -39,8 +40,7 @@ class _RadianceRows(torch.autograd.Function):
             onehot = (e_idx[:, None] == torch.arange(k, device=g.device)
                       ).to(g.dtype)
             return onehot.t() @ g, None
-        return torch.zeros((k, g.shape[-1]), dtype=g.dtype,
-                           device=g.device).index_add_(0, e_idx, g), None
+        return segment_sum(g, e_idx, k), None
 
 
 def radiance_rows(radiance: torch.Tensor, e_idx: torch.Tensor

@@ -8,8 +8,9 @@ renders run) and the stochastic-corner training estimators with explicit
 backward passes:
 
 - flat (the default): a 1-D (F*L*T,) table, feature j's level tables at
-  [j*L*T, (j+1)*L*T); one 1-D gather per feature and corner, one 1-D
-  index_add_ per feature and corner in the backward (hashgrid.py:181-249);
+  [j*L*T, (j+1)*L*T); one 1-D gather per feature and corner, and in the
+  backward one deterministic segment sum of every feature and corner
+  (hashgrid.py:181-249);
 - packed (packed_gather with n_features == 2, on by default): the same
   table read through a bfloat16 cast with both features of an entry in one
   32-bit word, one gather per corner, float32 accumulation and a float32
@@ -24,8 +25,11 @@ mode's is level-major and feature-minor, (B, L*F). Either is a fixed
 permutation that the first MLP layer absorbs.
 
 These are gathers, scatters and elementwise passes that the JAX package
-leaves to XLA, so plain PyTorch is their port. Nothing in the encode reads
-the device back: level blocks and phases are host integers.
+leaves to XLA, so plain PyTorch is their port. Every scatter of a backward
+is a segment sum whose order the indices fix (core/segment.py), so a
+training step gives the same gradient bits twice on the card, where
+`index_add_` would add with atomics. Nothing in the encode reads the
+device back: level blocks and phases are host integers.
 
 Randomness is explicit. The stochastic estimators draw from a
 torch.Generator, or take a `samples` dict that overrides every draw:
@@ -41,6 +45,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from iris_tpu_torch.core.segment import segment_sum
 
 _PRIMES = (1, 2654435761, 805459861)
 
@@ -176,8 +182,9 @@ def _lookup_packed_impl(table, idxs, weights, block):
 def _scatter_chosen(g, chosen_idx, phase, n_features, block, tsize,
                     levels=0, bwd_k=0, tbl=0, compact=False,
                     level_ids=None):
-    """(F, M) cotangent -> flat (tsize,) table cotangent by ONE 1-D
-    index_add_ per feature at the sampled corner (hashgrid.py:272-324).
+    """(F, M) cotangent -> flat (tsize,) = (F*block,) table cotangent by
+    ONE segment sum of every feature at the sampled corner
+    (hashgrid.py:272-324).
 
     With 0 < bwd_k < levels: strided level-block subsampling. Flat
     m = q*levels + lvl with lvl = j*stride + r; keep r == phase, scale by
@@ -187,7 +194,8 @@ def _scatter_chosen(g, chosen_idx, phase, n_features, block, tsize,
     index of one slot column shares a level block); otherwise one scatter
     per feature over the whole table. level_ids names the level of each of
     the `levels` columns (default 0..levels-1; the encode passes the
-    forward-sampled levels), so a slot's block is a host integer."""
+    forward-sampled levels), so a slot's block is a host integer. All
+    slots share one segment sum."""
     cols = [g[j] for j in range(g.shape[0])]
     k_slots = levels or 1
     stride = 1
@@ -199,21 +207,24 @@ def _scatter_chosen(g, chosen_idx, phase, n_features, block, tsize,
         cols = [c.reshape(b, bwd_k, stride)[:, :, phase].reshape(b * bwd_k)
                 * float(stride) for c in cols]
         k_slots = bwd_k
-    acc = torch.zeros(tsize, dtype=cols[0].dtype, device=cols[0].device)
     if not (compact and 0 < tbl < block and k_slots * len(cols) <= 32):
-        for j, c in enumerate(cols):
-            acc.index_add_(0, chosen_idx + j * block, c)
-        return acc
+        # (block, F) sums, feature-major as the table
+        return segment_sum(torch.stack(cols, 1), chosen_idx, block) \
+            .t().reshape(tsize)
+    acc = torch.zeros(tsize, dtype=cols[0].dtype, device=cols[0].device)
     if level_ids is None:
         level_ids = range(levels)
     b = chosen_idx.shape[0] // k_slots
-    idx2 = chosen_idx.reshape(b, k_slots)
+    # every slot's local indices in one sum, slot s at [s*tbl, (s+1)*tbl)
+    slot_key = (chosen_idx.reshape(b, k_slots) & (tbl - 1)) + torch.arange(
+        k_slots, device=chosen_idx.device) * tbl
+    sums = segment_sum(torch.stack(cols, 1), slot_key.reshape(-1),
+                       k_slots * tbl).reshape(k_slots, tbl, len(cols))
     for s in range(k_slots):
-        local = idx2[:, s] & (tbl - 1)
         base = level_ids[s * stride + (phase if stride > 1 else 0)] * tbl
-        for j, c in enumerate(cols):
+        for j in range(len(cols)):
             lo = base + j * block
-            acc[lo:lo + tbl].index_add_(0, local, c.reshape(b, k_slots)[:, s])
+            acc[lo:lo + tbl] += sums[s, :, j]
     return acc
 
 
@@ -245,13 +256,11 @@ def _stoch_gather_impl(table, chosen_idx, n_features, block, packed,
 
 
 def _flat_bwd(g, idxs, weights, n_features, block, tsize):
-    """Exact cotangent: one 1-D index_add_ per feature and corner
-    (_weighted_lookup_bwd, hashgrid.py:234-246)."""
-    acc = torch.zeros(tsize, dtype=g.dtype, device=g.device)
-    for j in range(n_features):
-        for k in range(idxs.shape[0]):
-            acc.index_add_(0, idxs[k] + j * block, g[j] * weights[k])
-    return acc
+    """Exact cotangent (_weighted_lookup_bwd, hashgrid.py:234-246): g (F,
+    M) times each corner's weight, summed into the (block, F) entries in
+    corner-major order by one segment sum, laid out feature-major."""
+    rows = (weights[:, :, None] * g.t()[None]).reshape(-1, n_features)
+    return segment_sum(rows, idxs.reshape(-1), block).t().reshape(tsize)
 
 
 class _WeightedLookup(torch.autograd.Function):
@@ -343,16 +352,16 @@ def stoch_lookup(table, chosen_idx, phase, n_features, block, packed, levels,
 
 def _row_scatter_chosen(g_rows, chosen_idx, phase, lt, levels, bwd_k,
                         tsize=0, compact=None):
-    """(M, F) cotangent -> (L*T, F) table cotangent by ONE row scatter per
-    query at the sampled corner row (hashgrid.py:426-472).
+    """(M, F) cotangent -> (L*T, F) table cotangent by ONE row segment sum
+    at the sampled corner rows (hashgrid.py:426-472).
 
     With 0 < bwd_k < levels: strided level-block subsampling. Flat
     m = q*levels + lvl with lvl = j*stride + r; keep r == phase and scale
     by stride. With `compact` ("bfloat16" or "float32"), tsize < lt and at
     most 16 slots: each kept level's rows go into a (tsize, F) buffer of
-    that dtype (every index of one slot column shares a level block), and
-    the buffers are placed into the full cotangent; otherwise one scatter
-    into the full table."""
+    that dtype (every index of one slot column shares a level block), all
+    slots in one segment sum, and the buffers are placed into the full
+    cotangent; otherwise one segment sum into the full table."""
     f = g_rows.shape[1]
     k_slots = levels or 1
     if bwd_k and levels and bwd_k < levels:
@@ -363,22 +372,24 @@ def _row_scatter_chosen(g_rows, chosen_idx, phase, lt, levels, bwd_k,
         g_rows = g_rows.reshape(b, bwd_k, stride, f)[:, :, phase] \
             .reshape(b * bwd_k, f) * float(stride)
         k_slots = bwd_k
-    full = torch.zeros((lt, f), dtype=g_rows.dtype, device=g_rows.device)
     if not (compact and 0 < tsize < lt and k_slots <= 16):
-        return full.index_add_(0, chosen_idx, g_rows)
+        return segment_sum(g_rows, chosen_idx, lt)
+    full = torch.zeros((lt, f), dtype=g_rows.dtype, device=g_rows.device)
     out_dtype = g_rows.dtype
     acc_dtype = torch.bfloat16 if compact == "bfloat16" else out_dtype
     b = chosen_idx.shape[0] // k_slots
+    if b == 0:
+        return full
     idx2 = chosen_idx.reshape(b, k_slots)
-    g3 = g_rows.to(acc_dtype).reshape(b, k_slots, f)
-    blocks = full.view(lt // tsize, tsize, f)
-    for j in range(k_slots):
-        local = idx2[:, j] & (tsize - 1)
-        block = idx2[:1, j] // tsize        # uniform level block per slot
-        buf = torch.zeros((tsize, f), dtype=acc_dtype, device=g_rows.device)
-        buf.index_add_(0, local, g3[:, j])
-        # placed by a device-side index: no host read of the block id
-        blocks.index_copy_(0, block, buf.to(out_dtype)[None])
+    # every slot's local rows in one sum, slot j at [j*tsize, (j+1)*tsize)
+    slot_key = (idx2 & (tsize - 1)) + torch.arange(
+        k_slots, device=idx2.device) * tsize
+    bufs = segment_sum(g_rows.to(acc_dtype), slot_key.reshape(-1),
+                       k_slots * tsize).reshape(k_slots, tsize, f)
+    # each slot's level block, uniform over the slot's column, placed by a
+    # device-side index: no host read of the block ids
+    full.view(lt // tsize, tsize, f).index_copy_(0, idx2[0] // tsize,
+                                                 bufs.to(out_dtype))
     return full
 
 
@@ -412,11 +423,9 @@ class _RowWeighted(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         idxs, weights = ctx.saved_tensors
-        acc = torch.zeros((ctx.lt, g.shape[1]), dtype=g.dtype,
-                          device=g.device)
-        for k in range(idxs.shape[0]):
-            acc.index_add_(0, idxs[k], g * weights[k][:, None])
-        return acc, None, None
+        # every corner's rows in one corner-major segment sum
+        rows = (weights[:, :, None] * g[None]).reshape(-1, g.shape[1])
+        return segment_sum(rows, idxs.reshape(-1), ctx.lt), None, None
 
 
 class _RowStochBwd(torch.autograd.Function):

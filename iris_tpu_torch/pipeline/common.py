@@ -6,8 +6,8 @@ each package reads what the other writes: vslf.npz (SLF bake, keys mask,
 voxel_min, voxel_max, radiance, count) and emitter.npz (emitter
 extraction, keys is_emitter, emitter_vertices, emitter_area,
 emitter_normal, emitter_radiance). Checkpoint .pkl files are the port's
-own (train/checkpoint.py). mesh_batch_size, which rounds a batch to a JAX
-device mesh, waits for the port's parallel module.
+own (train/checkpoint.py). mesh_batch_size runs on one device: a run
+over several waits for the port of iris_tpu/parallel/.
 """
 
 from __future__ import annotations
@@ -28,6 +28,20 @@ from iris_tpu_torch.models.hashgrid import (
     HashGridConfig, auto_bwd_level_sample,
 )
 from iris_tpu_torch.models.slf import VoxelSLF, init_voxel_slf
+
+
+def mesh_batch_size(batch_size: int, n_devices: int | None = None,
+                    name: str = "train") -> int:
+    """The ray batch of a run over `n_devices` (iris_tpu/pipeline/common.py:24
+    rounds it down to a multiple of the data mesh's width). The port trains
+    on one device: None or 1 leaves the batch as it is; more raises, so
+    that a run asked to spread never runs on one device in silence."""
+    if n_devices is None or int(n_devices) == 1:
+        return batch_size
+    raise NotImplementedError(
+        f"[{name}] --n_devices {n_devices}: training over several devices "
+        "waits for the port of iris_tpu/parallel/ (torch.distributed); "
+        "this port trains on one device")
 
 
 def resolve_mesh_path(dataset: str, dataset_root: str, scene: str = ""
@@ -59,6 +73,19 @@ def make_dataset(args, split: str, **kw):
     common.update(kw)
     return load_dataset(ds_name, ds_path, scene=args.scene, split=split,
                         **common)
+
+
+def val_frame(args, stage: str):
+    """(val dataset, its frame args.val_frame, or the last) for a trainer's
+    validation hooks, or (None, None) where the dataset has no val split:
+    only that is skipped, with the JAX package's message. Any other
+    failure raises (the JAX trainers catch every exception here)."""
+    try:
+        val_ds = make_dataset(args, "val")
+    except FileNotFoundError as e:   # the val split is optional
+        print(f"[{stage}] no validation split:", e)
+        return None, None
+    return val_ds, val_ds.frame(min(args.val_frame, len(val_ds) - 1))
 
 
 def stage_dataset(args):

@@ -1,19 +1,46 @@
-"""Render stills + intrinsic AOVs (counterpart of the render functions of
+"""Render stills + intrinsic AOVs + PSNR/SSIM metrics (counterpart of
 iris_tpu/pipeline/render.py; reference render.py): per frame, SPP-chunked
 path_tracing and an AOV pass (kd, a' = g0*ks + g1 + kd reflectance,
-roughness, metallic, emission, slf). The CLI (main), which needs the
-dataset loaders, checkpoints, EXR output and the denoiser, waits for a
-later slice."""
+roughness, metallic, emission, slf), denoise, CRF to LDR, PSNR/SSIM
+against the frame's LDR, metrics.txt. Every EXR and PNG keeps the JAX
+package's name. Runs on the card unless --device says otherwise.
+
+Usage: python -m iris_tpu_torch.pipeline.render --dataset synthetic <root>
+           --ldr_img_dir ldr --emitter_path <bake dir> --experiment_name x
+           --output_path outputs/x/render [--split val] [--max_frames N]
+"""
 
 from __future__ import annotations
 
+import functools
+import os
+from argparse import ArgumentParser
+from dataclasses import replace as dc_replace
+from pathlib import Path
+
+import numpy as np
 import torch
 
 from iris_tpu_torch.core.vecmath import normalize
+from iris_tpu_torch.device import resolve_device
 from iris_tpu_torch.geometry.intersect import ray_intersect
 from iris_tpu_torch.models import brdf as B
+from iris_tpu_torch.models.brdf import ngp_brdf_apply
+from iris_tpu_torch.models.crf import crf_forward, init_emor_crf
 from iris_tpu_torch.models.emitter import eval_emitter, slf_forward
+from iris_tpu_torch.pipeline.common import (
+    load_emitter, load_scene, load_vslf, make_dataset,
+)
+from iris_tpu_torch.pipeline.config import add_model_specific_args
+from iris_tpu_torch.render.denoise import denoise_hdr
 from iris_tpu_torch.render.integrator import draw_uniform, path_tracing
+from iris_tpu_torch.train.checkpoint import load_pytree
+from iris_tpu_torch.utils.exr import write_exr
+from iris_tpu_torch.utils.image import save_image
+from iris_tpu_torch.utils.metrics import psnr, ssim
+
+AOV_DIRS = ("rgb", "diffuse", "a_prime", "roughness", "metallic", "emission",
+            "slf", "merge")
 
 
 def make_render_fns(tracer, em, mat_fn, spp, indir_depth):
@@ -86,3 +113,120 @@ def render_frame(render_chunk, aov_chunk, rays, n_rounds, gen):
     l_full = (l_full / n_rounds).cpu().numpy()
     aovs = [(x / n_rounds).cpu().numpy() for x in aovs]
     return l_full, aovs
+
+
+def main(argv=None):
+    parser = add_model_specific_args(ArgumentParser())
+    parser.add_argument("--experiment_name", type=str, required=True)
+    parser.add_argument("--checkpoint_path", type=str,
+                        default="./checkpoints")
+    parser.add_argument("--output_path", type=str, required=True)
+    parser.add_argument("--split", type=str, default="val")
+    parser.add_argument("--ckpt", type=str, default="last.pkl")
+    parser.add_argument("--light_type", type=str, default="slf",
+                        choices=["slf", "area"])
+    parser.add_argument("--max_frames", type=int, default=0,
+                        help="render only the first N frames (0 = all)")
+    parser.add_argument("--device", type=str, default=None,
+                        help="torch device (default: the card)")
+    args = parser.parse_args(argv)
+    dev = resolve_device(args.device)
+
+    ds_name, ds_root = args.dataset
+    scene_id = args.scene if ds_name == "scannetpp" else ""
+    mesh, tracer = load_scene(ds_name, ds_root, scene_id, device=dev)
+
+    # the refined SLF (slf_refine) where there is one
+    emitter_dir = args.emitter_path
+    slf_file = os.path.join(emitter_dir, "vslf_0.npz")
+    if not os.path.exists(slf_file):
+        slf_file = os.path.join(emitter_dir, "vslf.npz")
+    slf, _ = load_vslf(slf_file, device=dev)
+    em = load_emitter(os.path.join(emitter_dir, "emitter.npz"), mesh,
+                      slf=slf, device=dev)
+
+    ckpt = load_pytree(
+        os.path.join(args.checkpoint_path, args.experiment_name, args.ckpt),
+        dev)
+    material = ckpt["material"]
+    crf = init_emor_crf(dim=args.crf_basis, device=dev)
+    if "crf_weight" in ckpt:
+        crf = dc_replace(crf, weight=ckpt["crf_weight"])
+    if "radiance" in ckpt:
+        em = dc_replace(em, radiance=ckpt["radiance"])
+    mat_fn = functools.partial(ngp_brdf_apply, material)
+
+    dataset = make_dataset(args, args.split)
+    h, w = dataset.img_hw
+
+    dirs = {}
+    for name in AOV_DIRS:
+        d = Path(args.output_path) / args.split / name
+        d.mkdir(exist_ok=True, parents=True)
+        dirs[name] = d
+
+    render_chunk, aov_chunk = make_render_fns(tracer, em, mat_fn, args.spp,
+                                              args.indir_depth)
+    n_rounds = max(args.SPP // args.spp, 1)
+
+    n_frames = len(dataset)
+    if args.max_frames:
+        n_frames = min(n_frames, args.max_frames)
+    psnrs, ssims = [], []
+    for i in range(n_frames):
+        fr = dataset.frame(i)
+        rays = torch.from_numpy(np.ascontiguousarray(fr["rays"])).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(i)
+        l_full, aovs = render_frame(render_chunk, aov_chunk, rays, n_rounds,
+                                    gen)
+        kd, a_prime, rough, metal, emission, slf_v = aovs
+
+        img = denoise_hdr(l_full.reshape(h, w, 3),
+                          albedo=kd.reshape(h, w, 3), device=dev)
+        write_exr(str(dirs["rgb"] / f"{i:05d}_rgb_full.exr"), img)
+        exposure = fr.get("exposure")
+        exposure = 1.0 if exposure is None else float(exposure)
+        with torch.no_grad():
+            ldr = crf_forward(crf, torch.from_numpy(img.reshape(-1, 3))
+                              .to(dev), exposure)
+        ldr = ldr.cpu().numpy().reshape(h, w, 3)
+        save_image(ldr, str(dirs["rgb"] / f"{i:05d}_rgb_full.png"))
+
+        gt = np.asarray(fr["rgbs"]).reshape(h, w, 3)
+        psnrs.append(psnr(gt, ldr))
+        ssims.append(ssim(gt, ldr))
+
+        for name, arr in [("diffuse", kd), ("a_prime", a_prime)]:
+            arr = arr.reshape(h, w, 3)
+            write_exr(str(dirs[name] / f"{i:05d}_{name}.exr"), arr)
+            save_image(arr, str(dirs[name] / f"{i:05d}_{name}.png"))
+        for name, arr in [("roughness", rough), ("metallic", metal)]:
+            arr = arr.reshape(h, w)
+            write_exr(str(dirs[name] / f"{i:05d}_{name}.exr"), arr)
+            save_image(arr, str(dirs[name] / f"{i:05d}_{name}_color.png"),
+                       colormap=True)
+        emission_img = emission.reshape(h, w, 3)
+        write_exr(str(dirs["emission"] / f"{i:05d}_emission.exr"),
+                  emission_img)
+        save_image(emission_img, str(dirs["emission"] / f"{i:05d}.png"))
+        write_exr(str(dirs["slf"] / f"{i:05d}_slf.exr"),
+                  slf_v.reshape(h, w, 3))
+        rough3 = np.repeat(rough.reshape(h, w, 1), 3, -1)
+        metal3 = np.repeat(metal.reshape(h, w, 1), 3, -1)
+        merge = np.concatenate(
+            [gt, ldr, kd.reshape(h, w, 3), a_prime.reshape(h, w, 3),
+             rough3, metal3, emission_img], axis=1)
+        save_image(merge, str(dirs["merge"] / f"{i:05d}_merge.png"))
+        print(f"frame {i}: psnr={psnrs[-1]:.3f} ssim={ssims[-1]:.4f}")
+
+    print(f"Mean PSNR: {np.mean(psnrs):.5f}")
+    print(f"Mean SSIM: {np.mean(ssims):.5f}")
+    with open(dirs["rgb"] / "metrics.txt", "w") as f:
+        f.write("Name, PSNR, SSIM\n")
+        for i, (p, s) in enumerate(zip(psnrs, ssims)):
+            f.write(f"{i:05d}, {p:.5f}, {s:.5f}\n")
+        f.write(f"mean , {np.mean(psnrs):.5f}, {np.mean(ssims):.5f}\n")
+
+
+if __name__ == "__main__":
+    main()

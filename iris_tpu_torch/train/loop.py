@@ -12,6 +12,7 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Iterable
 
+import numpy as np
 import torch
 
 from iris_tpu_torch.train.optim import Optimizer, named_leaves
@@ -76,6 +77,19 @@ def _params_device(params) -> torch.device:
     return named_leaves(params)[0][1].device
 
 
+def batch_to_device(batch: dict, device) -> dict:
+    """A batch dict with every numpy array or tensor on `device` (numpy
+    arrays, as RayBatcher yields them from the host bank, are copied over
+    once; None stays None): the role of shard_batch at
+    iris_tpu/train/loop.py:179 on one device."""
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, np.ndarray):
+            v = torch.from_numpy(np.ascontiguousarray(v))
+        out[k] = v.to(device) if isinstance(v, torch.Tensor) else v
+    return out
+
+
 def run_training(loss_fn: Callable, params: dict, batches: Iterable,
                  optimizer: Optimizer, n_steps: int, seed: int,
                  log_every: int = 50, log_fn: Callable | None = print,
@@ -84,8 +98,10 @@ def run_training(loss_fn: Callable, params: dict, batches: Iterable,
                  return_state: bool = False, chunk_steps: int = 1,
                  samples_for_step: Callable | None = None):
     """Drive training for steps [start_step, n_steps) over `batches`, an
-    iterator of batch dicts already positioned at start_step. The
-    parameters are updated in place, on the device they lie on.
+    iterator of batch dicts already positioned at start_step (numpy arrays
+    or tensors: each step's batch goes to the parameters' device once,
+    batch_to_device). The parameters are updated in place, on the device
+    they lie on.
 
     Full-state resume: pass the restored `opt_state` and `start_step`
     (train.checkpoint.load_train_state); every step draws from
@@ -124,8 +140,8 @@ def run_training(loss_fn: Callable, params: dict, batches: Iterable,
             s = step + j
             samples = samples_for_step(s) if samples_for_step else None
             params, opt_state, loss, aux = step_fn(
-                params, opt_state, batch, step_generator(seed, s, device),
-                samples)
+                params, opt_state, batch_to_device(batch, device),
+                step_generator(seed, s, device), samples)
             results.append((s, loss, aux))
         for s, loss, aux in results:
             if hooks:

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from iris_tpu_torch.core.ggx import lerp_specular
+from iris_tpu_torch.core.segment import segment_sum
 from iris_tpu_torch.core.vecmath import normalize
 from iris_tpu_torch.geometry.intersect import ray_intersect
 from iris_tpu_torch.models.brdf import NGPBRDF, ngp_brdf_apply
@@ -98,8 +99,8 @@ def check_max_segments(segmentation, max_segments: int):
 
 
 class _Gather1d(torch.autograd.Function):
-    """x[idx] for 1-D x and flat idx with an explicit index_add backward
-    (_gather1d, steps.py:105-123)."""
+    """x[idx] for 1-D x and flat idx with an explicit backward, a segment
+    sum in an order the indices fix (_gather1d, steps.py:105-123)."""
 
     @staticmethod
     def forward(ctx, x, idx):
@@ -110,8 +111,7 @@ class _Gather1d(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        return torch.zeros(ctx.n, dtype=g.dtype, device=g.device
-                           ).index_add_(0, idx, g), None
+        return segment_sum(g, idx, ctx.n), None
 
 
 def _gather1d(x, idx):

@@ -2,11 +2,14 @@
 of iris_tpu/utils/losses.py; reference utils/loss.py compute_scale :14,
 compute_scale_shift :22, scale_invariant_mse :33,
 scale_shift_invariant_mse :39). The segment means replace the reference's
-torch_scatter patterns with index_add_ over a fixed segment count."""
+torch_scatter patterns with a deterministic segment sum over a fixed
+segment count (core/segment.py)."""
 
 from __future__ import annotations
 
 import torch
+
+from iris_tpu_torch.core.segment import segment_sum
 
 
 def compute_scale(source: torch.Tensor, target: torch.Tensor
@@ -49,12 +52,11 @@ def segment_mean(values: torch.Tensor, seg_ids: torch.Tensor,
     v = values if values.dim() > 1 else values[:, None]
     if weights is None:
         weights = torch.ones(v.shape[0], dtype=v.dtype, device=v.device)
-    wsum = torch.zeros(num_segments, dtype=v.dtype, device=v.device
-                       ).index_add(0, seg_ids, weights)
-    vsum = torch.zeros((num_segments, v.shape[1]), dtype=v.dtype,
-                       device=v.device
-                       ).index_add(0, seg_ids, v * weights[:, None])
-    mean = vsum / torch.clamp(wsum, min=1e-8)[:, None]
+    # the weighted values and the weights in one sum: each column is
+    # added on its own, so the bits are those of two sums
+    sums = segment_sum(torch.cat([v * weights[:, None], weights[:, None]],
+                                 1), seg_ids, num_segments)
+    mean = sums[:, :-1] / torch.clamp(sums[:, -1], min=1e-8)[:, None]
     per_elem = mean[seg_ids]
     if values.dim() == 1:
         return mean[:, 0], per_elem[:, 0]

@@ -437,3 +437,118 @@ def test_slf_bake_same_bits_twice(card, tmp_path):
     assert torch.equal(a.radiance, b.radiance)
     assert torch.equal(a.count, b.count)
     assert float(a.radiance.max()) > 0
+
+
+def _card_scene(card):
+    """A small production-layout scene on the card (4 x 16 row-mode grid
+    with the trainers' estimators: stochastic forward and backward, one
+    level block of four, compact bf16 scatter) and 1,024 camera rays."""
+    import dataclasses
+
+    from iris_tpu_torch.demo import make_demo_scene
+    from iris_tpu_torch.models.hashgrid import auto_bwd_level_sample
+
+    tracer, em, ngp, crf, _ = make_demo_scene(
+        n_clutter=12, slf_res=16, hash_levels=4, hash_features=16,
+        per_level_scale=-1.0, log2_table=14, device=card)
+    ngp = dataclasses.replace(ngp, cfg=dataclasses.replace(
+        ngp.cfg, stochastic_fwd=True, stochastic_bwd=True,
+        bwd_level_sample=auto_bwd_level_sample(4)))
+    o, d, dxdu, dydv = camera_rays(32)
+    rays = torch.from_numpy(np.concatenate([o, d, dxdu, dydv], -1)
+                            .astype(np.float32)).to(card)
+    return tracer, em, ngp, crf, rays
+
+
+def _grads_twice(loss_fn, params, batch, card):
+    from iris_tpu_torch.train.loop import step_generator, value_and_grad
+
+    out = [value_and_grad(loss_fn, params, batch,
+                          step_generator(0, 7, card)) for _ in range(2)]
+    (la, _, ga), (lb, _, gb) = out
+    assert torch.equal(la, lb) and ga.keys() == gb.keys()
+    for name in ga:
+        assert torch.equal(ga[name], gb[name]), name
+    return ga
+
+
+def test_benchmark_step_same_gradient_bits_twice(card):
+    """One step of the benchmark loss (fwd+bwd of
+    crf_forward(path_tracing_single) against 0.5, spp 8), twice from the
+    same parameters and the same generator: the same loss and gradient
+    bits in every leaf. Every scatter of the backward is an order-fixed
+    segment sum; index_add_ would add with atomics in an order that
+    changes from run to run."""
+    import dataclasses
+    import functools
+
+    from iris_tpu_torch.models.brdf import ngp_brdf_apply
+    from iris_tpu_torch.models.crf import crf_forward
+    from iris_tpu_torch.render.integrator import path_tracing_single
+
+    tracer, em, ngp, crf, rays = _card_scene(card)
+    o, d, dxdu, dydv = (rays[:, i:i + 3] for i in (0, 3, 6, 9))
+
+    def loss_fn(p, batch, gen, samples=None):
+        em2 = dataclasses.replace(em, radiance=p["radiance"])
+        crf2 = dataclasses.replace(crf, weight=p["crf_w"])
+        mat_fn = functools.partial(ngp_brdf_apply, p["material"], gen=gen)
+        l = path_tracing_single(gen, tracer, em2, mat_fn, o, d, dxdu, dydv,
+                                8)
+        loss = torch.mean((crf_forward(crf2, l, 1.0) - 0.5) ** 2)
+        return loss, {}
+
+    grads = _grads_twice(loss_fn, {"material": ngp,
+                                   "radiance": em.radiance.clone(),
+                                   "crf_w": crf.weight.clone()}, {}, card)
+    assert float(grads["material.table"].abs().max()) > 0
+
+
+def test_brdf_crf_step_same_gradient_bits_twice(card):
+    """A train_brdf_crf step with the semantic propagation loss (its
+    partner gather's backward) and the albedo anchor (segment means),
+    twice under the same generator: the same gradient bits."""
+    from iris_tpu_torch.models.crf import init_emor_crf
+    from iris_tpu_torch.train.steps import LossConfig, make_brdf_crf_loss
+
+    tracer, _, ngp, _, rays = _card_scene(card)
+    gen = torch.Generator(device=card).manual_seed(3)
+    b = rays.shape[0]
+    batch = {"rays": rays, "rgbs": torch.rand((b, 3), generator=gen,
+                                              device=card),
+             "diffuse": torch.rand((b, 3), generator=gen, device=card),
+             "specular0": torch.rand((b, 6, 3), generator=gen, device=card),
+             "specular1": torch.rand((b, 6, 3), generator=gen, device=card),
+             "segmentation": torch.randint(0, 9, (b,), generator=gen,
+                                           device=card).float(),
+             "int_albedo": torch.rand((b, 3), generator=gen, device=card)}
+    cfg = LossConfig(has_part=False, la=0.01, n_pairs=64)
+    crf = init_emor_crf(device=card)
+    loss_fn = make_brdf_crf_loss(tracer, crf, cfg, float(ngp.voxel_min),
+                                 float(ngp.voxel_max))
+    grads = _grads_twice(loss_fn, {"material": ngp,
+                                   "crf_weight": crf.weight.clone()},
+                         batch, card)
+    assert float(grads["material.table"].abs().max()) > 0
+
+
+def test_segment_mean_same_bits_twice(card):
+    """The losses' segment means, forward and backward, twice on the card:
+    the same bits; within float rounding of the CPU's."""
+    from iris_tpu_torch.utils.losses import segment_mean
+
+    gen = torch.Generator().manual_seed(1)
+    n = 1 << 18
+    vals = torch.rand((n, 3), generator=gen)
+    w = torch.rand(n, generator=gen)
+    ids = torch.randint(0, 128, (n,), generator=gen)
+    outs = []
+    for _ in range(2):
+        v = vals.to(card).requires_grad_(True)
+        mean, per_elem = segment_mean(v, ids.to(card), 128, w.to(card))
+        (g,) = torch.autograd.grad(torch.sum(per_elem * per_elem), v)
+        outs.append((mean, per_elem, g))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    mean_cpu, _ = segment_mean(vals, ids, 128, w)
+    assert torch.allclose(outs[0][0].cpu(), mean_cpu, rtol=1e-5, atol=1e-7)
