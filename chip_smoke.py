@@ -5,6 +5,7 @@
     python3 chip_smoke.py --sweep-only [--counts]
     python3 chip_smoke.py --stages-only
     python3 chip_smoke.py --pipeline-only
+    python3 chip_smoke.py --relight-only
 
 Needs one NVIDIA card (sm_90a: H100/H200), nvcc and g++. It builds the
 traversal kernels from iris_tpu_torch/csrc/traverse.cu and the SAH builder
@@ -143,8 +144,39 @@ from csrc/bvh_builder.cpp, then:
    rows of the four per-ray walks add this run's pops, warp_steps and
    lane_busy on the row's input, and those four numbers of the path's
    instantiation; trace_union's row adds its time and bound on the
-   518,400 rays of the 102K train step;
-14. prints the card line again and, last, the run's JSON verdict.
+   518,400 rays of the 102K train step, and the rows of trace_union and
+   trace_paired_streamed their numbers on phase 14's traffic under
+   "relight_traffic";
+14. (run right after phase 11, its traffic held in phase 13) drives the
+   consumers of phase 11's trained scene on both datasets, each CLI
+   through its main(argv) on the card with brdf1's checkpoint (the 4 x 16
+   x 2^19 row-mode grid) and the bake directory: extract_emitter_mesh
+   (emitter.ply); render_video --n_interp 2 at phase 11's render settings
+   (SPP 128 at spp 32, depth 5) with the AOV videos; and render_relight
+   --mode traj --n_frames 2 at relight_demo.sh's SPP 32 / spp 8 on three
+   configs: scripts/relight/demo_ball.yaml with --disco 1 (a sphere
+   emitter, an Au conductor, depth 3, a 20-light disco ball), a
+   relight_1-shaped config (the emitter swap onto that emitter.ply and
+   scannetpp/bathroom2/relight_1.yaml's disco block: 40 lights and
+   spots, radius 0.2; depth 7) and an insert-shaped one (an OBJ written
+   here, inserted as an Au conductor and as a roughconductor; depth 7).
+   Per run it prints wall seconds, ms a round (CUDA events), rays traced a
+   round (the spots' S x n shadow rays counted), seconds a frame,
+   launches by kernel and peak device memory. Hard checks: every PNG and
+   video (an mp4 or a frames directory) under the JAX package's names;
+   every relight and video frame finite, within [0, 1] and not black (the
+   AOV videos' frames finite and within [0, 1]); the disco frames
+   apart; each scene's BVHs built exactly once (1 + [disco ball]); the
+   launches exactly (1 + D (2 + [spots])) (1 + [disco ball]) a round, the
+   static soup on the dataset's kernel and the disco ball's tree on
+   trace_union; and on the flagship a 16 x 16 relight (spp 4, depth 2,
+   the disco ball and its 20 spots) on the card and on the CPU under the
+   same samples, 95% of values within rtol 2e-3 / atol 1e-4. The
+   relight_1 run's largest traces (its 40 spots' shadow rays, 24.6M on a
+   240 x 320 frame at spp 8) are kept for phase 13: on the flagship's
+   static tree and the disco ball's tree (trace_union), on the 102K
+   soup (trace_paired_streamed);
+15. prints the card line again and, last, the run's JSON verdict.
 
 Any failed check raises, and the script then exits non-zero with no
 verdict line. It imports nothing of JAX or of the JAX package.
@@ -155,6 +187,11 @@ verdict line. It imports nothing of JAX or of the JAX package.
 --pipeline-only runs phases 1-2, then phase 11 on two new datasets (their
 SLF baked first) and the trainer-traffic holds of 13 alone (about three
 minutes on an H100), and prints no verdict line.
+
+--relight-only runs phases 1-2, writes the two datasets with their SLF
+and emitter mask (the generator's light as its radiance) and the
+production material from --seed as brdf1's checkpoint, then phase 14 and
+its holds alone (no verdict line).
 
 --sweep-only runs phases 1-2, builds the 102,014-face scene, takes the
 518,400 rays of one train step and runs the width sweep of phase 12 alone
@@ -248,6 +285,22 @@ PIPE_STEPS = 20
 PIPE_CHUNK = 10                # chunk_steps, val_step and save_every
 PIPE_CLIS = ("initialize", "bake_shading", "train_brdf_crf", "slf_refine",
              "train_emitter", "refine_shading", "brdf1", "render")
+# phase 14: the consumers of phase 11's trained scene; relight_demo.sh's
+# SPP 32 at spp 8, frames cut to 2
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+DEMO_BALL = os.path.join(REPO_DIR, "scripts", "relight", "demo_ball.yaml")
+RELIGHT_SPP = 32
+RELIGHT_SPP_ROUND = 8
+RELIGHT_FRAMES = 2
+VIDEO_INTERP = 2
+# scripts/relight/scannetpp/bathroom2/insert.yaml:39, the emitter swap's
+# radiance, and a disco position inside the room
+RELIGHT_SWAP_RADIANCE = [9.040693, 9.697464, 10.583247]
+RELIGHT_DISCO_POSITION = (1.0, 1.0, 0.7)
+# the run whose 40-spot shadow traces phase 13 holds
+RELIGHT_HELD = "relight_1"
+# the small relight held card against CPU: side, spp, depth
+RELIGHT_CHECK = (16, 4, 2)
 
 
 def check(ok: bool, what: str) -> None:
@@ -369,9 +422,12 @@ class record_largest_trace:
     """While active, keeps the largest (origins, directions) batch that
     geometry.intersect.ray_trace is given, as the kernel receives it (after
     the spatial sort), and the tree it was traced against. Entered again,
-    it goes on keeping the largest batch of every stretch it was active."""
+    it goes on keeping the largest batch of every stretch it was active.
+    With by_tree, it keeps the largest batch of each tree: {the tree's
+    n_faces: that record}."""
 
-    def __init__(self):
+    def __init__(self, by_tree=False):
+        self.by_tree = by_tree
         self.captured = {}
 
     def __enter__(self):
@@ -379,13 +435,15 @@ class record_largest_trace:
 
         self._intersect = intersect
         self._ray_trace = ray_trace = intersect.ray_trace
-        captured = self.captured
+        captured, by_tree = self.captured, self.by_tree
 
         def recording(tr, xs, ds):
-            if xs.shape[0] > captured.get("n", 0):
-                captured.update(n=xs.shape[0], tracer=tr,
-                                o=xs.detach().float().contiguous().clone(),
-                                d=ds.detach().float().contiguous().clone())
+            cap = (captured.setdefault(tr.n_faces, {}) if by_tree
+                   else captured)
+            if xs.shape[0] > cap.get("n", 0):
+                cap.update(n=xs.shape[0], tracer=tr,
+                           o=xs.detach().float().contiguous().clone(),
+                           d=ds.detach().float().contiguous().clone())
             return ray_trace(tr, xs, ds)
 
         intersect.ray_trace = recording
@@ -1328,7 +1386,8 @@ def pipeline_phase(dev, seed, new_datasets=True):
     """Phase 11 on both datasets, printed: the chain on phase 10's
     datasets and SLF bakes, or with new_datasets on new ones with their
     SLF baked here (--pipeline-only). Returns the stats by dataset and the
-    trainers' traffic for hold_stage_traffic; removes STAGE_DIR."""
+    trainers' traffic for hold_stage_traffic. The work directories stay
+    under STAGE_DIR for phase 14."""
     from iris_tpu_torch.pipeline import slf_bake
 
     print(f"pipeline: the training stages and the render CLI on the "
@@ -1371,8 +1430,472 @@ def pipeline_phase(dev, seed, new_datasets=True):
         print(f"pipeline {label}: {st['total_s']:.1f} s in all")
         stats[label] = st
         traffic.append((label, kernel, captured))
-    shutil.rmtree(STAGE_DIR, ignore_errors=True)
     return stats, traffic
+
+
+class watch_relight:
+    """While active, a render_relight run is watched: each round's
+    relight_path_tracing bracketed by CUDA events, every BVH build counted,
+    the scene it builds kept, and every frame it saves kept with its
+    statistics."""
+
+    def __enter__(self):
+        import numpy as np
+        import torch
+
+        from iris_tpu_torch.pipeline import render_relight
+        from iris_tpu_torch.render import relight
+
+        self._saved = [(render_relight, n) for n in (
+            "relight_path_tracing", "build_relight_scene", "save_image")]
+        self._saved.append((relight, "build_bvh"))
+        self._orig = [getattr(m, n) for m, n in self._saved]
+        trace, build_scene, save, build_bvh = self._orig
+        self.events, self.builds, self.frames, self.scenes = [], [], [], []
+
+        def timed(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = trace(*a, **k)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        def keep_scene(*a, **k):
+            scene = build_scene(*a, **k)
+            self.scenes.append(scene)
+            return scene
+
+        def keep_frame(img, path, **k):
+            self.frames.append(np.asarray(img, np.float32).copy())
+            return save(img, path, **k)
+
+        def counted(tris, **k):
+            self.builds.append(len(tris))
+            return build_bvh(tris, **k)
+
+        for (m, n), f in zip(self._saved, (timed, keep_scene, keep_frame,
+                                           counted)):
+            setattr(m, n, f)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n), f in zip(self._saved, self._orig):
+            setattr(m, n, f)
+
+    def round_ms(self):
+        import torch
+
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def relight_yamls(work, emitter_ply):
+    """The phase's two written configs: relight_1-shaped (the emitter swap
+    onto `emitter_ply` with the radiance of
+    scripts/relight/scannetpp/bathroom2/insert.yaml:39, and the disco_ball
+    block of scannetpp/bathroom2/relight_1.yaml placed inside the room,
+    D = 7) and insert-shaped (an OBJ written here, inserted twice: Au
+    conductor and roughconductor, D = 7, tests/test_relight_configs.py's
+    shape). Returns {name: path}."""
+    obj = os.path.join(work, "asset.obj")
+    with open(obj, "w") as f:      # an octahedron
+        f.write("v 1 0 0\nv -1 0 0\nv 0 1 0\nv 0 -1 0\nv 0 0 1\nv 0 0 -1\n"
+                "f 1 3 5\nf 3 2 5\nf 2 4 5\nf 4 1 5\n"
+                "f 3 1 6\nf 2 3 6\nf 4 2 6\nf 1 4 6\n")
+    main = ("type: scene\nIntegrator: {type: path, max_depth: 7}\n"
+            "main_scene:\n  type: ply\n  filename: ''\n  bsdf:\n"
+            "    type: twosided\n    fipt_bsdf: {type: fipt}\n")
+    relight_1 = main + f"""new_emitter:
+  type: ply
+  filename: {emitter_ply}
+  bsdf: {{type: diffuse, reflectance: {{type: rgb, value: [0, 0, 0]}}}}
+  emitter:
+    type: area
+    radiance: {{type: rgb, value: {RELIGHT_SWAP_RADIANCE}}}
+disco_ball:
+  T: 60
+  position: {list(RELIGHT_DISCO_POSITION)}
+  radius: 0.2
+  light_intensity: 40
+  light_num: 40
+  light_radius_rate: 0.1
+  spot_intensity: 0.5
+  spot_cutoff_angle: 20.0
+"""
+    insert = main + f"""light_ball:
+  type: sphere
+  to_world:
+  - {{type: translate, value: [0.6, 0.6, 1.2]}}
+  - {{type: scale, value: [0.1, 0.1, 0.1]}}
+  bsdf: {{type: diffuse, reflectance: {{type: rgb, value: [0, 0, 0]}}}}
+  emitter: {{type: area, radiance: {{type: rgb, value: [25, 25, 25]}}}}
+spot:
+  type: obj
+  filename: {obj}
+  to_world:
+  - {{type: translate, value: [1.3, 1.2, 0.25]}}
+  - {{type: scale, value: [0.2, 0.2, 0.2]}}
+  - {{type: rotate, axis: [0, 0, 1], angle: -90}}
+  bsdf: {{type: conductor, material: Au}}
+andersen:
+  type: obj
+  filename: {obj}
+  to_world:
+  - {{type: translate, value: [0.5, 1.3, 0.25]}}
+  - {{type: scale, value: [0.2, 0.2, 0.2]}}
+  bsdf:
+    type: roughconductor
+    alpha_u: 0.05
+    alpha_v: 0.3
+    eta: {{type: rgb, value: [0.47, 0.35, 0.29]}}
+    k: {{type: rgb, value: [0.332, 0.239, 0.235]}}
+"""
+    paths = {}
+    for name, body in (("relight_1", relight_1), ("insert", insert)):
+        paths[name] = os.path.join(work, f"{name}.yaml")
+        with open(paths[name], "w") as f:
+            f.write(body)
+    return paths
+
+
+class keep_videos:
+    """While active, keeps the frames that module.write_video is given:
+    {the video's file name: its frames}."""
+
+    def __init__(self, module):
+        self.module = module
+
+    def __enter__(self):
+        orig = self.orig = self.module.write_video
+        videos = self.videos = {}
+
+        def keep(path, frames, *a, **k):
+            videos[os.path.basename(path)] = [f.copy() for f in frames]
+            return orig(path, frames, *a, **k)
+
+        self.module.write_video = keep
+        return videos
+
+    def __exit__(self, *exc):
+        self.module.write_video = self.orig
+
+
+def frames_ok(label, frames, n):
+    """n frames, each finite, within [0, 1] and not black; returns their
+    means."""
+    import numpy as np
+
+    check(len(frames) == n, f"{label}: {len(frames)} frames, {n} expected")
+    for i, f in enumerate(frames):
+        check(bool(np.isfinite(f).all()) and f.min() >= 0 and f.max() <= 1
+              and f.mean() > 1e-3, f"{label} frame {i}: min {f.min()}, max "
+              f"{f.max()}, mean {f.mean()}")
+    return [float(f.mean()) for f in frames]
+
+
+def video_written(out, base, n):
+    """`base`.mp4, or its frames directory holding n PNGs."""
+    if os.path.exists(os.path.join(out, base + ".mp4")):
+        return "mp4"
+    names = sorted(os.listdir(os.path.join(out, base + "_frames")))
+    check(names == [f"{i:05d}.png" for i in range(n)] + ["INDEX.txt"],
+          f"{out}/{base}_frames: {names}")
+    return "frames"
+
+
+def relight_card_vs_cpu(root, work, seed):
+    """The small relight of phase 14 on the card and on the CPU under the
+    same samples: the flagship dataset's mesh with demo_ball.yaml's shapes
+    and a 20-light disco ball at a phase, the trained material; 16 x 16
+    pixels, spp 4, depth 2. Bar: 95% of values within rtol 2e-3 / atol
+    1e-4 (bf16 MLP sums in another order, ROADMAP Queue 3)."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from iris_tpu_torch.geometry.procedural import camera_rays
+    from iris_tpu_torch.pipeline.render_relight import shapes_from_yaml
+    from iris_tpu_torch.render import relight as R
+    from iris_tpu_torch.train.checkpoint import load_pytree
+
+    with open(DEMO_BALL) as f:
+        shapes, *_ = shapes_from_yaml(yaml.safe_load(f),
+                                      os.path.join(root, "scene.obj"))
+    ez = np.load(os.path.join(work, "bake", "emitter.npz"))
+    side, spp, depth = RELIGHT_CHECK
+    b, n = side * side, side * side * spp
+    rng = np.random.default_rng(seed)
+
+    def u(*shape):
+        return torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32))
+
+    samples = {"dudv": u(2, b, spp, 1) - 0.5, "s1": u(depth, n),
+               "s2": u(depth, n, 2), "s1b": u(depth, n),
+               "s2b": u(depth, n, 2)}
+    rays = camera_rays(side)
+    out = []
+    for dev in (torch.device(DEVICE), torch.device("cpu")):
+        ngp = load_pytree(os.path.join(work, "checkpoints", "brdf1",
+                                       "last.pkl"), dev)["material"]
+        disco, spots = R.make_disco_ball([1.0, 1.0, 0.7], 0.15, 20.0,
+                                         device=dev)
+        scene = R.build_relight_scene(
+            shapes, ngp=ngp, main_is_emitter=ez["is_emitter"],
+            main_emitter_radiance=ez["emitter_radiance"],
+            dynamic_shapes=disco, dynamic_center=[1.0, 1.0, 0.7], device=dev)
+        scene = R.set_disco_phase(scene, spots, 0.4)
+        r = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in rays]
+        out.append(R.relight_path_tracing(
+            None, scene, *r, spp, depth,
+            samples={k: v.to(dev) for k, v in samples.items()}).cpu().numpy())
+    card, cpu = out
+    close = np.abs(card - cpu) <= 1e-4 + 2e-3 * np.abs(cpu)
+    check(bool(np.isfinite(card).all()) and float(cpu.max()) > 0
+          and close.mean() >= 0.95,
+          f"relight card vs CPU: {close.mean():.4f} of values close")
+    return {"share_close": float(close.mean()),
+            "max_abs_diff": float(np.abs(card - cpu).max())}
+
+
+def run_relight(label, kernel, name, argv, depth, n_spots, disco):
+    """One render_relight run through main(argv), watched: wall s, ms a
+    round, rays a round (spot rays counted), launches by kernel against
+    (1 + D (2 + [spots])) (1 + [disco]) a round, BVH builds (1 + [disco]),
+    peak memory, frames; and the largest trace on each tree."""
+    import torch
+
+    from iris_tpu_torch.geometry.intersect import kernel_for
+    from iris_tpu_torch.pipeline import render_relight
+
+    with watch_relight() as w, record_largest_trace(True) as captured:
+        st = run_stage(render_relight.main, argv)
+    rounds = len(w.events)
+    check(rounds == RELIGHT_FRAMES * RELIGHT_SPP // RELIGHT_SPP_ROUND,
+          f"{label} {name}: {rounds} rounds")
+    per_round = 1 + depth * (2 + int(n_spots > 0))
+    scene = w.scenes[0]
+    want = dict.fromkeys(KERNELS, 0)
+    want[kernel] += rounds * per_round
+    trees = [scene.tracer]
+    if disco:
+        want["trace_union"] += rounds * per_round
+        trees.append(scene.dyn_tracer)
+    check(kernel_for(scene.tracer).__name__ == kernel
+          and (not disco or kernel_for(scene.dyn_tracer).__name__
+               == "trace_union"),
+          f"{label} {name}: the scene's trees go to "
+          f"{[kernel_for(t).__name__ for t in trees]}")
+    check(st["launches"] == want, f"{label} {name}: launches "
+          f"{st['launches']}, {want} expected")
+    check(len(w.scenes) == 1 and sorted(w.builds) == sorted(
+        t.n_faces for t in trees), f"{label} {name}: BVH builds {w.builds}")
+    ms = w.round_ms()
+    st.update(rounds=rounds, depth=depth, spots=n_spots,
+              launches_expected=want, bvh_builds=w.builds,
+              static_faces=scene.tracer.n_faces,
+              sub_scene_faces=scene.dyn_tracer.n_faces if disco else 0,
+              ms_per_round=statistics.median(ms), round_ms=ms,
+              rays_per_round=st["rays"] // rounds,
+              frame_means=frames_ok(f"{label} {name}", w.frames,
+                                    RELIGHT_FRAMES),
+              largest_trace_rays={str(k): v["n"] for k, v in
+                                  captured.items()})
+    st.update(frames=RELIGHT_FRAMES, s_per_frame=st["wall_s"]
+              / RELIGHT_FRAMES)
+    if disco:
+        check(not all((a == b).all() for a, b in zip(w.frames,
+                                                     w.frames[1:])),
+              f"{label} {name}: the disco frames do not differ")
+    del w
+    torch.cuda.empty_cache()
+    return st, captured
+
+
+def relight_phase_on(label, kernel, root, work, dev, seed):
+    """Phase 14 on one dataset, in its work directory (phase 11's, or the
+    one --relight-only makes): extract_emitter_mesh, render_video and
+    render_relight on three configs, each through main(argv) on the card.
+    Returns (stats by run, {trace: RELIGHT_HELD's largest trace on the
+    static tree and on the sub-scene's})."""
+    import numpy as np
+
+    from iris_tpu_torch.geometry.mesh import load_mesh
+    from iris_tpu_torch.pipeline import render_relight, render_video
+    from iris_tpu_torch.utils import extract_emitter_mesh
+
+    bake = os.path.join(work, "bake")
+    stats, traffic = {}, {}
+    ply = os.path.join(bake, "emitter.ply")
+    stats["extract_emitter_mesh"] = run_stage(extract_emitter_mesh.main, [
+        "--emitter", os.path.join(bake, "emitter.npz"), "--output", ply])
+    ez = np.load(os.path.join(bake, "emitter.npz"))
+    n_em = int(ez["is_emitter"].sum())
+    check(load_mesh(ply).n_faces == n_em, f"{label} emitter.ply: "
+          f"{load_mesh(ply).n_faces} faces, {n_em} emitter faces")
+    stats["extract_emitter_mesh"]["faces"] = n_em
+
+    ds = ["--dataset", "synthetic", root, "--ldr_img_dir", "ldr",
+          "--device", str(dev), "--checkpoint_path",
+          os.path.join(work, "checkpoints"), "--experiment_name", "brdf1",
+          "--emitter_path", bake]
+    # render_video at phase 11's render settings
+    out = os.path.join(work, "video")
+    with time_calls(render_video, "render_frame") as frame_s, \
+            keep_videos(render_video) as videos:
+        st = run_stage(render_video.main, ds + [
+            "--output_path", out, "--SPP", str(PIPE_SPP), "--spp",
+            str(TRAIN_SPP), "--indir_depth", str(INDIR_DEPTH),
+            "--n_interp", str(VIDEO_INTERP)])
+    n_frames = VIDEO_INTERP * (STAGE_SPLITS[0] - 1)
+    # the rendered frames not black; the AOVs (an emission frame may well
+    # be all zero) finite and within [0, 1]
+    st["frame_means"] = frames_ok(f"{label} render_video",
+                                  videos.pop("video.mp4"), 2 * n_frames)
+    for name, frames in videos.items():
+        check(all(bool(np.isfinite(f).all()) and f.min() >= 0
+                  and f.max() <= 1 for f in frames),
+              f"{label} render_video {name}: values out of [0, 1]")
+    rounds = n_frames * (PIPE_SPP // TRAIN_SPP)
+    want = dict.fromkeys(KERNELS, 0)
+    want[kernel] = rounds * (2 + INDIR_DEPTH + 1)
+    check(st["launches"] == want, f"{label} render_video: launches "
+          f"{st['launches']}, {want} expected")
+    st.update(frames=n_frames, rounds=rounds, launches_expected=want,
+              s_per_frame=st["wall_s"] / n_frames,
+              ms_per_round=1e3 * statistics.median(frame_s)
+              * TRAIN_SPP / PIPE_SPP, rays_per_round=st["rays"] // rounds,
+              videos={b: video_written(out, b, 2 * n_frames) for b in
+                      ("video",) + render_video.AOV_VIDEOS})
+    stats["render_video"] = st
+
+    cfgs = relight_yamls(work, ply)
+    relight = ["--mode", "traj", "--n_frames", str(RELIGHT_FRAMES),
+               "--SPP", str(RELIGHT_SPP), "--spp", str(RELIGHT_SPP_ROUND)]
+    runs = (("demo_ball", DEMO_BALL, ["--disco", "1"], 3, 20, True),
+            ("relight_1", cfgs["relight_1"], [], 7, 40, True),
+            ("insert", cfgs["insert"], [], 7, 0, False))
+    for name, cfg, extra, depth, n_spots, disco in runs:
+        out = os.path.join(work, "relight_" + name)
+        st, captured = run_relight(
+            label, kernel, name, ds + relight + extra + [
+                "--light_cfg", cfg, "--output_path", out],
+            depth, n_spots, disco)
+        names = sorted(os.listdir(out))
+        check([n for n in names if n.endswith(".png")]
+              == [f"{i:05d}.png" for i in range(RELIGHT_FRAMES)],
+              f"{label} {name}: files {names}")
+        st["video"] = video_written(out, "relight", RELIGHT_FRAMES)
+        stats["relight_" + name] = st
+        if name == RELIGHT_HELD:
+            # the static tree's and the sub-scene's largest traces: the
+            # spots' S x n shadow rays on each
+            traffic = {f"{name} static": captured[st["static_faces"]],
+                       f"{name} sub-scene": captured[st["sub_scene_faces"]]}
+        del captured
+    if label == "flagship":
+        stats["relight_card_vs_cpu"] = relight_card_vs_cpu(root, work, seed)
+    return stats, traffic
+
+
+def relight_datasets(dev, seed):
+    """--relight-only's set-up on both datasets: the dataset, its SLF and
+    emitter mask (with the generator's light as the radiance, as phase 10
+    updates it) under the work directory's bake/, and the production
+    material from the seed (refine_material) as checkpoints/brdf1."""
+    import numpy as np
+    import torch
+
+    from iris_tpu_torch.data.make_demo_dataset import (
+        GT_RADIANCE, make_dataset,
+    )
+    from iris_tpu_torch.pipeline import extract_emitter, slf_bake
+    from iris_tpu_torch.train.checkpoint import save_pytree
+
+    for label, n_clutter, _, orbit in STAGE_DATASETS:
+        root = os.path.join(STAGE_DIR, label)
+        work = os.path.abspath(os.path.join(STAGE_DIR, label + "_pipeline"))
+        for d in (root, work):
+            shutil.rmtree(d, ignore_errors=True)
+        bake = os.path.join(work, "bake")
+        make_dataset(root, img_hw=STAGE_HW, n_train=STAGE_SPLITS[0],
+                     n_val=STAGE_SPLITS[1], spp=STAGE_GEN_SPP,
+                     indir_depth=STAGE_GEN_DEPTH, n_clutter=n_clutter,
+                     seed=seed, orbit=orbit, device=dev)
+        args = ["--dataset", "synthetic", "--scene", root, "--ldr_img_dir",
+                "ldr", "--device", str(dev), "--output", bake]
+        slf_bake.main(args + ["--voxel_num", str(STAGE_VOXELS)])
+        extract_emitter.main(args + ["--threshold", "0.99"])
+        n_em = int(np.load(os.path.join(bake, "emitter.npz"))[
+            "is_emitter"].sum())
+        ckpt = os.path.join(work, "emitter_ckpt.pkl")
+        save_pytree(ckpt, {"radiance": torch.full((max(n_em, 1), 3),
+                                                  GT_RADIANCE)})
+        extract_emitter.main(args + ["--mode", "update", "--ckpt", ckpt])
+        z = np.load(os.path.join(bake, "vslf.npz"))
+        os.makedirs(os.path.join(work, "checkpoints", "brdf1"))
+        save_pytree(os.path.join(work, "checkpoints", "brdf1", "last.pkl"),
+                    {"material": refine_material(float(z["voxel_min"]),
+                                                 float(z["voxel_max"]),
+                                                 seed, dev)})
+
+
+def relight_phase(dev, seed):
+    """Phase 14 on both datasets, printed, from the work directories under
+    STAGE_DIR (phase 11's, or relight_datasets'). Returns the stats by
+    dataset and the relight traffic for hold_stage_traffic: #1 on the
+    flagship's and the sub-scene's spot shadow traces, #5 on the 102K
+    soup's."""
+    print(f"relight: render_video --n_interp {VIDEO_INTERP} at SPP "
+          f"{PIPE_SPP} / spp {TRAIN_SPP}, depth {INDIR_DEPTH}; render_relight "
+          f"--mode traj --n_frames {RELIGHT_FRAMES} at SPP {RELIGHT_SPP} / "
+          f"spp {RELIGHT_SPP_ROUND} on demo_ball.yaml --disco 1, a "
+          f"relight_1-shaped and an insert-shaped config; the trained "
+          f"material of checkpoints/brdf1")
+    stats, traffic = {}, []
+    for label, _, kernel, _ in STAGE_DATASETS:
+        t0 = time.perf_counter()
+        root = os.path.abspath(os.path.join(STAGE_DIR, label))
+        work = os.path.abspath(os.path.join(STAGE_DIR, label + "_pipeline"))
+        st, captured = relight_phase_on(label, kernel, root, work, dev,
+                                        seed)
+        st["total_s"] = time.perf_counter() - t0
+        report_relight(label, st)
+        stats[label] = st
+        if kernel == "trace_union":
+            traffic.append((label, kernel, captured))
+        else:
+            traffic.append((label, kernel, {
+                k: v for k, v in captured.items() if k.endswith("static")}))
+    return stats, traffic
+
+
+def report_relight(label, stats):
+    for name, st in stats.items():
+        if not isinstance(st, dict) or "wall_s" not in st:
+            continue
+        launched = {k: v for k, v in st["launches"].items() if v}
+        extra = ""
+        if "rounds" in st:
+            extra = (f"; {st['rounds']} rounds, {st['ms_per_round']:.2f} ms "
+                     f"a round (median), {st['rays_per_round']} rays a "
+                     f"round, {st['s_per_frame']:.2f} s a frame")
+        if "depth" in st:
+            extra += (f"; depth {st['depth']}, {st['spots']} spots, trees "
+                      f"{st['static_faces']} + {st['sub_scene_faces']} "
+                      f"faces, BVH builds {st['bvh_builds']}, LDR means "
+                      f"{[round(m, 4) for m in st['frame_means']]}")
+        print(f"relight {label} {name}: {st['wall_s']:.2f} s, launches "
+              f"{launched}, peak memory {st['peak_memory_mb']:.0f} MB"
+              + extra)
+    if "relight_card_vs_cpu" in stats:
+        c = stats["relight_card_vs_cpu"]
+        print(f"relight card vs CPU ({RELIGHT_CHECK[0]}^2 px, spp "
+              f"{RELIGHT_CHECK[1]}, depth {RELIGHT_CHECK[2]}, 20 spots and "
+              f"the disco ball): {c['share_close']:.4f} of values within "
+              f"rtol 2e-3/atol 1e-4, max |diff| {c['max_abs_diff']:.3e}")
+    print(f"relight {label}: {stats['total_s']:.1f} s in all")
 
 
 def frame_rays(dev):
@@ -2043,6 +2566,10 @@ def main(argv=None) -> int:
     ap.add_argument("--pipeline-only", action="store_true",
                     help="run the training stages and the render CLI "
                     "(phase 11) on new datasets and stop (no verdict line)")
+    ap.add_argument("--relight-only", action="store_true",
+                    help="run the relight and video CLIs (phase 14) on new "
+                    "datasets with the production material from --seed and "
+                    "stop (no verdict line)")
     ap.add_argument("--counts", action="store_true",
                     help="with --sweep-only: the plain versions' counters "
                     "at every packet width on the camera check rays")
@@ -2117,11 +2644,25 @@ def main(argv=None) -> int:
 
     if args.pipeline_only:
         pipe_stats, train_traffic = pipeline_phase(dev, args.seed)
+        shutil.rmtree(STAGE_DIR, ignore_errors=True)
         flush = torch.empty(64 * 2 ** 20 // 4, dtype=torch.float32,
                             device=dev)
         held = hold_stage_traffic(train_traffic, flush)
         print("run: " + json.dumps({"pipeline": pipe_stats,
                                     "trainer_traffic": held,
+                                    "total_s": time.perf_counter() - t_run}))
+        print(f"card: {card_line()}")
+        return 0
+
+    if args.relight_only:
+        relight_datasets(dev, args.seed)
+        relight_stats, relight_traffic = relight_phase(dev, args.seed)
+        shutil.rmtree(STAGE_DIR, ignore_errors=True)
+        flush = torch.empty(64 * 2 ** 20 // 4, dtype=torch.float32,
+                            device=dev)
+        held = hold_stage_traffic(relight_traffic, flush)
+        print("run: " + json.dumps({"relight": relight_stats,
+                                    "relight_traffic": held,
                                     "total_s": time.perf_counter() - t_run}))
         print(f"card: {card_line()}")
         return 0
@@ -2464,6 +3005,14 @@ def main(argv=None) -> int:
         for name in PIPE_CLIS:
             add_launches(st[name])
 
+    # 14. the relight and video CLIs on phase 11's trained scenes
+    relight_stats, relight_traffic = relight_phase(dev, args.seed)
+    shutil.rmtree(STAGE_DIR, ignore_errors=True)
+    for st in relight_stats.values():
+        for run in st.values():
+            if isinstance(run, dict) and "launches" in run:
+                add_launches(run)
+
     # 12-13. each kernel on the largest input a main path gave it; the five
     # big-tree kernels on the same 518,400 rays of the 102K train step;
     # trace_union and trace_paired_streamed also on the stages' and the
@@ -2471,7 +3020,8 @@ def main(argv=None) -> int:
     flush = torch.empty(64 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
     held = hold_stage_traffic(traffic, flush)
     trainer_held = hold_stage_traffic(train_traffic, flush)
-    del traffic, train_traffic
+    relight_held = hold_stage_traffic(relight_traffic, flush)
+    del traffic, train_traffic, relight_traffic
     inputs = {"trace_union": flag_in, "trace_paired": mid_in,
               "trace_ordered": wide_in}
     trees = {"trace_paired": mid_tracer}
@@ -2554,9 +3104,11 @@ def main(argv=None) -> int:
             # beside them
             row = rows[-1]
             row["max_abs_err"] = max([row["max_abs_err"]] + [
-                m["max_abs_err"] for m in held[name] + trainer_held[name]])
+                m["max_abs_err"] for m in held[name] + trainer_held[name]
+                + relight_held[name]])
             row["stage_traffic"] = held[name]
             row["trainer_traffic"] = trainer_held[name]
+            row["relight_traffic"] = relight_held[name]
             top = max(held[name], key=lambda m: m["rays"])
             if top["rays"] > row["rays"]:
                 moved = ("rays", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2625,6 +3177,7 @@ def main(argv=None) -> int:
         "train_flagship": flag_train, "train_clutter102k": big_train,
         "stages": stages, "ref32x2": ref_stats,
         "shading_cache_stages": stage_stats, "pipeline": pipe_stats,
+        "relight": relight_stats,
         "five_on_102k_ms": turns, "five_on_102k_hits": agree,
         "packet_sweep_ms": sweep,
         "build_s": build_s, "total_s": time.perf_counter() - t_run}))
@@ -2633,7 +3186,7 @@ def main(argv=None) -> int:
               "main path")
     print(json.dumps({"kernels": rows}))
 
-    # 14. verdict
+    # 15. verdict
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -552,3 +552,133 @@ def test_segment_mean_same_bits_twice(card):
         assert torch.equal(a, b)
     mean_cpu, _ = segment_mean(vals, ids, 128, w)
     assert torch.allclose(outs[0][0].cpu(), mean_cpu, rtol=1e-5, atol=1e-7)
+
+
+# ------------------------------------------------------------- relight
+
+def _relight_scene(dev, light_num=8):
+    """A small relight scene on `dev`: the 2-clutter room with the 4 x 16
+    row-mode material (made on the CPU, so that every device holds the
+    same table), a sphere emitter, a conductor and a disco ball of
+    `light_num` lights as a sub-scene; and its spots."""
+    from iris_tpu_torch.models.brdf import init_ngp_brdf
+    from iris_tpu_torch.models.hashgrid import HashGridConfig
+    from iris_tpu_torch.render import relight as R
+    from iris_tpu_torch.train.checkpoint import from_numpy, to_numpy
+
+    mesh, is_em = make_box_scene(n_clutter=2, seed=0)
+    ngp = init_ngp_brdf(0, -0.1, 2.1, HashGridConfig(
+        n_levels=4, n_features=16, log2_table_size=8, row_gather=True),
+        device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    ngp.table[:256] = torch.rand((256, 16), generator=gen) * 2 - 1
+    ngp = from_numpy(to_numpy(ngp), dev)
+    shapes = [
+        {"kind": "mesh", "tris": mesh.triangles(), "bsdf": {"type": "fipt"}},
+        {"kind": "sphere", "subdiv": 1,
+         "to_world": [{"type": "translate", "value": [0.6, 0.6, 0.5]},
+                      {"type": "scale", "value": 0.1}],
+         "emitter": {"radiance": [30.0, 25.0, 20.0]}},
+        {"kind": "sphere", "subdiv": 1,
+         "to_world": [{"type": "translate", "value": [1.4, 1.0, 0.3]},
+                      {"type": "scale", "value": 0.15}],
+         "bsdf": {"type": "conductor", "reflectance": [1.0, 0.86, 0.57]}},
+    ]
+    disco, spots = R.make_disco_ball([1.0, 1.0, 0.6], 0.12, 60.0,
+                                     light_num=light_num,
+                                     spot_intensity=20.0, device=dev)
+    scene = R.build_relight_scene(
+        shapes, ngp=ngp, main_is_emitter=is_em,
+        main_emitter_radiance=np.full((int(is_em.sum()), 3), 4.0,
+                                      np.float32),
+        dynamic_shapes=disco, dynamic_center=[1.0, 1.0, 0.6], device=dev)
+    return scene, spots
+
+
+def _relight_rays(dev, n_side=16):
+    o, d, dxdu, dydv = camera_rays(n_side, origin=(1.0, 0.3, 0.8),
+                                   look=(0.0, 0.7, -0.5))
+    return [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            for x in (o, d, dxdu, dydv)]
+
+
+def test_relight_card_matches_cpu(card):
+    """A 16 x 16 relight (spp 4, depth 2, 8 spots, the disco ball at a
+    phase) on the card and on the CPU under the same samples: the bf16
+    rule, 95% of values within rtol 2e-3 / atol 1e-4."""
+    from iris_tpu_torch.render import relight as R
+
+    b, spp, depth = 256, 4, 2
+    n = b * spp
+    rng = np.random.default_rng(0)
+
+    def u(*shape):
+        return torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32))
+
+    samples = {"dudv": u(2, b, spp, 1) - 0.5, "s1": u(depth, n),
+               "s2": u(depth, n, 2), "s1b": u(depth, n),
+               "s2b": u(depth, n, 2)}
+    out = []
+    for dev in (card, torch.device("cpu")):
+        scene, spots = _relight_scene(dev)
+        scene = R.set_disco_phase(scene, spots, 0.5)
+        out.append(R.relight_path_tracing(
+            None, scene, *_relight_rays(dev), spp, depth,
+            samples={k: v.to(dev) for k, v in samples.items()}).cpu())
+    got, want = out
+    assert torch.isfinite(got).all() and float(want.max()) > 1e-2
+    close = (got - want).abs() <= 1e-4 + 2e-3 * want.abs()
+    assert float(close.float().mean()) >= 0.95
+
+
+def test_disco_phase_moves_the_lights_without_a_build(card, monkeypatch):
+    """set_disco_phase on the card: no BVH built, the sub-scene's emitter
+    vertices and the spots moved, the same bits as on the CPU (the
+    rotations are elementwise products and sums)."""
+    from iris_tpu_torch.render import relight as R
+
+    scenes = {d: _relight_scene(d) for d in (card, torch.device("cpu"))}
+    built = []
+    monkeypatch.setattr(R, "build_bvh", lambda *a, **k: built.append(a))
+    moved = {d: R.set_disco_phase(s, sp, 1.3) for d, (s, sp) in
+             scenes.items()}
+    assert built == []
+    s0, spots0 = scenes[card]
+    m = moved[card]
+    dyn = s0.emitter.triangle_idx >= s0.dyn_face_offset
+    assert not torch.equal(m.emitter.emitter_vertices[dyn],
+                           s0.emitter.emitter_vertices[dyn])
+    assert torch.equal(m.emitter.emitter_vertices[~dyn],
+                       s0.emitter.emitter_vertices[~dyn])
+    assert not torch.equal(m.spots.position, spots0.position)
+    cpu = moved[torch.device("cpu")]
+    for a, b in ((m.emitter.emitter_vertices, cpu.emitter.emitter_vertices),
+                 (m.spots.position, cpu.spots.position),
+                 (m.spots.direction, cpu.spots.direction),
+                 (m.dyn_rot, cpu.dyn_rot)):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("with_spots", [True, False])
+def test_relight_round_launches(card, with_spots):
+    """One relight round launches (1 + D (2 + [spots])) (1 + [sub-scene])
+    traversal kernels, every one trace_union on these small trees."""
+    import dataclasses
+
+    from iris_tpu_torch.render import relight as R
+
+    scene, spots = _relight_scene(card)
+    scene = R.set_disco_phase(scene, spots, 0.2)
+    if not with_spots:
+        scene = dataclasses.replace(scene, spots=None)
+    depth = 3
+    before = {k: getattr(ci, k).launches for k in ci.KERNELS}
+    gen = torch.Generator(device=card).manual_seed(0)
+    out = R.relight_path_tracing(gen, scene, *_relight_rays(card, 8), 2,
+                                 depth)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    launched = {k: getattr(ci, k).launches - before[k] for k in ci.KERNELS}
+    want = (1 + depth * (2 + int(with_spots))) * 2
+    assert launched == {k: want if k == "trace_union" else 0
+                        for k in ci.KERNELS}

@@ -29,7 +29,11 @@ print(len(names), bad)
 assert not bad, bad
 for want in ("train.steps", "train.optim", "train.loop", "utils.losses",
              "train.checkpoint", "models.hashgrid", "models.crf",
-             "geometry.cuda_intersect", "geometry.intersect"):
+             "geometry.cuda_intersect", "geometry.intersect",
+             "render.relight", "pipeline.render_relight",
+             "pipeline.render_video", "utils.gen_path", "utils.video",
+             "utils.extract_emitter_mesh", "utils.export",
+             "utils.uv_unwrap", "utils.metric_brdf"):
     assert "iris_tpu_torch." + want in names, want
 from iris_tpu_torch.geometry.intersect import TraversalPolicy, kernel_for
 from iris_tpu_torch.train.loop import TrainerConfig, run_training
@@ -45,7 +49,7 @@ def test_port_imports_no_jax():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 27
+    assert n_modules >= 60
 
 
 @pytest.mark.parametrize("entry", [
@@ -63,6 +67,29 @@ def test_entry_points_default_to_cuda(entry):
         pytest.skip("a card is present: the default device works")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         entry()
+
+
+@pytest.mark.parametrize("module,argv", [
+    ("render_relight", ["--experiment_name", "x", "--output_path", "o",
+                        "--light_cfg", "c.yaml"]),
+    ("render_video", ["--experiment_name", "x", "--output_path", "o"]),
+    ("export", ["--mesh", "m.obj", "--ckpt", "c.pkl", "--output", "o"]),
+])
+def test_relight_video_and_export_clis_default_to_cuda(module, argv,
+                                                       tmp_path,
+                                                       monkeypatch):
+    """The consumers of a trained scene ask for the card before they read
+    a file or write one."""
+    import importlib
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    package = "utils" if module == "export" else "pipeline"
+    main = importlib.import_module(f"iris_tpu_torch.{package}.{module}").main
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(argv)
+    assert os.listdir(tmp_path) == []
 
 
 @pytest.mark.parametrize("n_clutter,leaf_size,kernel", [

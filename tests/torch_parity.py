@@ -8,11 +8,25 @@ tiny dataset, JAX-run capture and Adam leaf rule."""
 from __future__ import annotations
 
 import numpy as np
+import pytest
 import torch
 
 from iris_tpu_torch import convert
 
 DEV = "cpu"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the port's CPU work in a test module that
+    imports this fixture, restored after it: the driver's workers share
+    the machine's cores, and torch's thread pools of every worker at once
+    oversubscribe them (the relight tests ran 10-27x slower so); the
+    small tensors of these tests gain nothing from more threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def port_tracer(jt):
@@ -176,6 +190,27 @@ def jax_brdf_crf_draws(key, hcfg, b: int, n_pairs: int) -> dict:
     key, k_mat = jax.random.split(key)
     return {"mat": jax_hashgrid_draws(k_mat, hcfg, b),
             "pairs_u": tt(_np(jax.random.uniform(key, (b, n_pairs))))}
+
+
+def jax_relight_draws(key, b: int, spp: int, max_depth: int) -> dict:
+    """What relight_path_tracing(key, ...) draws for b pixels at spp and
+    max_depth (iris_tpu/render/relight.py:356-358, 374, 377-378, 400-401,
+    421), with the per-depth draws stacked (max_depth, ...)."""
+    import jax
+
+    n = b * spp
+    k_jit, k_loop = jax.random.split(key)
+    out = {"dudv": tt(_np(jax.random.uniform(
+        k_jit, (2, b, spp, 1), minval=-0.5, maxval=0.5)))}
+    per = {"s1": [], "s2": [], "s1b": [], "s2b": []}
+    for k in jax.random.split(k_loop, max_depth):
+        k1, k2, k3, k4 = jax.random.split(k, 4)
+        per["s1"].append(_np(jax.random.uniform(k1, (n,))))
+        per["s2"].append(_np(jax.random.uniform(k2, (n, 2))))
+        per["s1b"].append(_np(jax.random.uniform(k3, (n,))))
+        per["s2b"].append(_np(jax.random.uniform(k4, (n, 2))))
+    out.update({k: tt(np.stack(v)) for k, v in per.items()})
+    return out
 
 
 # ------------------------------------------------------------ stage CLIs
