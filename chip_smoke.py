@@ -6,6 +6,7 @@
     python3 chip_smoke.py --stages-only
     python3 chip_smoke.py --pipeline-only
     python3 chip_smoke.py --relight-only
+    python3 chip_smoke.py --tools-only
 
 Needs one NVIDIA card (sm_90a: H100/H200), nvcc and g++. It builds the
 traversal kernels from iris_tpu_torch/csrc/traverse.cu and the SAH builder
@@ -176,7 +177,32 @@ from csrc/bvh_builder.cpp, then:
    240 x 320 frame at spp 8) are kept for phase 13: on the flagship's
    static tree and the disco ball's tree (trace_union), on the 102K
    soup (trace_paired_streamed);
-15. prints the card line again and, last, the run's JSON verdict.
+15. (run right after phase 14, its traffic held in phase 13) drives the
+   dataset-preparation tools, each CLI through its main(argv) on the card,
+   on phase 11's two 240 x 320 datasets and on one new dataset per scene
+   at 584 x 876 (ScanNet++'s 1752 x 1168 DSLR frame at the scene scripts'
+   RES_SCALE=0.5: 511,584 rays a frame; 2 train and 1 val frames, written
+   at generator spp 2, depth 1, cuts): extract_geometry, render_semantic
+   with per-face labels face // 12 % 128, fuse_segmentation at 128 labels,
+   hdr2ldr on train/Image and process_images --max_width 438 on hdr2ldr's
+   PNGs; and the implicit MLP (models/mlps.py, the JAX defaults) forward
+   on a full-size frame's 511,584 hit positions. Per CLI it prints wall
+   seconds, frames, rays a second, launches by kernel and peak device
+   memory. Hard checks: exactly 1 launch a frame of the dataset's kernel
+   alone for extract_geometry and render_semantic, 2 for
+   fuse_segmentation, none for the host tools; every frame's hit share >
+   0.95, every depth finite and >= 0, a miss 0 everywhere; the fused
+   labels the generator's part ids (face // 12 % 16) on > 90% of the
+   observed faces and the same bits when fused again; hdr2ldr's directory
+   loads back as the dataset's LDR images with its cam/ files;
+   process_images' PNGs 438 wide; and on the flagship's first 240 x 320
+   frame the card against the CPU: labels, fused labels and rewritten
+   views equal, the geometry within atol 1e-5, the implicit MLP (float32,
+   TF32 off) within rtol 1e-4 / atol 1e-5 of its largest value. The three
+   ray-casting tools trace the same camera rays; on a full-size frame they
+   are held in phase 13 (trace_union on the flagship's, trace_paired_streamed
+   on the 102K's), under "tools_traffic";
+16. prints the card line again and, last, the run's JSON verdict.
 
 Any failed check raises, and the script then exits non-zero with no
 verdict line. It imports nothing of JAX or of the JAX package.
@@ -192,6 +218,10 @@ minutes on an H100), and prints no verdict line.
 and emitter mask (the generator's light as its radiance) and the
 production material from --seed as brdf1's checkpoint, then phase 14 and
 its holds alone (no verdict line).
+
+--tools-only runs phases 1-2, then phase 15 on two new 240 x 320 datasets
+(written as --pipeline-only writes them) and the two full-size ones, and
+its holds (no verdict line).
 
 --sweep-only runs phases 1-2, builds the 102,014-face scene, takes the
 518,400 rays of one train step and runs the width sweep of phase 12 alone
@@ -213,6 +243,10 @@ import subprocess
 import sys
 import threading
 import time
+
+# the kernels' yardstick (median CUDA-event time, L2 flushed, a spin kernel
+# first); it imports torch, which this script otherwise imports lazily
+from iris_tpu_torch.utils.timing import time_ms
 
 # H100 SXM peaks (NVIDIA data sheet) for the roofline bound
 HBM_BYTES_PER_S = 3.35e12
@@ -253,7 +287,6 @@ WALK_KERNELS = ("trace_union", "trace_ordered", "trace_paired",
 WALK_COUNTS = ("pops", "warp_steps", "lane_busy")
 WALK_RESOURCES = ("registers", "local_bytes_per_thread",
                   "smem_bytes_per_block", "blocks_per_sm")
-SPIN_CYCLES = 500_000          # ~0.3 ms of a spin kernel before a timed run
 DEVICE = "cuda"
 # the shading-cache stages (phase 10) on datasets the port's generator
 # writes: the frame size and the frame count are cuts of a real capture;
@@ -301,6 +334,22 @@ RELIGHT_DISCO_POSITION = (1.0, 1.0, 0.7)
 RELIGHT_HELD = "relight_1"
 # the small relight held card against CPU: side, spp, depth
 RELIGHT_CHECK = (16, 4, 2)
+# phase 15: the dataset-preparation tools, on phase 11's two datasets and
+# on one per scene at ScanNet++'s 1752 x 1168 DSLR frame at the scene
+# scripts' RES_SCALE=0.5 (scripts/scenes/scannetpp_*.sh): 511,584 rays a
+# frame. The generator's spp and depth are cut for them: the tools read
+# the geometry, the part maps and the HDR frames, not how noisy they are
+TOOLS_HW = (584, 876)
+TOOLS_GEN_SPP = 2
+TOOLS_GEN_DEPTH = 1
+TOOLS_LABELS = 128             # fuse_segmentation's default
+TOOLS_MAX_WIDTH = 438          # process_images: half the full frame's width
+TOOLS_DIR = os.path.join("outputs", "chip_smoke_tools")
+# each ray-casting tool's traversals a frame
+TOOLS_TRACES = {"extract_geometry": 1, "render_semantic": 1,
+                "fuse_segmentation": 2}
+TOOLS = tuple(TOOLS_TRACES) + ("hdr2ldr", "process_images")
+TOOLS_MLP_SEED = 41            # the implicit MLP's weights: seed + 41
 
 
 def check(ok: bool, what: str) -> None:
@@ -451,29 +500,6 @@ class record_largest_trace:
 
     def __exit__(self, *exc):
         self._intersect.ray_trace = self._ray_trace
-
-
-def time_ms(fn, reps, flush):
-    """Median CUDA-event time of fn; the 50 MB L2 is flushed before each
-    run (the render runs other kernels between traversals). A spin kernel
-    of ~0.3 ms runs before the first event, so that the host has queued
-    fn's launches by the time the card reaches them: without it the
-    interval holds the wrapper's host time too (tens of microseconds,
-    which is 10% of a 0.5 ms kernel)."""
-    import torch
-
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        torch.cuda._sleep(SPIN_CYCLES)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def timed_once(fn):
@@ -1898,6 +1924,338 @@ def report_relight(label, stats):
     print(f"relight {label}: {stats['total_s']:.1f} s in all")
 
 
+class watch_results:
+    """While active, every call of module.<name> hands its result to
+    `seen` as well as to its caller."""
+
+    def __init__(self, module, name, seen):
+        self.module, self.name, self.seen = module, name, seen
+
+    def __enter__(self):
+        orig = self.orig = getattr(self.module, self.name)
+        seen = self.seen
+
+        def watched(*a, **k):
+            out = orig(*a, **k)
+            seen(out)
+            return out
+
+        setattr(self.module, self.name, watched)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def tools_datasets(dev, seed, new_datasets):
+    """[(label, root, kernel name, frame size)]: phase 11's two 240 x 320
+    datasets (written anew with new_datasets, as --pipeline-only writes
+    them) and one per scene at TOOLS_HW under TOOLS_DIR, with the seconds
+    each new one took to write."""
+    from iris_tpu_torch.data.make_demo_dataset import make_dataset
+
+    out = []
+    for label, n_clutter, kernel, orbit in STAGE_DATASETS:
+        for hw, base, spp, depth, new in (
+                (STAGE_HW, STAGE_DIR, STAGE_GEN_SPP, STAGE_GEN_DEPTH,
+                 new_datasets),
+                (TOOLS_HW, TOOLS_DIR, TOOLS_GEN_SPP, TOOLS_GEN_DEPTH,
+                 True)):
+            root = os.path.join(base, label if hw == STAGE_HW
+                                else f"{label}_{hw[0]}x{hw[1]}")
+            t0 = time.perf_counter()
+            if new:
+                shutil.rmtree(root, ignore_errors=True)
+                make_dataset(root, img_hw=hw, n_train=STAGE_SPLITS[0],
+                             n_val=STAGE_SPLITS[1], spp=spp,
+                             indir_depth=depth, n_clutter=n_clutter,
+                             seed=seed, orbit=orbit, device=dev)
+            out.append((f"{label} {hw[0]}x{hw[1]}", os.path.abspath(root),
+                        kernel, hw, time.perf_counter() - t0 if new
+                        else None))
+    return out
+
+
+def geometry_summary(out):
+    """What the tools check of one frame's extract_geometry arrays: the
+    share of rays that hit, whether every depth is finite and >= 0, and
+    whether a miss is 0 everywhere."""
+    import torch
+
+    pos, nrm, depth = out
+    hit = (nrm != 0).any(-1)
+    return {"hit_share": hit.float().mean().item(),
+            "depth_ok": bool((torch.isfinite(depth) & (depth >= 0)).all()),
+            "miss_zero": bool(((depth == 0) == ~hit).all()
+                              and (pos[~hit] == 0).all()),
+            "pos": pos}
+
+
+def run_tools(label, root, kernel, hw, dev, seed):
+    """The five tools' main(argv) on the card on one dataset (its train
+    split), each with its launches counted: extract_geometry,
+    render_semantic with the per-face labels face // 12 % 128,
+    fuse_segmentation at n_labels 128, hdr2ldr on train/Image and
+    process_images --max_width 438 on hdr2ldr's PNGs. Returns the stats,
+    the first frame's hit positions (on the card) and the traversal input
+    the ray-casting tools share (record_largest_trace's capture)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from iris_tpu_torch.data.datasets import SyntheticDataset
+    from iris_tpu_torch.geometry.mesh import load_mesh
+    from iris_tpu_torch.utils import (
+        extract_geometry, fuse_segmentation, hdr2ldr, process_images,
+        render_semantic,
+    )
+    from iris_tpu_torch.utils.exr import read_exr
+
+    work = root + "_tools"
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    n_frames, (h, w) = STAGE_SPLITS[0], hw
+    n_faces = load_mesh(os.path.join(root, "scene.obj")).n_faces
+    labels_npy = os.path.join(work, "labels.npy")
+    np.save(labels_npy, (np.arange(n_faces) // 12) % TOOLS_LABELS)
+    cli = ["--dataset", "synthetic", "--scene", root, "--ldr_img_dir", "ldr",
+           "--device", str(dev)]
+    ldr, small = os.path.join(root, "train", "ldr_tools"), os.path.join(
+        work, f"ldr_{TOOLS_MAX_WIDTH}")
+    runs = {
+        "extract_geometry": (extract_geometry.main, cli + [
+            "--output", os.path.join(work, "geometry")]),
+        "render_semantic": (render_semantic.main, cli + [
+            "--labels", labels_npy, "--output",
+            os.path.join(work, "semantic")]),
+        "fuse_segmentation": (fuse_segmentation.main, cli + [
+            "--n_labels", str(TOOLS_LABELS), "--output",
+            os.path.join(work, "fused")]),
+        "hdr2ldr": (hdr2ldr.main, [
+            "--dir_src", os.path.join(root, "train", "Image"), "--dir_tgt",
+            ldr, "--seed", str(seed)]),
+        "process_images": (process_images.main, [
+            "--input", ldr, "--output", small, "--max_width",
+            str(TOOLS_MAX_WIDTH)]),
+    }
+    frames, fused, captures, st = [], [], {}, {}
+    watches = {"extract_geometry": watch_results(
+                   extract_geometry, "trace_geometry",
+                   lambda out: frames.append(geometry_summary(out))),
+               "fuse_segmentation": watch_results(
+                   fuse_segmentation, "fuse_segmentation", fused.append)}
+    for tool, (main_fn, argv) in runs.items():
+        with record_largest_trace() as cap, watches.get(
+                tool, contextlib.nullcontext()):
+            st[tool] = run_stage(main_fn, argv)
+        st[tool]["frames"] = n_frames
+        want = TOOLS_TRACES.get(tool, 0) * n_frames
+        check(only_launched(st[tool]["launches"], kernel, want) if want
+              else not any(st[tool]["launches"].values()),
+              f"tools {label} {tool}: launches {st[tool]['launches']}, "
+              f"{want} of {kernel} alone expected")
+        if cap:
+            captures[tool] = cap
+    # what the tools wrote
+    for sub, n in (("geometry", 3 * n_frames), ("semantic", n_frames),
+                   ("fused", n_frames)):
+        names = sorted(os.listdir(os.path.join(work, sub)))
+        check(len(names) == n, f"tools {label} {sub}: files {names}")
+    seg = read_exr(os.path.join(work, "fused", "000.exr"))
+    check(seg.shape == (h, w, 3) and bool(np.isfinite(seg).all()),
+          f"tools {label} fused view: shape {seg.shape}")
+    check(len(frames) == n_frames and all(
+        f["hit_share"] > 0.95 and f["depth_ok"] and f["miss_zero"]
+        for f in frames), f"tools {label} geometry: " + str(
+            [{k: v for k, v in f.items() if k != "pos"} for f in frames]))
+    # the fused labels: the generator's part ids (face // 12 % 16, its
+    # IndexMA maps) on > 90% of the observed faces, and the same bits when
+    # fused again
+    labels = fused[0]
+    seen = np.flatnonzero(labels >= 0)
+    agree = float((labels[seen] == (seen // 12) % 16).mean())
+    ds = SyntheticDataset(root, img_dir="ldr", split="train", load_gt=False,
+                          load_inverse=True)
+    again = fuse_segmentation.fuse_segmentation(
+        captures["fuse_segmentation"]["tracer"], n_faces, ds.frames(),
+        TOOLS_LABELS)
+    check(len(seen) > 0 and agree > 0.9, f"tools {label}: fused labels "
+          f"agree with the part ids on {agree:.4f} of {len(seen)} faces")
+    check(np.array_equal(again, labels), f"tools {label}: fused twice, "
+          "other labels")
+    # hdr2ldr's directory loads as the dataset's LDR images
+    ldr_ds = SyntheticDataset(root, img_dir="ldr_tools", split="train",
+                              load_gt=False)
+    rgbs = ldr_ds.frame(0)["rgbs"]
+    check(ldr_ds.exposures.shape == (n_frames,) and ldr_ds.crfs.shape
+          == (3, 1024) and rgbs.shape == (h * w, 3) and bool(
+              np.isfinite(rgbs).all()) and 0 < float(rgbs.mean()) <= 1,
+          f"tools {label}: hdr2ldr's directory as a dataset")
+    from PIL import Image
+
+    pngs = sorted(n for n in os.listdir(small) if n.endswith(".png"))
+    w_out = min(w, TOOLS_MAX_WIDTH)
+    size = (w_out, h if w <= TOOLS_MAX_WIDTH else int(w_out / w * h))
+    check(len(pngs) == n_frames and all(
+        Image.open(os.path.join(small, n)).size == size for n in pngs),
+        f"tools {label}: process_images wrote {pngs}")
+    # the three ray-casting tools trace the same camera rays: one capture
+    first = captures["extract_geometry"]
+    check(all(c["n"] == h * w and torch.equal(c["o"], first["o"])
+              and torch.equal(c["d"], first["d"])
+              for c in captures.values()),
+          f"tools {label}: the tools' largest traces differ")
+    st.update(frames_seen=[{k: v for k, v in f.items() if k != "pos"}
+                           for f in frames],
+              fused_faces=int(len(seen)), fused_agree=agree,
+              faces=n_faces)
+    return st, frames[0]["pos"], first
+
+
+def tools_card_vs_cpu(root, dev, seed):
+    """On the first train frame of a 240 x 320 dataset, the tools' device
+    functions on the card and on the CPU: the labels and the fused labels
+    (and the rewritten view) equal, the geometry within atol 1e-5, and the
+    implicit MLP (float32, TF32 off) on the frame's hit positions within
+    rtol 1e-4 / atol 1e-5 of its largest value."""
+    import numpy as np
+    import torch
+
+    from iris_tpu_torch.data.datasets import SyntheticDataset
+    from iris_tpu_torch.geometry.bvh import build_bvh
+    from iris_tpu_torch.geometry.mesh import load_mesh
+    from iris_tpu_torch.models.mlps import (
+        apply_implicit_mlp, init_implicit_mlp,
+    )
+    from iris_tpu_torch.utils import fuse_segmentation as fuse
+    from iris_tpu_torch.utils.extract_geometry import trace_geometry
+    from iris_tpu_torch.utils.render_semantic import (
+        face_label_tensor, semantic_labels,
+    )
+
+    mesh = load_mesh(os.path.join(root, "scene.obj"))
+    ds = SyntheticDataset(root, img_dir="ldr", split="train", load_gt=False,
+                          load_inverse=True)
+    fr = ds.frame(0)
+    labels = (np.arange(mesh.n_faces) // 12) % TOOLS_LABELS
+    gen = torch.Generator().manual_seed(seed + TOOLS_MLP_SEED)
+    mlp = init_implicit_mlp(gen, device="cpu")
+    out = []
+    for d in (dev, torch.device("cpu")):
+        tracer = build_bvh(mesh.triangles(), device=d)
+        rays = torch.from_numpy(fr["rays"]).to(d)
+        seg = torch.from_numpy(fr["segmentation"]).to(d)
+        pos, nrm, depth = trace_geometry(tracer, rays)
+        fused = fuse.fuse_segmentation(tracer, mesh.n_faces, [fr],
+                                       TOOLS_LABELS)
+        params = {k: ({f: [t.to(d) for t in v[f]] for f in v}
+                      if isinstance(v, dict) else v) for k, v in mlp.items()}
+        out.append({
+            "pos": pos, "nrm": nrm, "depth": depth,
+            "labels": semantic_labels(tracer, face_label_tensor(
+                labels, mesh.n_faces, d), rays),
+            "fused": torch.from_numpy(fused),
+            "views": fuse.relabel(tracer, torch.from_numpy(fused).to(d),
+                                  rays, seg),
+            "mlp": apply_implicit_mlp(params, pos)})
+    card, cpu = out
+    report = {}
+    for k in ("pos", "nrm", "depth"):
+        err = float((card[k].cpu() - cpu[k]).abs().max())
+        check(err <= 1e-5, f"tools card vs CPU: {k} off by {err:.3e}")
+        report[f"{k}_max_abs_diff"] = err
+    for k in ("labels", "fused", "views"):
+        check(torch.equal(card[k].cpu(), cpu[k]),
+              f"tools card vs CPU: {k} differ")
+    a, b = card["mlp"].cpu(), cpu["mlp"]
+    scale = float(b.abs().max())
+    check(bool(torch.isfinite(a).all()) and torch.allclose(
+        a, b, rtol=1e-4, atol=1e-5 * scale),
+        f"tools card vs CPU: implicit MLP off by "
+        f"{float((a - b).abs().max()):.3e} (largest value {scale:.3e})")
+    report.update(rays=int(rays.shape[0]), labels_equal=True,
+                  mlp_max_abs_diff=float((a - b).abs().max()),
+                  mlp_max_abs=scale)
+    return report
+
+
+def implicit_mlp_full_frame(pos, dev, seed):
+    """The implicit MLP (the JAX defaults: 256 wide, 8 deep, 10
+    frequencies) forward on a full-size frame's hit positions: CUDA-event
+    ms of one call after a warm-up, its output checked finite."""
+    import torch
+
+    from iris_tpu_torch.models.mlps import ImplicitMLP, init_implicit_mlp
+
+    gen = torch.Generator(device=dev).manual_seed(seed + TOOLS_MLP_SEED)
+    model = ImplicitMLP(init_implicit_mlp(gen, device=dev))
+    with torch.no_grad():
+        model(pos)
+        ms, y = timed_once(lambda: model(pos))
+    check(y.shape == (pos.shape[0], 5) and bool(torch.isfinite(y).all()),
+          f"implicit MLP on {pos.shape[0]} points: {tuple(y.shape)}")
+    return {"points": int(pos.shape[0]), "ms": ms}
+
+
+def tools_phase(dev, seed, new_datasets=True):
+    """Phase 15 on the four datasets, printed: returns the stats by
+    dataset and the tools' traffic for hold_stage_traffic (the camera rays
+    of a full-size frame, which the three ray-casting tools share)."""
+    print(f"tools: extract_geometry, render_semantic (labels face // 12 % "
+          f"{TOOLS_LABELS}), fuse_segmentation (n_labels {TOOLS_LABELS}), "
+          f"hdr2ldr and process_images --max_width {TOOLS_MAX_WIDTH} on "
+          f"the train split of {STAGE_HW[0]} x {STAGE_HW[1]} and "
+          f"{TOOLS_HW[0]} x {TOOLS_HW[1]} datasets ({STAGE_SPLITS[0]} train "
+          f"frames; the full-size ones at generator spp {TOOLS_GEN_SPP}, "
+          f"depth {TOOLS_GEN_DEPTH}, cuts)")
+    t_phase = time.perf_counter()
+    stats, traffic, full_pos = {}, [], None
+    for label, root, kernel, hw, made_s in tools_datasets(dev, seed,
+                                                          new_datasets):
+        t0 = time.perf_counter()
+        st, pos, capture = run_tools(label, root, kernel, hw, dev, seed)
+        st.update(kernel=kernel, dataset_s=made_s,
+                  total_s=time.perf_counter() - t0)
+        report_tools(label, st)
+        stats[label] = st
+        if hw == TOOLS_HW:
+            traffic.append((label, kernel, {"tools": capture}))
+            if full_pos is None:
+                full_pos = pos
+        if hw == STAGE_HW and kernel == "trace_union":
+            st["card_vs_cpu"] = c = tools_card_vs_cpu(root, dev, seed)
+            print(f"tools card vs CPU ({label}, frame 0, {c['rays']} rays): "
+                  f"labels, fused labels and views equal; geometry max "
+                  f"|diff| {c['pos_max_abs_diff']:.3e} / "
+                  f"{c['nrm_max_abs_diff']:.3e} / "
+                  f"{c['depth_max_abs_diff']:.3e}; implicit MLP max |diff| "
+                  f"{c['mlp_max_abs_diff']:.3e} of {c['mlp_max_abs']:.3e}")
+    stats["implicit_mlp"] = m = implicit_mlp_full_frame(full_pos, dev, seed)
+    print(f"implicit MLP (3 -> 63 -> 256 x 8 -> 5, float32) on the "
+          f"{m['points']} positions of a {TOOLS_HW[0]} x {TOOLS_HW[1]} "
+          f"frame: {m['ms']:.3f} ms")
+    stats["total_s"] = time.perf_counter() - t_phase
+    print(f"tools: {stats['total_s']:.1f} s in all")
+    return stats, traffic
+
+
+def report_tools(label, st):
+    made = ("" if st["dataset_s"] is None
+            else f"dataset written in {st['dataset_s']:.1f} s; ")
+    print(f"tools {label}: {st['faces']} faces -> {st['kernel']}; {made}"
+          f"hit shares {[round(f['hit_share'], 4) for f in st['frames_seen']]}"
+          f"; fused {st['fused_faces']} observed faces, "
+          f"{st['fused_agree']:.4f} of them the part id")
+    for tool in TOOLS:
+        t = st[tool]
+        launched = {k: v for k, v in t["launches"].items() if v}
+        print(f"tools {label} {tool}: {t['wall_s']:.2f} s, {t['frames']} "
+              f"frames, {t['rays']} rays in {t['traces']} traces, "
+              f"{t['rays_per_s']:.0f} rays/s; launches {launched}; peak "
+              f"memory {t['peak_memory_mb']:.0f} MB")
+
+
 def frame_rays(dev):
     import numpy as np
     import torch
@@ -2570,6 +2928,9 @@ def main(argv=None) -> int:
                     help="run the relight and video CLIs (phase 14) on new "
                     "datasets with the production material from --seed and "
                     "stop (no verdict line)")
+    ap.add_argument("--tools-only", action="store_true",
+                    help="run the dataset-preparation tools (phase 15) on "
+                    "new datasets and stop (no verdict line)")
     ap.add_argument("--counts", action="store_true",
                     help="with --sweep-only: the plain versions' counters "
                     "at every packet width on the camera check rays")
@@ -2663,6 +3024,19 @@ def main(argv=None) -> int:
         held = hold_stage_traffic(relight_traffic, flush)
         print("run: " + json.dumps({"relight": relight_stats,
                                     "relight_traffic": held,
+                                    "total_s": time.perf_counter() - t_run}))
+        print(f"card: {card_line()}")
+        return 0
+
+    if args.tools_only:
+        tools_stats, tools_traffic = tools_phase(dev, args.seed)
+        for d in (STAGE_DIR, TOOLS_DIR):
+            shutil.rmtree(d, ignore_errors=True)
+        flush = torch.empty(64 * 2 ** 20 // 4, dtype=torch.float32,
+                            device=dev)
+        held = hold_stage_traffic(tools_traffic, flush)
+        print("run: " + json.dumps({"tools": tools_stats,
+                                    "tools_traffic": held,
                                     "total_s": time.perf_counter() - t_run}))
         print(f"card: {card_line()}")
         return 0
@@ -3007,11 +3381,21 @@ def main(argv=None) -> int:
 
     # 14. the relight and video CLIs on phase 11's trained scenes
     relight_stats, relight_traffic = relight_phase(dev, args.seed)
-    shutil.rmtree(STAGE_DIR, ignore_errors=True)
     for st in relight_stats.values():
         for run in st.values():
             if isinstance(run, dict) and "launches" in run:
                 add_launches(run)
+
+    # 15. the dataset-preparation tools on phase 11's datasets and two
+    # full-size ones
+    tools_stats, tools_traffic = tools_phase(dev, args.seed,
+                                             new_datasets=False)
+    for d in (STAGE_DIR, TOOLS_DIR):
+        shutil.rmtree(d, ignore_errors=True)
+    for st in tools_stats.values():
+        for tool in TOOLS:
+            if isinstance(st, dict) and tool in st:
+                add_launches(st[tool])
 
     # 12-13. each kernel on the largest input a main path gave it; the five
     # big-tree kernels on the same 518,400 rays of the 102K train step;
@@ -3021,7 +3405,8 @@ def main(argv=None) -> int:
     held = hold_stage_traffic(traffic, flush)
     trainer_held = hold_stage_traffic(train_traffic, flush)
     relight_held = hold_stage_traffic(relight_traffic, flush)
-    del traffic, train_traffic, relight_traffic
+    tools_held = hold_stage_traffic(tools_traffic, flush)
+    del traffic, train_traffic, relight_traffic, tools_traffic
     inputs = {"trace_union": flag_in, "trace_paired": mid_in,
               "trace_ordered": wide_in}
     trees = {"trace_paired": mid_tracer}
@@ -3105,10 +3490,11 @@ def main(argv=None) -> int:
             row = rows[-1]
             row["max_abs_err"] = max([row["max_abs_err"]] + [
                 m["max_abs_err"] for m in held[name] + trainer_held[name]
-                + relight_held[name]])
+                + relight_held[name] + tools_held[name]])
             row["stage_traffic"] = held[name]
             row["trainer_traffic"] = trainer_held[name]
             row["relight_traffic"] = relight_held[name]
+            row["tools_traffic"] = tools_held[name]
             top = max(held[name], key=lambda m: m["rays"])
             if top["rays"] > row["rays"]:
                 moved = ("rays", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3177,7 +3563,7 @@ def main(argv=None) -> int:
         "train_flagship": flag_train, "train_clutter102k": big_train,
         "stages": stages, "ref32x2": ref_stats,
         "shading_cache_stages": stage_stats, "pipeline": pipe_stats,
-        "relight": relight_stats,
+        "relight": relight_stats, "tools": tools_stats,
         "five_on_102k_ms": turns, "five_on_102k_hits": agree,
         "packet_sweep_ms": sweep,
         "build_s": build_s, "total_s": time.perf_counter() - t_run}))
@@ -3186,7 +3572,7 @@ def main(argv=None) -> int:
               "main path")
     print(json.dumps({"kernels": rows}))
 
-    # 15. verdict
+    # 16. verdict
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,8 @@ the static fields as plain values.
   (hashgrid.py:79-88). MLP weights and biases as lists; the hash-grid
   config as a dict of its fields, every one carried (the table's mode and
   the estimator fields included);
+- implicit_mlp: the trunk's and the head's weights and biases as lists,
+  and n_freqs (models/mlps.py);
 - emitter, voxel_slf: every field;
 - emor_crf: weight, f0 and basis;
 - leaves_to_numpy: a params tree, or the gradient dict of
@@ -77,6 +79,19 @@ def ngp_brdf(table, mlp_w, mlp_b, voxel_min, voxel_max, cfg: dict,
              "b": [_t(b, dev) for b in mlp_b]},
         voxel_min=_t(voxel_min, dev), voxel_max=_t(voxel_max, dev),
         cfg=hcfg)
+
+
+def implicit_mlp(trunk_w, trunk_b, head_w, head_b, n_freqs,
+                 device=None) -> dict:
+    """models/mlps.py's parameter dict from the JAX tree's
+    params["trunk"]["w"], ["trunk"]["b"], params["head"]["w"] and
+    ["head"]["b"] (lists of arrays) and its n_freqs."""
+    dev = resolve_device(device)
+    return {"trunk": {"w": [_t(w, dev) for w in trunk_w],
+                      "b": [_t(b, dev) for b in trunk_b]},
+            "head": {"w": [_t(w, dev) for w in head_w],
+                     "b": [_t(b, dev) for b in head_b]},
+            "n_freqs": int(n_freqs)}
 
 
 def voxel_slf(inds, radiance, count, voxel_min, voxel_max, H,

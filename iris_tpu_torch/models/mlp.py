@@ -29,15 +29,20 @@ def _bf16_round(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
-def apply_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """Forward pass with bf16 operands and f32 sums; hidden activations
+def apply_mlp(params: dict, x: torch.Tensor, bf16: bool = True
+              ) -> torch.Tensor:
+    """Forward pass with bf16 operands and f32 sums, or with bf16=False
+    f32 operands (the implicit MLP of models/mlps.py); hidden activations
     ReLU, linear head."""
     torch.backends.cuda.matmul.allow_tf32 = False
     n = len(params["w"])
     h = x
     for i in range(n):
         w, b = params["w"][i], params["b"][i]
-        h = _bf16_round(h) @ _bf16_round(w) + b
+        if bf16:
+            h = _bf16_round(h) @ _bf16_round(w) + b
+        else:
+            h = h @ w + b
         if i < n - 1:
             h = torch.relu(h)
     return h

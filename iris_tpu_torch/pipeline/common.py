@@ -88,14 +88,18 @@ def val_frame(args, stage: str):
     return val_ds, val_ds.frame(min(args.val_frame, len(val_ds) - 1))
 
 
-def stage_dataset(args):
-    """The train split as the shading-cache stages read it (their
-    --dataset KIND --scene ROOT convention; no GT maps): (mesh path
-    arguments for load_scene, dataset)."""
+def stage_dataset(args, split: str = "train", **extra):
+    """A split (the train split by default) as the shading-cache stages and
+    the dataset tools read it (their --dataset KIND --scene ROOT
+    convention; no GT maps): (mesh path arguments for load_scene,
+    dataset). `extra`: more load_dataset keywords (load_inverse). The
+    tools have no --res_scale, as in the JAX package: they read full
+    frames."""
     scene_id = args.scene if args.dataset == "scannetpp" else ""
     data_root = ((args.dataset_root or args.scene)
                  if args.dataset == "scannetpp" else args.scene)
-    kw = dict(split="train", res_scale=args.res_scale)
+    kw = dict(split=split, res_scale=getattr(args, "res_scale", 1.0),
+              **extra)
     if args.dataset in ("synthetic", "real"):
         kw["img_dir"] = args.ldr_img_dir
     if args.dataset == "synthetic":

@@ -29,7 +29,7 @@ the unit's wall time with and without the profiler, the summed device time
 of its kernels and the device's idle share against both, the number of
 kernels launched, the traversal kernels' share, and the kernels that took
 the most device time. The Chrome trace of each profiled unit is written
-next to --out. Needs one CUDA card.
+next to --out (utils/profiling.device_trace). Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -150,7 +150,7 @@ def make_unit(path, n_clutter, seed, grid="4x16", policy="default"):
 
 
 def profile_cell(label, path, n_clutter, seed, out, grid, policy):
-    from torch.profiler import ProfilerActivity, profile
+    from iris_tpu_torch.utils.profiling import device_trace
 
     unit, kernel = make_unit(path, n_clutter, seed, grid, policy)
     label = f"{label} {grid} {kernel}"
@@ -161,13 +161,12 @@ def profile_cell(label, path, n_clutter, seed, out, grid, policy):
         unit()
         plain_ms.append((time.perf_counter() - t0) * 1e3)
     plain_ms = sorted(plain_ms)[1]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    name = os.path.splitext(os.path.basename(out))[0]
+    with device_trace(os.path.dirname(os.path.abspath(out)),
+                      f"{name}_{path}_{label.replace(' ', '_')}") as prof:
         t0 = time.perf_counter()
         unit()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    prof.export_chrome_trace(out.replace(
-        ".json", f"_{path}_{label.replace(' ', '_')}.json"))
 
     kernels = device_kernels(prof)
     busy_ms = sum(device_time_us(e) for e in kernels) / 1e3

@@ -682,3 +682,95 @@ def test_relight_round_launches(card, with_spots):
     want = (1 + depth * (2 + int(with_spots))) * 2
     assert launched == {k: want if k == "trace_union" else 0
                         for k in ci.KERNELS}
+
+
+@pytest.fixture(scope="module")
+def tools_root(tmp_path_factory):
+    """A 24 x 32 demo dataset (3 train frames), written on the CPU."""
+    from iris_tpu_torch.data.make_demo_dataset import make_dataset
+
+    root = str(tmp_path_factory.mktemp("tools_card"))
+    make_dataset(root, img_hw=(24, 32), n_train=3, n_val=1, spp=4,
+                 indir_depth=1, device="cpu")
+    return root
+
+
+def test_dataset_tools_card_match_cpu(card, tools_root):
+    """The tools' device functions on the card and on the CPU: labels,
+    fused labels (a tie included: the lower label wins on both) and the
+    rewritten views equal; the geometry within atol 1e-5; one launch a
+    frame for the labels and the geometry, two for the fusion."""
+    from iris_tpu_torch.data.datasets import SyntheticDataset
+    from iris_tpu_torch.geometry.mesh import load_mesh
+    from iris_tpu_torch.utils import fuse_segmentation as fuse
+    from iris_tpu_torch.utils.extract_geometry import trace_geometry
+    from iris_tpu_torch.utils.render_semantic import (
+        face_label_tensor, semantic_labels)
+
+    mesh = load_mesh(f"{tools_root}/scene.obj")
+    ds = SyntheticDataset(tools_root, img_dir="ldr", split="train",
+                          load_gt=False, load_inverse=True)
+    frames = list(ds.frames())
+    hw = frames[0]["rays"].shape[0]
+    tie = [{"rays": frames[0]["rays"], "segmentation": np.full(hw, s,
+                                                             np.float32)}
+           for s in (7.0, 3.0)]
+    labels = (np.arange(mesh.n_faces) // 12) % 128
+    out = []
+    for dev in (card, torch.device("cpu")):
+        tracer = build_bvh(mesh.triangles(), device=dev)
+        before = {k: getattr(ci, k).launches for k in ci.KERNELS}
+        res = {"geo": [], "sem": []}
+        for fr in frames:
+            rays = torch.from_numpy(fr["rays"]).to(dev)
+            res["geo"].append(trace_geometry(tracer, rays))
+            res["sem"].append(semantic_labels(tracer, face_label_tensor(
+                labels, mesh.n_faces, dev), rays))
+        res["fused"] = fuse.fuse_segmentation(tracer, mesh.n_faces, frames,
+                                              128)
+        res["views"] = [fuse.relabel(
+            tracer, torch.from_numpy(res["fused"]).to(dev),
+            torch.from_numpy(fr["rays"]).to(dev),
+            torch.from_numpy(fr["segmentation"]).to(dev)) for fr in frames]
+        res["tie"] = fuse.fuse_segmentation(tracer, mesh.n_faces, tie, 16)
+        res["launches"] = {k: getattr(ci, k).launches - before[k]
+                           for k in ci.KERNELS}
+        out.append(res)
+    got, want = out
+    n = len(frames)
+    assert got["launches"]["trace_union"] == 2 * n + 2 * n + 2
+    for g, w in zip(got["geo"], want["geo"]):
+        for a, b in zip(g, w):
+            assert float((a.cpu() - b).abs().max()) <= 1e-5
+    for g, w in zip(got["sem"] + got["views"], want["sem"] + want["views"]):
+        assert torch.equal(g.cpu(), w)
+    assert np.array_equal(got["fused"], want["fused"])
+    assert np.array_equal(got["tie"], want["tie"])
+    seen = got["tie"] >= 0
+    assert seen.sum() > 10 and np.all(got["tie"][seen] == 3)
+
+
+def test_time_ms_on_the_card(card):
+    from iris_tpu_torch.utils.timing import bench_keyed, time_ms
+
+    flush = torch.empty(1 << 20, device=card)
+    x = torch.rand(1 << 22, device=card)
+    ms = time_ms(lambda: x.mul(2.0), 5, flush)
+    assert ms > 0
+    s = bench_keyed(lambda g: torch.rand(1 << 20, generator=g,
+                                         device=card), 0, iters=3)
+    assert s > 0
+
+
+def test_device_trace_records_the_card(card, tmp_path):
+    import json
+
+    from iris_tpu_torch.utils.profiling import device_trace
+
+    x = torch.rand(256, 256, device=card)
+    with device_trace(str(tmp_path), "card") as prof:
+        x.matmul(x).sum().item()
+    with open(tmp_path / "card.json") as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events)
+    assert prof.key_averages()

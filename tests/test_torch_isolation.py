@@ -33,7 +33,11 @@ for want in ("train.steps", "train.optim", "train.loop", "utils.losses",
              "render.relight", "pipeline.render_relight",
              "pipeline.render_video", "utils.gen_path", "utils.video",
              "utils.extract_emitter_mesh", "utils.export",
-             "utils.uv_unwrap", "utils.metric_brdf"):
+             "utils.uv_unwrap", "utils.metric_brdf",
+             "utils.extract_geometry", "utils.render_semantic",
+             "utils.fuse_segmentation", "utils.hdr2ldr",
+             "utils.process_images", "data.colmap", "models.mlps",
+             "utils.timing", "utils.profiling"):
     assert "iris_tpu_torch." + want in names, want
 from iris_tpu_torch.geometry.intersect import TraversalPolicy, kernel_for
 from iris_tpu_torch.train.loop import TrainerConfig, run_training
@@ -89,6 +93,26 @@ def test_relight_video_and_export_clis_default_to_cuda(module, argv,
     monkeypatch.chdir(tmp_path)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(argv)
+    assert os.listdir(tmp_path) == []
+
+
+@pytest.mark.parametrize("module,argv", [
+    ("extract_geometry", []),
+    ("render_semantic", ["--labels", "labels.npy"]),
+    ("fuse_segmentation", []),
+])
+def test_dataset_tools_default_to_cuda(module, argv, tmp_path, monkeypatch):
+    """The ray-casting dataset tools ask for the card before they read the
+    dataset or write a file."""
+    import importlib
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    main = importlib.import_module(f"iris_tpu_torch.utils.{module}").main
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--dataset", "synthetic", "--scene", "missing", "--output",
+              "out"] + argv)
     assert os.listdir(tmp_path) == []
 
 

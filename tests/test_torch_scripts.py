@@ -1,5 +1,6 @@
-"""The port's pipeline scripts (iris_tpu_torch/scripts/*.sh), the
-counterparts of scripts/{run_pipeline,render,relight_demo}.sh: run by
+"""The port's pipeline scripts (iris_tpu_torch/scripts/*.sh and
+scenes/*.sh), the counterparts of scripts/{run_pipeline,render,
+relight_demo,run_scale_demo}.sh and scripts/scenes/*.sh: run by
 bash with their variables at their defaults (the required ones set) and a
 stand-in `python` on the PATH that records each command, every
 `python -m` line names a module of the port, and its flags parse with
@@ -18,7 +19,13 @@ SCRIPTS = os.path.join(REPO, "iris_tpu_torch", "scripts")
 SEP = "\x1f"
 
 # the variables a script requires (${VAR:?}); the rest keep their defaults
-REQUIRED = {"DATASET_PATH": "/data/kitchen", "EXP": "kitchen"}
+REQUIRED = {"DATASET_PATH": "/data/kitchen", "EXP": "kitchen",
+            "DATASET_ROOT": "/data/scannetpp"}
+PIPELINE = ["slf_bake", "extract_emitter", "initialize", "extract_emitter",
+            "bake_shading", "train_brdf_crf", "slf_refine", "train_emitter",
+            "extract_emitter", "refine_shading", "train_brdf_crf"]
+SCENES = sorted(n for n in os.listdir(os.path.join(SCRIPTS, "scenes"))
+                if n.endswith(".sh"))
 
 
 def _commands(script, tmp_path):
@@ -64,33 +71,50 @@ def _parse_only(module_name, argv, monkeypatch):
 
 
 @pytest.mark.parametrize("script,modules", [
-    ("run_pipeline.sh", ["slf_bake", "extract_emitter", "initialize",
-                         "extract_emitter", "bake_shading",
-                         "train_brdf_crf", "slf_refine", "train_emitter",
-                         "extract_emitter", "refine_shading",
-                         "train_brdf_crf"]),
-    ("render.sh", ["render"]),
-    ("relight_demo.sh", ["render_relight"]),
-])
+    ("run_pipeline.sh", [f"pipeline.{m}" for m in PIPELINE]),
+    ("render.sh", ["pipeline.render"]),
+    ("relight_demo.sh", ["pipeline.render_relight"]),
+    ("run_scale_demo.sh", ["data.make_demo_dataset"]
+     + [f"pipeline.{m}" for m in PIPELINE]
+     + ["pipeline.render", "utils.metric_brdf", "utils.metric_crf"]),
+] + [(f"scenes/{name}", [f"pipeline.{m}" for m in PIPELINE])
+     for name in SCENES])
 def test_script_lines_parse(script, modules, tmp_path, monkeypatch):
     calls = _commands(script, tmp_path)
-    assert [m for m, _ in calls] == [
-        f"iris_tpu_torch.pipeline.{m}" for m in modules]
+    assert [m for m, _ in calls] == [f"iris_tpu_torch.{m}" for m in modules]
     for module, argv in calls:
         ns = _parse_only(module, argv, monkeypatch)
         assert getattr(ns, "device", None) is None, module   # the card
 
 
+def _shell_lines(path):
+    with open(path) as f:
+        return [ln.strip() for ln in f.read().splitlines()
+                if ln.strip() and not ln.lstrip().startswith("#")]
+
+
 def test_scripts_mirror_the_jax_scripts():
-    """Each script runs the JAX script's commands, module for module, with
-    the port's package in the module's place."""
-    for name in os.listdir(SCRIPTS):
-        with open(os.path.join(SCRIPTS, name)) as f:
+    """Each script (scripts/ and scripts/scenes/ of the JAX package, one
+    twin each) runs the JAX script's commands, module for module, with the
+    port's package in the module's place; a script that runs another runs
+    the port's twin of it; the scene scripts export the same settings."""
+    port_scripts = sorted(
+        os.path.relpath(os.path.join(d, n), SCRIPTS)
+        for d, _, names in os.walk(SCRIPTS) for n in names)
+    assert len(port_scripts) == 4 + 8 and len(SCENES) == 8
+    for rel in port_scripts:
+        with open(os.path.join(SCRIPTS, rel)) as f:
             port = f.read()
-        with open(os.path.join(REPO, "scripts", name)) as f:
-            jax_lines = [ln for ln in f.read().splitlines()
-                         if "python -m" in ln]
-        assert jax_lines and "iris_tpu." not in port.replace(
-            "iris_tpu_torch.", "")
-        for ln in jax_lines:
-            assert ln.replace("iris_tpu.", "iris_tpu_torch.") in port, ln
+        jax = _shell_lines(os.path.join(REPO, "scripts", rel))
+        assert "iris_tpu." not in port.replace("iris_tpu_torch.", "")
+        runs = [ln for ln in jax if "python -m" in ln
+                or ln.startswith(("exec scripts/", "bash scripts/"))
+                or " bash scripts/" in ln]
+        assert runs, rel
+        for ln in runs:
+            assert ln.replace("iris_tpu.", "iris_tpu_torch.").replace(
+                "scripts/", "iris_tpu_torch/scripts/") in port, (rel, ln)
+        if rel.startswith("scenes/"):
+            exports = [ln for ln in jax if ln.startswith("export ")]
+            assert exports == [ln for ln in _shell_lines(
+                os.path.join(SCRIPTS, rel)) if ln.startswith("export ")]
