@@ -7,6 +7,7 @@
     python3 chip_smoke.py --pipeline-only
     python3 chip_smoke.py --relight-only
     python3 chip_smoke.py --tools-only
+    python3 chip_smoke.py --parallel-only
 
 Needs one NVIDIA card (sm_90a: H100/H200), nvcc and g++. It builds the
 traversal kernels from iris_tpu_torch/csrc/traverse.cu and the SAH builder
@@ -202,7 +203,29 @@ from csrc/bvh_builder.cpp, then:
    ray-casting tools trace the same camera rays; on a full-size frame they
    are held in phase 13 (trace_union on the flagship's, trace_paired_streamed
    on the 102K's), under "tools_traffic";
-16. prints the card line again and, last, the run's JSON verdict.
+16. (run right after phase 15) trains data-parallel: the initialize CLI
+   through its main(argv) on phase 11's two datasets and bakes at phase
+   11's settings (batch 8,192, SPP 128 at spp 32, the 4 x 16 x 2^19
+   row-mode grid), 5 steps, three ways: with no group; as one NCCL rank
+   (--coordinator file://... --num_processes 1 --process_id 0, the
+   default backend on the card); and as two gloo ranks sharing cuda:0
+   (--dist_backend gloo; this process is rank 0, a spawned one rank 1:
+   NCCL refuses two ranks on one card, and the card's machine has one).
+   It prints ms a step of each (CUDA events, the median after the first;
+   the two-rank time is not a scaling figure, both ranks sharing one card
+   and gloo moving the gradients over TCP), the group's backend, the
+   bytes a step sends and rank 0's launches a step. Hard checks: one NCCL rank logs the losses
+   of no group; the two ranks' parameters are the same bits after every
+   step; their logged losses within 1e-4 relative of no group's; their
+   final leaves held to no group's by the Adam rule of
+   tests/torch_parity.hold_leaves (with no group's gradients for the JAX
+   package's); one train_log.jsonl, one validation set and one pair of
+   checkpoints written; each step's collectives exactly the gradient
+   all-reduce (the parameter bytes) and one all-gather of 7 floats a
+   ray (the per-ray tensors the loss's local part computes: the batch's
+   own columns are read whole on every rank); only the dataset's kernel launched. A rank that fails fails the
+   run;
+17. prints the card line again and, last, the run's JSON verdict.
 
 Any failed check raises, and the script then exits non-zero with no
 verdict line. It imports nothing of JAX or of the JAX package.
@@ -222,6 +245,10 @@ its holds alone (no verdict line).
 --tools-only runs phases 1-2, then phase 15 on two new 240 x 320 datasets
 (written as --pipeline-only writes them) and the two full-size ones, and
 its holds (no verdict line).
+
+--parallel-only runs phases 1-2, writes the two datasets with their SLF
+and emitter mask, then phase 16 alone (about two minutes on an H100),
+and prints no verdict line.
 
 --sweep-only runs phases 1-2, builds the 102,014-face scene, takes the
 518,400 rays of one train step and runs the width sweep of phase 12 alone
@@ -318,6 +345,10 @@ PIPE_STEPS = 20
 PIPE_CHUNK = 10                # chunk_steps, val_step and save_every
 PIPE_CLIS = ("initialize", "bake_shading", "train_brdf_crf", "slf_refine",
              "train_emitter", "refine_shading", "brdf1", "render")
+# phase 16: the data-parallel trainer at phase 11's settings, steps cut
+PAR_STEPS = 5
+PAR_GATHERED = 7           # floats a ray initialize's loss gathers
+PAR_DIR = os.path.join("outputs", "chip_smoke_parallel")
 # phase 14: the consumers of phase 11's trained scene; relight_demo.sh's
 # SPP 32 at spp 8, frames cut to 2
 REPO_DIR = os.path.dirname(os.path.abspath(__file__))
@@ -1014,30 +1045,41 @@ class time_train_steps:
     train.loop.make_train_step makes) with two CUDA events, read after the
     run (no host sync inside it), and keeps the largest traversal input of
     the steps alone (record_largest_trace), not of the hooks between
-    them."""
+    them. A data-parallel step's collectives are counted too
+    (parallel.comms_report.counting): `collectives` holds each step's
+    (kind, bytes) list, `groups` the RankGroup of each run."""
 
     def __enter__(self):
+        import contextlib
+
         import torch
 
+        from iris_tpu_torch.parallel.comms_report import counting
         from iris_tpu_torch.train import loop
 
         self._loop, self._make = loop, loop.make_train_step
         make, events = self._make, []
         self.events = events
+        self.collectives, self.groups = [], []
         recorder = record_largest_trace()
         self.captured = recorder.captured
 
-        def make_timed(loss_fn, optimizer):
-            step = make(loss_fn, optimizer)
+        def make_timed(loss_fn, optimizer, group=None):
+            step = make(loss_fn, optimizer, group)
+            if group is not None:
+                self.groups.append(group)
 
             def timed(*a, **k):
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
-                with recorder:
+                with recorder, (counting(group) if group is not None
+                                else contextlib.nullcontext()) as calls:
                     out = step(*a, **k)
                 end.record()
                 events.append((start, end))
+                if group is not None:
+                    self.collectives.append(list(calls))
                 return out
             return timed
 
@@ -1457,6 +1499,301 @@ def pipeline_phase(dev, seed, new_datasets=True):
         stats[label] = st
         traffic.append((label, kernel, captured))
     return stats, traffic
+
+
+class watch_updates:
+    """While active, every optimizer update (train.optim.Optimizer.update)
+    is watched on the device, with no host sync: with digests, after it,
+    one int64 digest of each parameter leaf's bits
+    (parallel.distributed.bits_digest; `digests()`, one list a step); with
+    masks, before it, the gradient rule of tests/torch_parity.
+    jax_noise_bound is applied to its gradients (`bound`: entries nonzero
+    and below 0.15 of their leaf's largest at some step; `touched`:
+    nonzero at some step) and the starting leaves are kept (`start`).
+    Either adds about a millisecond of device work to a step."""
+
+    def __init__(self, digests=False, masks=False):
+        self.want_digests, self.masks = digests, masks
+
+    def __enter__(self):
+        import torch
+
+        from iris_tpu_torch.parallel.distributed import bits_digest
+        from iris_tpu_torch.train import optim
+
+        self._cls, self._update = optim.Optimizer, optim.Optimizer.update
+        real = self._update
+        self._digests, self.bound, self.touched, self.start = [], {}, {}, {}
+        watch = self
+
+        def update(opt, params, grads, opt_state):
+            leaves = optim.named_leaves(params)
+            if watch.masks:
+                if not watch.start:
+                    watch.start = {n: t.detach().clone() for n, t in leaves}
+                for n, g in grads.items():
+                    a = g.abs()
+                    weak = (a > 0) & (a < 0.15 * a.max())
+                    watch.bound[n] = watch.bound.get(n, False) | weak
+                    watch.touched[n] = watch.touched.get(n, False) | (a > 0)
+            real(opt, params, grads, opt_state)
+            if watch.want_digests:
+                watch._digests.append(torch.cat(
+                    [bits_digest(t) for _, t in leaves]))
+
+        optim.Optimizer.update = update
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.update = self._update
+
+    def digests(self):
+        return [d.tolist() for d in self._digests]
+
+
+def hold_adam_leaves(label, got, ref, start, bound, touched, lr_sum):
+    """tests/torch_parity.hold_leaves, the rule the CLI parity tests hold
+    Adam's leaves to, here with the one-rank run's gradients in place of
+    the JAX package's: every entry that is not noise-bound within rtol
+    1e-4 / atol 2e-4 but 0.5% of the reached ones; >= 80% of the
+    noise-bound ones within it; none further than 2 * sum(lr); the firm
+    entries' movement at cosine >= 0.99."""
+    import numpy as np
+
+    for name, g in got.items():
+        r = ref[name]
+        weak = bound[name].reshape(g.shape)
+        reached = touched[name].reshape(g.shape)
+        close = np.isclose(g, r, rtol=1e-4, atol=2e-4)
+        off = int((~weak & ~close).sum())
+        check(off <= 0.005 * reached.sum(),
+              f"{label} {name}: {off} firm entries off of "
+              f"{int(reached.sum())} reached")
+        frac = float(close[weak].mean()) if weak.any() else 1.0
+        check(frac >= 0.8, f"{label} {name}: {frac:.3f} of the noise-bound "
+              "entries close")
+        check(float(np.abs(g - r).max()) <= 2 * lr_sum,
+              f"{label} {name}: max |diff| {np.abs(g - r).max():.3e} past "
+              f"2 * sum(lr) = {2 * lr_sum}")
+        firm = reached & ~weak
+        moved = (r - start[name])[firm]
+        if np.abs(moved).max(initial=0) > 0:
+            a = (g - start[name])[firm].astype(np.float64)
+            b = moved.astype(np.float64)
+            cos = float(a @ b / max(np.linalg.norm(a) * np.linalg.norm(b),
+                                    1e-300))
+            check(cos >= 0.99, f"{label} {name}: movement cosine {cos:.5f}")
+
+
+def parallel_rank(i, argv, out_path):
+    """Rank 1 of phase 16's two-rank run, in a spawned process: the
+    initialize CLI with the rank's flags, its parameters' digest kept after
+    every step and written to out_path."""
+    from iris_tpu_torch.pipeline import initialize
+
+    with watch_updates(digests=True) as w:
+        initialize.main(argv)
+    with open(out_path, "w") as f:
+        json.dump({"digests": w.digests()}, f)
+
+
+def parallel_run(label, argv, n_steps, **watch):
+    """One initialize run through run_stage with its steps timed and its
+    updates watched (watch_updates(**watch)): (stats, watch_updates,
+    time_train_steps of the run)."""
+    from iris_tpu_torch.pipeline import initialize
+
+    with watch_updates(**watch) as w, time_train_steps() as steps:
+        st = run_stage(initialize.main, argv)
+    ms = steps.step_ms()
+    check(len(ms) == n_steps, f"{label}: {len(ms)} steps timed, {n_steps} "
+          "expected")
+    st.update(steps=n_steps, step_ms=ms, ms_per_step=statistics.median(
+        ms[1:]))
+    st["launches_per_step"] = {k: v / n_steps
+                               for k, v in st["launches"].items() if v}
+    print(f"parallel {label}: {n_steps} steps, {st['ms_per_step']:.2f} "
+          f"ms/step (median after the first), step ms "
+          f"{[round(x, 2) for x in ms]}, launches {st['launches']}, "
+          f"peak memory {st['peak_memory_mb']:.0f} MB")
+    return st, w, steps
+
+
+def parallel_chain(label, kernel, root, bake, dev):
+    """Phase 16 on one dataset, in its own directory: the initialize CLI at
+    phase 11's settings for PAR_STEPS steps with no group, as one NCCL rank
+    and as two gloo ranks sharing the card (this process rank 0, a spawned
+    one rank 1), with the hard checks of the data-parallel path."""
+    import torch
+
+    from iris_tpu_torch.parallel.comms_report import summarize
+    from iris_tpu_torch.train.checkpoint import load_pytree
+    from iris_tpu_torch.train.optim import named_leaves
+
+    argv = ["--dataset", "synthetic", root, "--ldr_img_dir", "ldr",
+            "--crf_basis", "3", "--has_part", "1",
+            "--batch_size", str(PIPE_BATCH), "--chunk_steps", "1",
+            "--val_step", str(PAR_STEPS), "--save_every", str(PAR_STEPS),
+            "--hash_levels", str(PRODUCTION_GRID["hash_levels"]),
+            "--hash_features", str(PRODUCTION_GRID["hash_features"]),
+            "--log2_hashmap_size", str(LOG2_TABLE),
+            "--SPP", str(PIPE_SPP), "--spp", str(TRAIN_SPP),
+            "--voxel_path", os.path.join(bake, "vslf.npz"),
+            "--emitter_path", os.path.join(bake, "emitter.npz"),
+            "--max_steps", str(PAR_STEPS)]
+    on = f"{dev.type}:0" if dev.type == "cuda" else str(dev)
+    stats = {}
+    # no group
+    stats["no_group"], one, _ = parallel_run(
+        f"{label} no group", argv + ["--experiment_name", "one", "--device",
+                                     str(dev)], PAR_STEPS, masks=True)
+    # one NCCL rank on the card: the NCCL path, the bits of no group
+    rv = os.path.abspath("rendezvous")
+    stats["nccl_1"], _, st = parallel_run(
+        f"{label} one NCCL rank", argv + [
+            "--experiment_name", "nccl", "--device", on,
+            "--coordinator", f"file://{rv}_nccl", "--num_processes", "1",
+            "--process_id", "0"], PAR_STEPS)
+    want = "nccl" if dev.type == "cuda" else "gloo"
+    check(len(st.groups) == 1 and st.groups[0].backend == want,
+          f"{label}: one {want} rank ran on "
+          f"{[g.backend for g in st.groups]}")
+    a, b = (train_log(os.path.join("outputs", e, "train_log.jsonl"))
+            for e in ("one", "nccl"))
+    check([r["loss"] for r in a] == [r["loss"] for r in b],
+          f"{label}: one NCCL rank's losses {b} are not no group's {a}")
+    # two gloo ranks on cuda:0
+    rank = ["--experiment_name", "two", "--device", on,
+            "--coordinator", f"file://{rv}_gloo", "--num_processes", "2",
+            "--dist_backend", "gloo"]
+    digests_1 = os.path.abspath("rank1.json")
+    child = torch.multiprocessing.start_processes(
+        parallel_rank, args=(argv + rank + ["--process_id", "1"],
+                             digests_1),
+        nprocs=1, join=False, start_method="spawn")
+    try:
+        stats["gloo_2"], w0, st = parallel_run(
+            f"{label} two gloo ranks (rank 0)",
+            argv + rank + ["--process_id", "0"], PAR_STEPS, digests=True)
+        while not child.join():
+            pass
+    finally:
+        for p in child.processes:
+            if p.is_alive():
+                p.terminate()
+    with open(digests_1) as f:
+        w1 = json.load(f)["digests"]
+    group = st.groups[0]
+    stats["gloo_2"]["backend"] = group.backend
+    w0 = w0.digests()
+    check(len(w0) == PAR_STEPS and w0 == w1,
+          f"{label}: the two ranks' parameters differ after a step")
+    two = train_log(os.path.join("outputs", "two", "train_log.jsonl"))
+    check(len(two) == PAR_STEPS and [r["step"] for r in two]
+          == list(range(PAR_STEPS)), f"{label}: two ranks logged {two}")
+    rel = [abs(x["loss"] - y["loss"]) / abs(y["loss"])
+           for x, y in zip(two, a)]
+    check(max(rel) <= 1e-4, f"{label}: two ranks' losses {two} against "
+          f"one rank's {a}: relative {rel}")
+    for e in ("one", "two"):
+        got = (sorted(os.listdir(os.path.join("checkpoints", e))),
+               sorted(os.listdir(os.path.join("outputs", e))))
+        check(got == (["last.pkl", "last_state.pkl"],
+                      ["train_log.jsonl", "val"]),
+              f"{label} {e}: wrote {got}")
+        check(len(os.listdir(os.path.join("outputs", e, "val"))) == 4,
+              f"{label} {e}: validation files "
+              f"{os.listdir(os.path.join('outputs', e, 'val'))}")
+    final = {e: {n: t.numpy() for n, t in named_leaves(load_pytree(
+        os.path.join("checkpoints", e, "last.pkl"), "cpu"))}
+        for e in ("one", "two")}
+    lr_sum = PAR_STEPS * 1e-3
+    hold_adam_leaves(f"{label} two ranks", final["two"], final["one"],
+                     {n: t.cpu().numpy() for n, t in one.start.items()},
+                     {n: m.cpu().numpy() for n, m in one.bound.items()},
+                     {n: m.cpu().numpy() for n, m in one.touched.items()},
+                     lr_sum)
+    # what each step sent: the gradient all-reduce (the parameter bytes)
+    # and one all-gather of the loss's per-ray rows
+    params = load_pytree(os.path.join("checkpoints", "two", "last.pkl"),
+                         "cpu")
+    param_bytes = sum(t.numel() * t.element_size()
+                      for _, t in named_leaves(params))
+    gathered = 4 * PIPE_BATCH * PAR_GATHERED
+    sent = [summarize(c)["bytes_by_kind"] for c in st.collectives]
+    check(len(sent) == PAR_STEPS and all(
+        k == {"all_reduce": param_bytes, "all_gather": gathered}
+        for k in sent), f"{label}: a step sent {sent}, expected "
+        f"{param_bytes} B of all-reduce and {gathered} B of all-gather")
+    stats["gloo_2"].update(allreduce_bytes_per_step=param_bytes,
+                           gather_bytes_per_step=gathered,
+                           max_rel_loss_diff=max(rel),
+                           losses_two=[r["loss"] for r in two],
+                           losses_one=[r["loss"] for r in a])
+    for st_run in stats.values():
+        check(only_launched(st_run["launches"], kernel),
+              f"{label}: launches {st_run['launches']}, {kernel} alone "
+              "expected")
+    print(f"parallel {label}: ms/step no group "
+          f"{stats['no_group']['ms_per_step']:.2f}, one NCCL rank "
+          f"{stats['nccl_1']['ms_per_step']:.2f}, two gloo ranks on one card "
+          f"{stats['gloo_2']['ms_per_step']:.2f} (rank 0; not a scaling "
+          "figure: both ranks share one card, and gloo moves the "
+          f"{param_bytes} B of gradients over TCP on one host); backend "
+          f"{group.backend}; a step sends {param_bytes} B of all-reduce and "
+          f"{gathered} B of all-gather; rank 0's launches a step (the "
+          "step-0 validation render spread over the steps) "
+          f"{stats['gloo_2']['launches_per_step']}; losses two ranks vs one "
+          f"within {max(rel):.2e} relative; the ranks' parameters the same "
+          "bits after every step; the final leaves held to one rank's by "
+          "the Adam rule; card "
+          + card_line())
+    return stats
+
+
+def parallel_phase(dev, seed, new_datasets=False):
+    """Phase 16 on both datasets, printed: on phase 11's datasets and
+    bakes, or with new_datasets (--parallel-only) on new ones with their
+    SLF and emitter mask made here. Returns the stats by dataset."""
+    from iris_tpu_torch.pipeline import extract_emitter, slf_bake
+
+    print(f"parallel: initialize data-parallel on the {STAGE_HW[0]} x "
+          f"{STAGE_HW[1]} datasets, batch {PIPE_BATCH}, SPP {PIPE_SPP}, spp "
+          f"{TRAIN_SPP}, {PAR_STEPS} steps; no group, one NCCL rank, and "
+          "two gloo ranks on cuda:0 (NCCL refuses two ranks on one card)")
+    stats = {}
+    for label, n_clutter, kernel, orbit in STAGE_DATASETS:
+        root = os.path.abspath(os.path.join(STAGE_DIR, label))
+        bake = os.path.abspath(os.path.join(STAGE_DIR, label + "_pipeline",
+                                            "bake"))
+        if new_datasets:
+            from iris_tpu_torch.data.make_demo_dataset import make_dataset
+
+            shutil.rmtree(root, ignore_errors=True)
+            make_dataset(root, img_hw=STAGE_HW, n_train=STAGE_SPLITS[0],
+                         n_val=STAGE_SPLITS[1], spp=STAGE_GEN_SPP,
+                         indir_depth=STAGE_GEN_DEPTH, n_clutter=n_clutter,
+                         seed=seed, orbit=orbit, device=dev)
+            common = ["--dataset", "synthetic", "--scene", root,
+                      "--ldr_img_dir", "ldr", "--device", str(dev),
+                      "--output", bake]
+            slf_bake.main(common + ["--voxel_num", str(STAGE_VOXELS)])
+            extract_emitter.main(common + ["--threshold", "0.99"])
+        work = os.path.abspath(os.path.join(PAR_DIR, label))
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        here = os.getcwd()
+        t0 = time.perf_counter()
+        os.chdir(work)
+        try:
+            st = parallel_chain(label, kernel, root, bake, dev)
+        finally:
+            os.chdir(here)
+        st["total_s"] = time.perf_counter() - t0
+        print(f"parallel {label}: {st['total_s']:.1f} s in all")
+        stats[label] = st
+    shutil.rmtree(PAR_DIR, ignore_errors=True)
+    return stats
 
 
 class watch_relight:
@@ -2931,6 +3268,9 @@ def main(argv=None) -> int:
     ap.add_argument("--tools-only", action="store_true",
                     help="run the dataset-preparation tools (phase 15) on "
                     "new datasets and stop (no verdict line)")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="run the data-parallel trainer (phase 16) on new "
+                    "datasets and stop (no verdict line)")
     ap.add_argument("--counts", action="store_true",
                     help="with --sweep-only: the plain versions' counters "
                     "at every packet width on the camera check rays")
@@ -3037,6 +3377,14 @@ def main(argv=None) -> int:
         held = hold_stage_traffic(tools_traffic, flush)
         print("run: " + json.dumps({"tools": tools_stats,
                                     "tools_traffic": held,
+                                    "total_s": time.perf_counter() - t_run}))
+        print(f"card: {card_line()}")
+        return 0
+
+    if args.parallel_only:
+        par_stats = parallel_phase(dev, args.seed, new_datasets=True)
+        shutil.rmtree(STAGE_DIR, ignore_errors=True)
+        print("run: " + json.dumps({"parallel": par_stats,
                                     "total_s": time.perf_counter() - t_run}))
         print(f"card: {card_line()}")
         return 0
@@ -3390,12 +3738,18 @@ def main(argv=None) -> int:
     # full-size ones
     tools_stats, tools_traffic = tools_phase(dev, args.seed,
                                              new_datasets=False)
-    for d in (STAGE_DIR, TOOLS_DIR):
-        shutil.rmtree(d, ignore_errors=True)
     for st in tools_stats.values():
         for tool in TOOLS:
             if isinstance(st, dict) and tool in st:
                 add_launches(st[tool])
+
+    # 16. the data-parallel trainer on phase 11's datasets and bakes
+    par_stats = parallel_phase(dev, args.seed)
+    for d in (STAGE_DIR, TOOLS_DIR):
+        shutil.rmtree(d, ignore_errors=True)
+    for st in par_stats.values():
+        for run in ("no_group", "nccl_1", "gloo_2"):
+            add_launches(st[run])
 
     # 12-13. each kernel on the largest input a main path gave it; the five
     # big-tree kernels on the same 518,400 rays of the 102K train step;
@@ -3564,6 +3918,7 @@ def main(argv=None) -> int:
         "stages": stages, "ref32x2": ref_stats,
         "shading_cache_stages": stage_stats, "pipeline": pipe_stats,
         "relight": relight_stats, "tools": tools_stats,
+        "parallel": par_stats,
         "five_on_102k_ms": turns, "five_on_102k_hits": agree,
         "packet_sweep_ms": sweep,
         "build_s": build_s, "total_s": time.perf_counter() - t_run}))
@@ -3572,7 +3927,7 @@ def main(argv=None) -> int:
               "main path")
     print(json.dumps({"kernels": rows}))
 
-    # 16. verdict
+    # 17. verdict
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -63,3 +63,10 @@ def double_sided(view: torch.Tensor, normal: torch.Tensor) -> torch.Tensor:
 def reflect(wo: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """Mirror wo about h."""
     return 2.0 * dot(wo, h) * h - wo
+
+
+def luminance(rgb: torch.Tensor) -> torch.Tensor:
+    """Rec. 709 luminance (..., 1) of rgb (..., 3)."""
+    w = torch.tensor([0.2126, 0.7152, 0.0722], dtype=rgb.dtype,
+                     device=rgb.device)
+    return torch.sum(rgb * w, dim=-1, keepdim=True)

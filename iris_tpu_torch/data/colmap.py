@@ -46,19 +46,25 @@ def qvec2rotmat(q: np.ndarray) -> np.ndarray:
 
 
 def read_images_text(path: str) -> dict[int, ColmapImage]:
+    """Each image is two lines: its pose, then its 2D points, which is
+    empty for an image with none. As COLMAP's own reader does, only the
+    pose line is looked for past blank and comment lines; the line after
+    it is the points line, whatever it holds."""
     images = {}
     with open(path) as f:
-        lines = [ln.strip() for ln in f if ln.strip()
-                 and not ln.startswith("#")]
-    for i in range(0, len(lines), 2):   # every image uses 2 lines
-        e = lines[i].split()
-        images[int(e[0])] = ColmapImage(
-            image_id=int(e[0]),
-            qvec=np.asarray(e[1:5], np.float64),
-            tvec=np.asarray(e[5:8], np.float64),
-            camera_id=int(e[8]),
-            name=e[9],
-        )
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            e = line.split()
+            f.readline()                 # the 2D points, unused
+            images[int(e[0])] = ColmapImage(
+                image_id=int(e[0]),
+                qvec=np.asarray(e[1:5], np.float64),
+                tvec=np.asarray(e[5:8], np.float64),
+                camera_id=int(e[8]),
+                name=e[9],
+            )
     return images
 
 

@@ -184,10 +184,13 @@ class SyntheticDataset(_BaseDataset):
         self.load_inverse = load_inverse
         # has_part claims the IndexMA part-id layout; real scenes without
         # part annotations ship a semantic-only segmentation/ dir instead
-        # (reference synthetic_ldr.py has_part branch) — auto-fall back
-        # when IndexMA is absent so loaders survive either layout
-        self.has_part = has_part and os.path.isdir(
-            os.path.join(self.split_dir, "IndexMA"))
+        # (reference synthetic_ldr.py has_part branch) — fall back, with a
+        # notice, when IndexMA is absent so loaders survive either layout
+        part_dir = os.path.join(self.split_dir, "IndexMA")
+        self.has_part = has_part and os.path.isdir(part_dir)
+        if has_part and not self.has_part and os.path.isdir(self.split_dir):
+            print(f"[dataset] has_part: no part layout at {part_dir}; "
+                  "reading the semantic segmentation instead")
         self.val_frame = val_frame
         if img_dir is None:
             self.img_dir, self.albedo_dir = "Image", "irisformer/albedo"

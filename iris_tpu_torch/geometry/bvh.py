@@ -231,3 +231,8 @@ def build_bvh(triangles: np.ndarray, leaf_size: int = 4, method: str = "sah",
         depth=depth,
         policy=policy or TraversalPolicy(),
     )
+
+
+def build_tracer(mesh, device=None) -> Tracer:
+    """Convenience: mesh -> Tracer on `device` (default the card)."""
+    return build_bvh(mesh.triangles(), device=device)

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from iris_tpu_torch.core.segment import segment_sum
+from iris_tpu_torch.parallel.sharding import draw_uniform, rank_rows
 
 _PRIMES = (1, 2654435761, 805459861)
 
@@ -592,11 +593,12 @@ def hashgrid_encode(table: torch.Tensor, cfg: HashGridConfig,
     chosen_idx = None
     if stoch:
         # separable corner sampling: per-axis Bernoulli(frac)
+        # the flat index is query-major (m = query*L_eff + level), so a
+        # data-parallel rank's queries are a contiguous run of axis 1
         if samples is not None:
-            u3 = samples["u3"]
+            u3 = rank_rows(samples["u3"], gen, 1)
         else:
-            u3 = torch.rand((3, b * l_eff), generator=gen,
-                            dtype=torch.float32, device=dev)
+            u3 = draw_uniform(gen, (3, b * l_eff), dev, axis=1)
         bits = [(u3[c] < frac[c]).to(torch.int64) for c in range(3)]
         chosen_idx = corner_index(cell[0] + bits[0], cell[1] + bits[1],
                                   cell[2] + bits[2])

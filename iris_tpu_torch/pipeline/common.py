@@ -6,14 +6,17 @@ each package reads what the other writes: vslf.npz (SLF bake, keys mask,
 voxel_min, voxel_max, radiance, count) and emitter.npz (emitter
 extraction, keys is_emitter, emitter_vertices, emitter_area,
 emitter_normal, emitter_radiance). Checkpoint .pkl files are the port's
-own (train/checkpoint.py). mesh_batch_size runs on one device: a run
-over several waits for the port of iris_tpu/parallel/.
+own (train/checkpoint.py). The trainers run on one device or
+data-parallel over several (run_ranks, mesh_batch_size).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import shutil
+import sys
+import tempfile
 
 import numpy as np
 import torch
@@ -28,20 +31,101 @@ from iris_tpu_torch.models.hashgrid import (
     HashGridConfig, auto_bwd_level_sample,
 )
 from iris_tpu_torch.models.slf import VoxelSLF, init_voxel_slf
+from iris_tpu_torch.parallel.distributed import (
+    ensure_multihost, host_summary,
+)
 
 
-def mesh_batch_size(batch_size: int, n_devices: int | None = None,
+def mesh_batch_size(batch_size: int, n_ranks: int | None = None,
                     name: str = "train") -> int:
-    """The ray batch of a run over `n_devices` (iris_tpu/pipeline/common.py:24
-    rounds it down to a multiple of the data mesh's width). The port trains
-    on one device: None or 1 leaves the batch as it is; more raises, so
-    that a run asked to spread never runs on one device in silence."""
-    if n_devices is None or int(n_devices) == 1:
-        return batch_size
-    raise NotImplementedError(
-        f"[{name}] --n_devices {n_devices}: training over several devices "
-        "waits for the port of iris_tpu/parallel/ (torch.distributed); "
-        "this port trains on one device")
+    """Round a requested ray batch DOWN to a positive multiple of the rank
+    count (iris_tpu/pipeline/common.py:24 rounds it to the data mesh's
+    width): every rank takes B/N rows (parallel.sharding.shard_rows), and
+    an odd batch from an odd-resolution scene would not split. None is one
+    rank."""
+    n = max(int(n_ranks or 1), 1)
+    b = max((batch_size // n) * n, n)
+    if b != batch_size:
+        print(f"[{name}] batch_size {batch_size} -> {b} "
+              f"(multiple of the {n}-device mesh)")
+    return b
+
+
+def run_ranks(main_fn, argv, args, train, samples_for_step=None):
+    """Run a trainer's train(group) as the flags ask (args parsed from
+    argv; main_fn the trainer's main):
+
+    - --n_devices N > 1 with no --coordinator: N devices of this host, one
+      process a device. N-1 processes are started here (spawn), each
+      running main_fn with the multihost flags of its rank; this process
+      is rank 0. On the card: cuda:0..N-1 in an NCCL group (raises if
+      fewer than N cards are visible); with --device cpu, N gloo ranks on
+      the CPU. A rendezvous file in a temporary directory joins them. A
+      rank that fails fails the run.
+    - --coordinator: one process of a run started elsewhere
+      (parallel.distributed.ensure_multihost with --num_processes,
+      --process_id and --dist_backend, on --device).
+    - neither: one process, no group.
+
+    samples_for_step (replayed draws) needs the processes in hand: it is
+    refused with --n_devices > 1. Returns what train(group,
+    samples_for_step) returns on this process."""
+    n = args.n_devices or 1
+    if args.coordinator is None and n > 1:
+        if samples_for_step is not None:
+            raise ValueError("samples_for_step replays the draws of "
+                             "processes in hand; --n_devices starts them")
+        return _spawn_ranks(main_fn, sys.argv[1:] if argv is None
+                            else list(argv), args, n)
+    if args.coordinator is not None and args.n_devices not in (
+            None, args.num_processes):
+        raise ValueError(f"--n_devices {args.n_devices} with "
+                         f"--num_processes {args.num_processes}: a process "
+                         "of a multihost run drives one device")
+    group = ensure_multihost(args.coordinator, args.num_processes,
+                             args.process_id, backend=args.dist_backend,
+                             device=args.device)
+    if group is not None:
+        print(f"[parallel] {host_summary(group)}")
+    try:
+        return train(group, samples_for_step)
+    finally:
+        if group is not None:
+            group.close()
+
+
+def _rank_main(i, main_fn, argvs, n_threads):
+    torch.set_num_threads(n_threads)
+    main_fn(argvs[i + 1])
+
+
+def _spawn_ranks(main_fn, argv, args, n):
+    if resolve_device(args.device).type == "cuda":
+        have = torch.cuda.device_count()
+        if have < n:
+            raise RuntimeError(f"--n_devices {n}: only {have} cards are "
+                               "visible")
+        devices = [f"cuda:{r}" for r in range(n)]
+    else:
+        devices = ["cpu"] * n
+    tmp = tempfile.mkdtemp(prefix="iris_ranks_")
+    coordinator = "file://" + os.path.join(tmp, "rendezvous")
+    argvs = [argv + ["--coordinator", coordinator, "--num_processes",
+                     str(n), "--process_id", str(r), "--device", devices[r]]
+             for r in range(n)]
+    ctx = torch.multiprocessing.start_processes(
+        _rank_main, args=(main_fn, argvs, torch.get_num_threads()),
+        nprocs=n - 1, join=False, start_method="spawn")
+    try:
+        out = main_fn(argvs[0])
+        while not ctx.join():
+            pass
+        return out
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def resolve_mesh_path(dataset: str, dataset_root: str, scene: str = ""

@@ -47,7 +47,19 @@ default_options = {
     "l_crf_increasing": {"type": float, "default": 0.1},
     "l_crf_weight": {"type": float, "default": 0.001},
     # TPU-specific additions
+    # data parallel: N devices on this host, one process a device (the
+    # trainers start the other N-1 themselves; pipeline/common.run_ranks)
     "n_devices": {"type": int, "default": None},
+    # one process of a data-parallel run started elsewhere: the
+    # counterparts of the JAX package's IRIS_TPU_MULTIHOST (a coordinator
+    # given), IRIS_TPU_NUM_PROCESSES and the process index
+    # (parallel/distributed.ensure_multihost); the backend defaults to
+    # NCCL on the card and gloo on the CPU
+    "coordinator": {"type": str, "default": None},
+    "num_processes": {"type": int, "default": None},
+    "process_id": {"type": int, "default": None},
+    "dist_backend": {"type": str, "default": None,
+                     "choices": [None, "nccl", "gloo"]},
     # PRODUCTION DEFAULT (round 5): 4 levels x 16 features — the row-gather
     # grid (models/hashgrid.py row_gather). Same parameter count
     # (L*F*2^19 = 2^24 table floats) and same 64-wide MLP input as the

@@ -6,11 +6,13 @@ Optimizes {hash-grid material, emitter radiance} against LDR pixels through
 the frozen CRF: rendered loss (material detached in the render) + segment-
 mean albedo anchor. Writes last.pkl (plain radiance, the artifact later
 stages read) and last_state.pkl (the full training state, for --resume).
-Runs on the card unless --device says otherwise.
+Runs on the card unless --device says otherwise; --n_devices, or the
+multihost flags, make it data-parallel (pipeline/common.run_ranks).
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from argparse import ArgumentParser
@@ -18,9 +20,11 @@ from argparse import ArgumentParser
 from iris_tpu_torch.data.datasets import RayBatcher
 from iris_tpu_torch.device import resolve_device
 from iris_tpu_torch.models.crf import init_emor_crf
+from iris_tpu_torch.parallel.distributed import is_lead
 from iris_tpu_torch.pipeline.common import (
     adopt_estimator_cfg, build_material, ckpt_path, load_emitter,
-    load_scene, load_vslf, make_dataset, mesh_batch_size, val_frame,
+    load_scene, load_vslf, make_dataset, mesh_batch_size, run_ranks,
+    val_frame,
 )
 from iris_tpu_torch.pipeline.config import add_model_specific_args
 from iris_tpu_torch.train.checkpoint import (
@@ -50,7 +54,12 @@ def main(argv=None, samples_for_step=None):
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: the card)")
     args = parser.parse_args(argv)
-    dev = resolve_device(args.device)
+    run_ranks(main, argv, args, functools.partial(_train, args),
+              samples_for_step)
+
+
+def _train(args, group, samples_for_step):
+    dev = group.device if group else resolve_device(args.device)
     stage = __name__.split(".")[-1]
 
     ds_name, ds_root = args.dataset
@@ -88,8 +97,8 @@ def main(argv=None, samples_for_step=None):
                            has_part=bool(args.has_part))
     bank = dataset.pixel_bank(keys=("rays", "rgbs", "segmentation",
                                     "int_albedo"))
-    batcher = RayBatcher(bank, mesh_batch_size(args.batch_size,
-                                               args.n_devices, stage))
+    batcher = RayBatcher(bank, mesh_batch_size(
+        args.batch_size, group and group.world_size, stage))
     if args.max_epochs:
         args.max_steps = args.max_epochs * batcher.batches_per_epoch
         print(f"[{stage}] max_epochs={args.max_epochs} -> "
@@ -106,18 +115,20 @@ def main(argv=None, samples_for_step=None):
 
     log_path = os.path.join("outputs", args.experiment_name,
                             "train_log.jsonl")
-    hooks = [ScalarLogger(log_path)]
-    val_ds, vb = val_frame(args, stage)
-    if val_ds is not None:
-        hooks.append(make_validation_hook(
-            tracer, em, crf, vb, val_ds.img_hw,
-            os.path.join("outputs", args.experiment_name, args.dir_val),
-            val_step=args.val_step, spp=args.spp,
-            indir_depth=args.indir_depth, crf_gt=val_ds.crfs,
-            param_tx=(lambda p: {**p, "radiance": param_to_radiance(
-                p["radiance"])}) if log_rad else None))
-        hooks.append(make_material_diag_hook(tracer, vb, log_path,
-                                             val_step=args.val_step))
+    hooks = []
+    if is_lead(group):      # rank 0 alone logs, validates and saves
+        hooks.append(ScalarLogger(log_path))
+        val_ds, vb = val_frame(args, stage)
+        if val_ds is not None:
+            hooks.append(make_validation_hook(
+                tracer, em, crf, vb, val_ds.img_hw,
+                os.path.join("outputs", args.experiment_name, args.dir_val),
+                val_step=args.val_step, spp=args.spp,
+                indir_depth=args.indir_depth, crf_gt=val_ds.crfs,
+                param_tx=(lambda p: {**p, "radiance": param_to_radiance(
+                    p["radiance"])}) if log_rad else None))
+            hooks.append(make_material_diag_hook(tracer, vb, log_path,
+                                                 val_step=args.val_step))
 
     t0 = time.time()
     params, opt_state = run_training(
@@ -126,7 +137,9 @@ def main(argv=None, samples_for_step=None):
         start_step=start_step,
         state_hooks=[make_state_saver(state_out, args.save_every)],
         return_state=True, chunk_steps=args.chunk_steps,
-        samples_for_step=samples_for_step)
+        samples_for_step=samples_for_step, group=group)
+    if not is_lead(group):
+        return
     # the state file keeps the TRAINED leaf (log space when enabled), so
     # that --resume is exact; the stage artifact stores plain radiance
     save_pytree(state_out, {"params": params,

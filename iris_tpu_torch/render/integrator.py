@@ -11,6 +11,9 @@ radiance-cache early termination follow the reference formulas.
 Random draws come from a torch.Generator. Each function also takes a
 `samples` dict that replaces every draw, with the JAX package's keys: the
 common-random-number hook the parity tests feed from one numpy stream.
+The per-ray draws name their ray axis, so that under a data-parallel
+rank's generator they are made at the global batch's shape and sliced to
+the rank's rows, replayed samples alike (parallel/sharding.py).
 """
 
 from __future__ import annotations
@@ -27,14 +30,9 @@ from iris_tpu_torch.models import brdf as B
 from iris_tpu_torch.models.emitter import (
     Emitter, eval_emitter, sample_emitter,
 )
+from iris_tpu_torch.parallel.sharding import draw_uniform, rank_rows
 
 MatFn = Callable[[torch.Tensor], dict]
-
-
-def draw_uniform(gen: torch.Generator | None, shape, dev, lo=0.0, hi=1.0):
-    """Uniform f32 draws in [lo, hi) from `gen`."""
-    u = torch.rand(shape, generator=gen, dtype=torch.float32, device=dev)
-    return u if (lo, hi) == (0.0, 1.0) else u * (hi - lo) + lo
 
 
 def _jitter_rays(gen, rays_o, rays_d, dx_du, dy_dv, spp, dudv=None):
@@ -43,7 +41,10 @@ def _jitter_rays(gen, rays_o, rays_d, dx_du, dy_dv, spp, dudv=None):
     [-0.5, 0.5)."""
     b = rays_o.shape[0]
     if dudv is None:
-        dudv = draw_uniform(gen, (2, b, spp, 1), rays_o.device, -0.5, 0.5)
+        dudv = draw_uniform(gen, (2, b, spp, 1), rays_o.device, -0.5, 0.5,
+                            axis=1)
+    else:
+        dudv = rank_rows(dudv, gen, 1)
     du, dv = dudv[0], dudv[1]
     wi = normalize(rays_d[:, None] + dx_du[:, None] * du
                    + dy_dv[:, None] * dv)
@@ -81,13 +82,11 @@ def _nee_and_bounce(gen, tracer: Tracer, em: Emitter, mat_fn: MatFn,
     n = position.shape[0]
     dev = position.device
     if samples is None:
-        s1 = draw_uniform(gen, (n,), dev)
-        s2 = draw_uniform(gen, (n, 2), dev)
-        s1b = draw_uniform(gen, (n,), dev)
-        s2b = draw_uniform(gen, (n, 2), dev)
+        s1, s2, s1b, s2b = (draw_uniform(gen, shape, dev, axis=0) for shape
+                            in ((n,), (n, 2), (n,), (n, 2)))
     else:
-        s1, s2 = samples["s1"], samples["s2"]
-        s1b, s2b = samples["s1b"], samples["s2b"]
+        s1, s2, s1b, s2b = (rank_rows(samples[k], gen) for k in
+                            ("s1", "s2", "s1b", "s2b"))
     wi_e, emit_pdf, emit_tri = sample_emitter(em, s1, s2, position)
     wi_b, brdf_pdf_b, brdf_weight = B.sample_brdf(s1b, s2b, wo, normal, mat)
 
@@ -291,8 +290,8 @@ def path_tracing_det_diff(gen, tracer: Tracer, em: Emitter, mat_fn: MatFn,
     :50-124): (B, 3) cosine-importance-sampled incident diffuse shading."""
 
     def sample(g, wo, normal, s2):
-        if s2 is None:
-            s2 = draw_uniform(g, (normal.shape[0], 2), normal.device)
+        s2 = (draw_uniform(g, (normal.shape[0], 2), normal.device, axis=0)
+              if s2 is None else rank_rows(s2, g))
         wi, _, w = B.sample_diffuse(s2, normal)
         return wi, [w]
 
@@ -310,8 +309,8 @@ def path_tracing_det_spec(gen, tracer: Tracer, em: Emitter, mat_fn: MatFn,
     :127-212): (L0, L1), the two Fresnel-split components, each (B, 3)."""
 
     def sample(g, wo, normal, s2):
-        if s2 is None:
-            s2 = draw_uniform(g, (normal.shape[0], 2), normal.device)
+        s2 = (draw_uniform(g, (normal.shape[0], 2), normal.device, axis=0)
+              if s2 is None else rank_rows(s2, g))
         wi, _, w0, w1 = B.sample_specular(s2, wo, normal, roughness_level)
         return wi, [w0, w1]
 

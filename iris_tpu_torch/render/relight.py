@@ -197,6 +197,14 @@ def set_disco_phase(base: RelightScene, base_spots: SpotLights | None,
     return replace(base, emitter=em, spots=spots, dyn_rot=rot)
 
 
+def empty_spots(device=None) -> SpotLights:
+    """No spot lights, on `device` (default the card)."""
+    dev = resolve_device(device)
+    z3 = torch.zeros((0, 3), device=dev)
+    z1 = torch.zeros((0,), device=dev)
+    return SpotLights(z3, z3, z3, z1, z1)
+
+
 def build_relight_scene(
     shapes: list[dict],
     ngp: NGPBRDF | None = None,

@@ -1,9 +1,16 @@
-"""The training step and loop on one device (counterpart of
-iris_tpu/train/loop.py: make_train_step :31-44, TrainerConfig :25-29,
-run_training :93-199). Sharding over a mesh (mesh, n_devices) waits for
-the port of parallel/.
+"""The training step and loop (counterpart of iris_tpu/train/loop.py:
+make_train_step :31-44, TrainerConfig :25-29, run_training :93-199), on
+one device or data-parallel over the ranks of a RankGroup
+(parallel/distributed.py), where the JAX package shards one logical batch
+over a ('data',) mesh.
 
-A stage provides loss_fn(params, batch, gen, samples=None) -> (loss, aux).
+A stage provides loss_fn(params, batch, gen, samples=None) -> (loss, aux);
+a data-parallel run needs it split (train.steps.SplitLoss). An N-rank step
+is then the one-process step on the same global batch, up to the order of
+the gradient sums: every rank renders its rows of the batch, the per-ray
+results of every rank are gathered, every rank computes the same global
+loss from them and the whole batch, and the gradients are averaged over
+the ranks.
 """
 
 from __future__ import annotations
@@ -15,39 +22,61 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 
+from iris_tpu_torch.parallel.distributed import (
+    gather_rows, global_replicate, is_lead,
+)
+from iris_tpu_torch.parallel.sharding import RankGenerator, shard_rows
 from iris_tpu_torch.train.optim import Optimizer, named_leaves
 
 
 def value_and_grad(loss_fn: Callable, params: dict, batch: dict, gen,
-                   samples: dict | None = None):
+                   samples: dict | None = None, group=None):
     """(loss, aux, grads): grads maps each leaf name (see named_leaves) to
     its gradient; a leaf the loss does not reach is absent. The leaves are
-    switched to requires_grad for the call and back after it."""
+    switched to requires_grad for the call and back after it.
+
+    With a RankGroup, `batch` is the whole global batch, the same on every
+    rank, and loss_fn a SplitLoss: its local part runs on the rank's rows
+    (parallel.sharding.shard_rows) and its results are gathered from every
+    rank, its reduce gives the global loss (the same on every rank), and
+    the gradients are averaged over the ranks (all-reduced, then divided
+    by N)."""
     leaves = named_leaves(params)
     was = [t.requires_grad for _, t in leaves]
     for _, t in leaves:
         t.requires_grad_(True)
     try:
-        loss, aux = loss_fn(params, batch, gen, samples)
+        if group is None:
+            loss, aux = loss_fn(params, batch, gen, samples)
+        else:
+            rows = gather_rows(loss_fn.local(
+                params, shard_rows(batch, group), gen, samples), group)
+            loss, aux = loss_fn.reduce(params, rows, batch, gen, samples)
         got = torch.autograd.grad(loss, [t for _, t in leaves],
                                   allow_unused=True)
     finally:
         for (_, t), w in zip(leaves, was):
             t.requires_grad_(w)
     grads = {name: g for (name, _), g in zip(leaves, got) if g is not None}
+    if group is not None:
+        for name, g in grads.items():
+            g = g.contiguous()
+            group.all_reduce_(g)
+            grads[name] = g.div_(group.world_size)
     aux = {k: (v.detach() if isinstance(v, torch.Tensor) else v)
            for k, v in aux.items()}
     return loss.detach(), aux, grads
 
 
-def make_train_step(loss_fn: Callable, optimizer: Optimizer):
+def make_train_step(loss_fn: Callable, optimizer: Optimizer, group=None):
     """step(params, opt_state, batch, gen, samples=None) ->
     (params, opt_state, loss, aux). The parameters are updated in place
-    and returned; opt_state comes from optimizer.init(params)."""
+    and returned; opt_state comes from optimizer.init(params). With a
+    RankGroup the step is data-parallel (value_and_grad)."""
 
     def step(params, opt_state, batch, gen, samples=None):
         loss, aux, grads = value_and_grad(loss_fn, params, batch, gen,
-                                          samples)
+                                          samples, group)
         with torch.no_grad():
             optimizer.update(params, grads, opt_state)
         return params, opt_state, loss, aux
@@ -63,12 +92,15 @@ class TrainerConfig:
 _STEP_SEED_MIX = 0x9E3779B97F4A7C15
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
+def step_generator(seed: int, step: int, device,
+                   group=None) -> torch.Generator:
     """The generator of one ABSOLUTE step: a fresh stream from (seed,
     step), the counterpart of jax.random.fold_in(key, step)
     (loop.py:180). A resumed run therefore draws what the uninterrupted
-    run drew, chunked or not."""
-    gen = torch.Generator(device=device)
+    run drew, chunked or not. With a RankGroup it is the rank's
+    RankGenerator, seeded alike on every rank."""
+    gen = (torch.Generator(device=device) if group is None else
+           RankGenerator(device, group.rank, group.world_size))
     gen.manual_seed((int(seed) * _STEP_SEED_MIX + int(step)) % (1 << 63))
     return gen
 
@@ -96,7 +128,7 @@ def run_training(loss_fn: Callable, params: dict, batches: Iterable,
                  hooks: list | None = None, opt_state: dict | None = None,
                  start_step: int = 0, state_hooks: list | None = None,
                  return_state: bool = False, chunk_steps: int = 1,
-                 samples_for_step: Callable | None = None):
+                 samples_for_step: Callable | None = None, group=None):
     """Drive training for steps [start_step, n_steps) over `batches`, an
     iterator of batch dicts already positioned at start_step (numpy arrays
     or tensors: each step's batch goes to the parameters' device once,
@@ -123,10 +155,25 @@ def run_training(loss_fn: Callable, params: dict, batches: Iterable,
     samples_for_step(step) -> dict | None replaces a step's draws (the
     hook the parity tests replay the JAX package's keys through).
 
+    group: a RankGroup for a data-parallel run. Every rank passes the same
+    `batches` (the same global batch each step, as the JAX trainers feed
+    every host the same RayBatcher stream) and the same starting state;
+    rank 0's parameters and optimizer state are broadcast first (a resume
+    loads on every rank, then rank 0's wins). Each step a rank moves the
+    batch to its device, renders its rows (value_and_grad) and draws from
+    its RankGenerator; replayed samples come at the global batch's
+    shape. hooks, state_hooks and log_fn run on rank 0 alone, so
+    that no two ranks write one file; the loss and aux they see are the
+    global loss's, the same on every rank.
+
     Returns params, or (params, opt_state) with return_state=True."""
     if opt_state is None:
         opt_state = optimizer.init(params)
-    step_fn = make_train_step(loss_fn, optimizer)
+    if group is not None:
+        global_replicate(params, opt_state, group)
+    if not is_lead(group):
+        hooks = state_hooks = log_fn = None
+    step_fn = make_train_step(loss_fn, optimizer, group)
     device = _params_device(params)
 
     t0 = time.time()
@@ -140,8 +187,9 @@ def run_training(loss_fn: Callable, params: dict, batches: Iterable,
             s = step + j
             samples = samples_for_step(s) if samples_for_step else None
             params, opt_state, loss, aux = step_fn(
-                params, opt_state, batch_to_device(batch, device),
-                step_generator(seed, s, device), samples)
+                params, opt_state,
+                batch_to_device(batch, device),
+                step_generator(seed, s, device, group), samples)
             results.append((s, loss, aux))
         for s, loss, aux in results:
             if hooks:

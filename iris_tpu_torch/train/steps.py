@@ -17,12 +17,27 @@ is the torch.Generator every draw comes from; `samples` replaces the draws
                   "dudv": (2, B, 1) in [-0.5, 0.5), "mat": hash-grid samples}
   train_emitter: {"render": [...]}
   brdf_crf:      {"mat": hash-grid samples, "pairs_u": (B, n_pairs)}
+
+Each loss is a SplitLoss of two parts, so that it keeps its one-batch
+meaning over the ranks of a data-parallel run (train/loop.py). `local`
+renders and shades the rank's rows and returns the per-ray tensors it
+computed; `reduce` computes the loss from those tensors of the WHOLE
+batch, gathered from every rank (parallel.distributed.gather_rows), and
+from the batch's own columns (rgbs, segmentation, int_albedo), which every
+rank holds whole: the MSEs with global denominators, the segment means,
+the propagation loss and the CRF regularizers, which do not decompose over
+rays. Called as loss_fn(...), the two run back to back on one process's
+batch. The per-ray draws of the
+local part are made at the global batch's shape and sliced to the rank's
+rows (parallel.sharding.draw_uniform); the propagation loss's partner
+draws (pairs_u) belong to the reduce and are made whole on every rank.
 """
 
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass, replace as dc_replace
+from typing import Callable
 
 import numpy as np
 import torch
@@ -35,7 +50,8 @@ from iris_tpu_torch.models.brdf import NGPBRDF, ngp_brdf_apply
 from iris_tpu_torch.models.crf import (
     EmorCRF, crf_forward, reg_monotonically_increasing, reg_weight,
 )
-from iris_tpu_torch.render.integrator import draw_uniform, path_tracing_single
+from iris_tpu_torch.parallel.sharding import draw_uniform, rank_rows
+from iris_tpu_torch.render.integrator import path_tracing_single
 from iris_tpu_torch.utils.losses import mse, scale_invariant_mse, segment_mean
 
 
@@ -62,6 +78,22 @@ class LossConfig:
 
 
 _RAD_EPS = 1e-4
+
+
+@dataclass(frozen=True)
+class SplitLoss:
+    """A stage loss in its two parts (module docstring): local(params,
+    batch, gen, samples) -> {name: (B, ...) per-ray tensor} on the rank's
+    rows of the batch, and reduce(params, rows, batch, gen, samples) ->
+    (loss, aux) on every rank's rows and the whole batch. Called, it is
+    the loss of one process's batch."""
+
+    local: Callable
+    reduce: Callable
+
+    def __call__(self, params, batch, gen, samples=None):
+        return self.reduce(params, self.local(params, batch, gen, samples),
+                           batch, gen, samples)
 
 
 def radiance_to_param(radiance, log_space: bool = True):
@@ -197,8 +229,8 @@ def make_initialize_loss(tracer, em_template, crf: EmorCRF, cfg: LossConfig):
     gradients (initialize.py:170-186); the material's gradient is the
     anchor's alone."""
 
-    def loss_fn(params, batch, gen, samples=None):
-        rays, rgbs_gt = batch["rays"], batch["rgbs"]
+    def local(params, batch, gen, samples=None):
+        rays = batch["rays"]
         xs, ds, dxdu, dydv = _split_rays(rays)
         em = dc_replace(em_template, radiance=param_to_radiance(
             params["radiance"], cfg.radiance_log_space))
@@ -207,28 +239,33 @@ def make_initialize_loss(tracer, em_template, crf: EmorCRF, cfg: LossConfig):
         l = _render_rounds(gen, tracer, em, mat_fn_frozen, rays, cfg,
                            samples)
         ldr = crf_forward(crf, l, batch.get("exposure"))
-        loss_c = mse(ldr, rgbs_gt)
 
-        # albedo anchor against segment-mean pseudo albedo, live material
-        dudv = (draw_uniform(gen, (2, xs.shape[0], 1), xs.device, -0.5, 0.5)
-                if samples is None else samples["dudv"])
+        # the live material at jittered first hits, for the albedo anchor
+        dudv = (draw_uniform(gen, (2, xs.shape[0], 1), xs.device, -0.5, 0.5,
+                             axis=1)
+                if samples is None else rank_rows(samples["dudv"], gen, 1))
         wi = normalize(ds + dxdu * dudv[0] + dydv * dudv[1])
         positions, _, _, _, valid = ray_intersect(tracer, xs, wi)
         # stochastic-corner hash-grid gradients (the hot path)
         mat = ngp_brdf_apply(params["material"], positions, gen,
                              None if samples is None else samples["mat"])
+        return {"ldr": ldr, "albedo": mat["albedo"], "valid": valid}
+
+    def reduce(params, rows, batch, gen, samples=None):
+        loss_c = mse(rows["ldr"], batch["rgbs"])
+        # albedo anchor against segment-mean pseudo albedo
         seg = _seg_ids(batch["segmentation"], cfg.max_segments)
-        w = valid.to(torch.float32)
+        w = rows["valid"].to(torch.float32)
         _, mean_albedo = segment_mean(batch["int_albedo"], seg,
                                       cfg.max_segments, weights=w)
-        diff = (mat["albedo"] - mean_albedo) ** 2
+        diff = (rows["albedo"] - mean_albedo) ** 2
         loss_a = torch.sum(diff * w[:, None]) / torch.clamp(
             torch.sum(w) * 3, min=1.0)
 
         loss = loss_c + loss_a
         return loss, {"loss_c": loss_c, "loss_a": loss_a}
 
-    return loss_fn
+    return SplitLoss(local, reduce)
 
 
 def make_train_emitter_loss(tracer, em_template, material_params,
@@ -238,16 +275,18 @@ def make_train_emitter_loss(tracer, em_template, material_params,
     mat_fn = functools.partial(ngp_brdf_apply,
                                detach_material(material_params))
 
-    def loss_fn(params, batch, gen, samples=None):
+    def local(params, batch, gen, samples=None):
         em = dc_replace(em_template, radiance=param_to_radiance(
             params["radiance"], cfg.radiance_log_space))
         l = _render_rounds(gen, tracer, em, mat_fn, batch["rays"], cfg,
                            samples)
-        ldr = crf_forward(crf, l, batch.get("exposure"))
-        loss_c = mse(ldr, batch["rgbs"])
+        return {"ldr": crf_forward(crf, l, batch.get("exposure"))}
+
+    def reduce(params, rows, batch, gen, samples=None):
+        loss_c = mse(rows["ldr"], batch["rgbs"])
         return loss_c, {"loss_c": loss_c}
 
-    return loss_fn
+    return SplitLoss(local, reduce)
 
 
 def make_brdf_crf_loss(tracer, crf_template: EmorCRF, cfg: LossConfig,
@@ -261,11 +300,10 @@ def make_brdf_crf_loss(tracer, crf_template: EmorCRF, cfg: LossConfig,
     mat_fn(params, positions, gen, samples) overrides the NGP material
     query (an analytic material pins the loss semantics in tests)."""
 
-    def loss_fn(params, batch, gen, samples=None):
-        rays, rgbs_gt = batch["rays"], batch["rgbs"]
+    def local(params, batch, gen, samples=None):
+        rays = batch["rays"]
         xs, ds = rays[..., 0:3], normalize(rays[..., 3:6])
         positions, _, _, _, valid = ray_intersect(tracer, xs, ds)
-        w = valid.to(torch.float32)
 
         s_mat = None if samples is None else samples["mat"]
         mat = (ngp_brdf_apply(params["material"], positions, gen, s_mat)
@@ -282,9 +320,20 @@ def make_brdf_crf_loss(tracer, crf_template: EmorCRF, cfg: LossConfig,
         l = ld_shade + ls_shade
 
         crf = dc_replace(crf_template, weight=params["crf_weight"])
-        ldr = crf_forward(crf, l, batch.get("exposure"))
-        loss_c = torch.sum(((ldr - rgbs_gt) ** 2) * w[:, None]) \
-            / torch.clamp(torch.sum(w) * 3, min=1.0)
+        rows = {"ldr": crf_forward(crf, l, batch.get("exposure")),
+                "valid": valid, "albedo": albedo, "metallic": metallic,
+                "roughness": roughness}
+        if not cfg.has_part:
+            rows["positions"] = positions
+        return rows
+
+    def reduce(params, rows, batch, gen, samples=None):
+        w = rows["valid"].to(torch.float32)
+        albedo, metallic, roughness = (rows["albedo"], rows["metallic"],
+                                       rows["roughness"])
+        err = (rows["ldr"] - batch["rgbs"]) ** 2
+        loss_c = torch.sum(err * w[:, None]) / torch.clamp(
+            torch.sum(w) * 3, min=1.0)
 
         # diffuse prior (reference :210)
         loss_d = cfg.ld * (
@@ -304,10 +353,11 @@ def make_brdf_crf_loss(tracer, crf_template: EmorCRF, cfg: LossConfig,
         else:
             # semantic propagation: bilateral-weighted within-segment means
             # by segment-sorted partner sampling (reference :240-290)
-            pos_n = (positions - voxel_min) / (voxel_max - voxel_min) * 2 - 1
+            pos_n = (rows["positions"] - voxel_min) / (
+                voxel_max - voxel_min) * 2 - 1
             loss_seg = cfg.ls * propagation_loss(
-                gen, seg, valid, pos_n, albedo.detach(), roughness[:, 0],
-                metallic[:, 0], cfg,
+                gen, seg, rows["valid"], pos_n, albedo.detach(),
+                roughness[:, 0], metallic[:, 0], cfg,
                 None if samples is None else samples["pairs_u"])
 
         # albedo anchor (:292-306)
@@ -318,6 +368,7 @@ def make_brdf_crf_loss(tracer, crf_template: EmorCRF, cfg: LossConfig,
         else:
             loss_a = 0.0
 
+        crf = dc_replace(crf_template, weight=params["crf_weight"])
         reg_crf = cfg.l_crf_increasing * reg_monotonically_increasing(crf) \
             + cfg.l_crf_weight * reg_weight(crf)
 
@@ -325,7 +376,7 @@ def make_brdf_crf_loss(tracer, crf_template: EmorCRF, cfg: LossConfig,
         return loss, {"loss_c": loss_c, "loss_d": loss_d,
                       "loss_seg": loss_seg, "reg_crf": reg_crf}
 
-    return loss_fn
+    return SplitLoss(local, reduce)
 
 
 def _wmean(x, w):

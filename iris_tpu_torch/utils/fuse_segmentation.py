@@ -61,10 +61,13 @@ def _frame_tensors(fr, dev):
 def vote(tracer, hist: torch.Tensor, rays: torch.Tensor, seg: torch.Tensor,
          n_labels: int) -> torch.Tensor:
     """hist (n_faces * n_labels + 1,) int64 plus the votes of one frame:
-    rays (B, 12), seg (B,) the frame's labels."""
+    rays (B, 12), seg (B,) the frame's labels. A label outside
+    [0, n_labels) casts no vote: it goes to the last bin, as a miss does
+    (the JAX package clips it to 0 or n_labels - 1)."""
     _, _, _, tri, valid = ray_intersect(tracer, rays[:, :3], rays[:, 3:6])
-    lab = torch.clamp(float_to_int32(seg), 0, n_labels - 1).long()
-    flat = torch.where(valid, torch.clamp(tri, min=0) * n_labels + lab,
+    lab = float_to_int32(seg).long()
+    keep = valid & (lab >= 0) & (lab < n_labels)
+    flat = torch.where(keep, torch.clamp(tri, min=0) * n_labels + lab,
                        hist.shape[0] - 1)
     return hist + torch.bincount(flat, minlength=hist.shape[0])
 

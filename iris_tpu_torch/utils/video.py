@@ -88,11 +88,16 @@ def write_video(path: str, frames, fps: int = 30) -> str:
 def read_video_frames(path: str) -> list[np.ndarray]:
     """Reference read_video_frames (:36-49): returns RGB uint8 frames.
     Accepts an .mp4 (imageio backend) OR a frames directory (the
-    write_video fallback / extract_frames output)."""
+    write_video fallback / extract_frames output). Raises
+    FileNotFoundError where there is no frame to return: an empty frames
+    directory, or an empty or undecodable video (the JAX package returns
+    an empty list)."""
     if os.path.isdir(path):
         from PIL import Image
 
         names = sorted(n for n in os.listdir(path) if is_image_name(n))
+        if not names:
+            raise FileNotFoundError(f"no frames in {path}")
         return [np.asarray(Image.open(os.path.join(path, n)).convert("RGB"))
                 for n in names]
     frames_dir = os.path.splitext(path)[0] + "_frames"
@@ -104,7 +109,7 @@ def read_video_frames(path: str) -> list[np.ndarray]:
     frames = [np.asarray(f)[..., :3] for f in reader]
     reader.close()
     if not frames:
-        print(f"ERROR: {path} does not exist")
+        raise FileNotFoundError(f"no frames decoded from {path}")
     return frames
 
 

@@ -107,6 +107,30 @@ def test_colmap_text_readers_match_jax(tmp_path):
                   jcolmap.read_cameras_text(cams))
 
 
+def test_colmap_text_reader_takes_an_image_without_points(tmp_path):
+    """An image with no 2D points has an empty second line. The port reads
+    it and every image after it; the JAX package drops empty lines before
+    it pairs the records, and reads them out of step."""
+    imgs = tmp_path / "images.txt"
+    imgs.write_text(
+        "# Image list with two lines of data per image:\n"
+        "#   POINTS2D[] as (X, Y, POINT3D_ID)\n"
+        "4 1 0 0 0 1 2 3 1 frame_004.jpg\n"
+        "10.0 20.0 -1 11.5 3.0 7\n"
+        "5 0 1 0 0 4 5 6 2 frame_005.jpg\n"
+        "\n"
+        "6 0 0 1 0 7 8 9 1 frame_006.jpg\n"
+        "1.0 2.0 -1\n")
+    got = tcolmap.read_images_text(str(imgs))
+    assert sorted(got) == [4, 5, 6]
+    for iid, cam, q, t in ((4, 1, [1, 0, 0, 0], [1, 2, 3]),
+                           (5, 2, [0, 1, 0, 0], [4, 5, 6]),
+                           (6, 1, [0, 0, 1, 0], [7, 8, 9])):
+        im = got[iid]
+        assert (im.camera_id, im.name) == (cam, f"frame_{iid:03d}.jpg")
+        assert np.array_equal(im.qvec, q) and np.array_equal(im.tvec, t)
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_colmap_binary_readers_unsorted_ids(tmp_path, seed):
     imgs, cams = _write_binary(tmp_path, seed)

@@ -72,6 +72,14 @@ def test_vecmath(data):
            tvm.reflect(tt(wo), tt(n)))
 
 
+def test_luminance(data):
+    """Rec. 709 weights over the last axis: 1e-6 (three products summed in
+    another order)."""
+    rgb = np.abs(data["v"])
+    _close(jvm.luminance(jnp.asarray(rgb)), tvm.luminance(tt(rgb)), 1e-6)
+    assert tvm.luminance(tt(rgb)).shape == (N, 1)
+
+
 def test_ggx(data):
     x = data["s2"][:, :1]
     r = data["mat"]["roughness"]

@@ -750,6 +750,52 @@ def test_dataset_tools_card_match_cpu(card, tools_root):
     assert seen.sum() > 10 and np.all(got["tie"][seen] == 3)
 
 
+def test_nccl_two_ranks_match_one_process(card, tmp_path):
+    """Two NCCL ranks on cuda:0 and cuda:1 (skips below two cards): the
+    initialize loss of a 1,024-pixel demo batch, split 512 a rank, against
+    one process on cuda:0 under the same generators. The loss within 1e-4
+    relative (cuBLAS may add the MLP's products of 512 rows in another
+    order than of 1,024); every gradient leaf within 1e-4 of its largest
+    entry, the MLP's weights within 1e-2 (their gradients round to bf16,
+    each rank's half apart, tests/test_torch_parallel.py); both ranks the
+    same bits."""
+    from torch_ranks import demo_initialize, spawn
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    r0, r1 = spawn(demo_initialize, 2, tmp_path, 32, device="cuda")
+    one = demo_initialize(None, 32)
+    assert r0["loss"] == r1["loss"]
+    np.testing.assert_allclose(r0["loss"], one["loss"], rtol=1e-4)
+    for k, g in one["grads"].items():
+        assert r0["grads"][k].tobytes() == r1["grads"][k].tobytes(), k
+        rel = 1e-2 if ".mlp.w." in k else 1e-4
+        assert np.abs(r0["grads"][k] - g).max() <= rel * np.abs(g).max(), k
+
+
+@pytest.mark.parametrize("argv", [["--ranks", "1"],
+                                  ["--ranks", "2", "--dist_backend", "gloo"]])
+def test_comms_report_counts_on_the_card(card, argv, capfd):
+    """parallel.comms_report's CLI on the card by default: one NCCL rank,
+    and two gloo ranks sharing cuda:0; the bytes are the parameters' and
+    7 floats a ray of the 256-ray batch."""
+    import json
+
+    from iris_tpu_torch.parallel import comms_report
+
+    comms_report.main(["--link_bw", "2.5e10", "--batch", "256",
+                       "--hash_levels", "4", "--hash_features", "4",
+                       "--log2_table", "10"] + argv)
+    lines = [line for line in capfd.readouterr().out.splitlines()
+             if line.startswith("{")]
+    assert len(lines) == 1
+    r = json.loads(lines[0])
+    assert r["device"].startswith("cuda")
+    assert r["backend"] == ("gloo" if "gloo" in argv else "nccl")
+    assert r["allreduce_to_param"] == 1.0
+    assert r["gather_bytes_per_step"] == 4 * 256 * 7
+
+
 def test_time_ms_on_the_card(card):
     from iris_tpu_torch.utils.timing import bench_keyed, time_ms
 

@@ -37,7 +37,8 @@ for want in ("train.steps", "train.optim", "train.loop", "utils.losses",
              "utils.extract_geometry", "utils.render_semantic",
              "utils.fuse_segmentation", "utils.hdr2ldr",
              "utils.process_images", "data.colmap", "models.mlps",
-             "utils.timing", "utils.profiling"):
+             "utils.timing", "utils.profiling", "parallel.sharding",
+             "parallel.distributed", "parallel.comms_report"):
     assert "iris_tpu_torch." + want in names, want
 from iris_tpu_torch.geometry.intersect import TraversalPolicy, kernel_for
 from iris_tpu_torch.train.loop import TrainerConfig, run_training
@@ -116,6 +117,19 @@ def test_dataset_tools_default_to_cuda(module, argv, tmp_path, monkeypatch):
     assert os.listdir(tmp_path) == []
 
 
+def test_comms_report_defaults_to_cuda(tmp_path, monkeypatch):
+    """The data-parallel traffic count asks for the card before it starts
+    a rank or writes a file."""
+    from iris_tpu_torch.parallel import comms_report
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        comms_report.main(["--link_bw", "2.5e10"])
+    assert os.listdir(tmp_path) == []
+
+
 @pytest.mark.parametrize("n_clutter,leaf_size,kernel", [
     (2, 4, "trace_union"), (420, 4, "trace_paired"),
     (420, 16, "trace_ordered"), (420, 4, "trace_paired_streamed"),
@@ -181,7 +195,8 @@ def test_run_training_runs_where_its_parameters_lie(device, monkeypatch):
 
     asked = []
 
-    def generator_on(seed, step, dev):
+    def generator_on(seed, step, dev, group=None):
+        assert group is None
         asked.append((step, torch.device(dev).type))
         return torch.Generator().manual_seed(seed + step)
 

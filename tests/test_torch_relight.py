@@ -126,6 +126,17 @@ def _rays(n_side=16, origin=(1.0, 0.3, 0.8), look=(0.0, 0.7, -0.5)):
 
 # ------------------------------------------------------------ host side
 
+def test_empty_spots():
+    """No spot lights: five empty arrays of the JAX package's shapes, on
+    the device asked for."""
+    j, t = JR.empty_spots(), TR.empty_spots(device="cpu")
+    for name in ("position", "direction", "intensity", "cutoff_cos",
+                 "beam_cos"):
+        a, b = getattr(j, name), getattr(t, name)
+        assert tuple(b.shape) == tuple(a.shape) and b.device.type == "cpu"
+        assert b.dtype == torch.float32
+
+
 @pytest.mark.parametrize("subdiv", [0, 1, 2])
 def test_icosphere_same_bits(subdiv):
     a, b = JR.icosphere(subdiv), TR.icosphere(subdiv)

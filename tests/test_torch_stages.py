@@ -621,10 +621,12 @@ def test_port_clis_write_what_the_next_stages_read(run):
      "0", "--stochastic_fwd", "0", "--per_level_scale", "1.4"],
 ], ids=["production", "reference", "custom"])
 def test_config_and_common_helpers(run, argv, tmp_path):
-    """pipeline/config.py parses to the same options; build_material makes
-    the same HashGridConfig and table shape; adopt_estimator_cfg carries a
-    stage's estimator flags into every material of a tree and keeps the
-    model's own fields; make_dataset and ckpt_path agree."""
+    """pipeline/config.py parses to the same options, but for the port's
+    four multihost flags (the JAX package reads environment variables in
+    their place), None unless given; build_material makes the same
+    HashGridConfig and table shape; adopt_estimator_cfg carries a stage's
+    estimator flags into every material of a tree and keeps the model's
+    own fields; make_dataset and ckpt_path agree."""
     from iris_tpu.pipeline import config as jconfig
     from iris_tpu_torch.pipeline import config as tconfig
 
@@ -632,7 +634,11 @@ def test_config_and_common_helpers(run, argv, tmp_path):
             "--log2_hashmap_size", "8"]
     ja = jconfig.add_model_specific_args().parse_args(base + argv)
     ta = tconfig.add_model_specific_args().parse_args(base + argv)
-    assert vars(ja) == vars(ta)
+    multihost = {"coordinator", "num_processes", "process_id",
+                 "dist_backend"}
+    assert {k: v for k, v in vars(ta).items() if k not in multihost} \
+        == vars(ja)
+    assert all(vars(ta)[k] is None for k in multihost)
     jm = jcommon.build_material(ja, -0.1, 2.1)
     tm = tcommon.build_material(ta, -0.1, 2.1, device="cpu")
     assert dataclasses.asdict(jm.cfg) == dataclasses.asdict(tm.cfg)

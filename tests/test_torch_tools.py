@@ -227,13 +227,42 @@ def _frames(ds, segs):
             for i, s in segs]
 
 
-def _special_segs(ds, seed):
+def test_has_part_without_a_part_layout_says_so(demo, tmp_path, capsys):
+    """has_part asked of a split with no IndexMA directory reads the
+    semantic segmentation, as before, and now prints one notice that
+    names the missing directory (the JAX package falls back in silence).
+    Where the directory is there, nothing is printed."""
+    import shutil
+
+    root = str(tmp_path / "ds")
+    shutil.copytree(demo["root"], root,
+                    ignore=shutil.ignore_patterns("IndexMA"))
+    _dataset(demo["root"], load_inverse=True, has_part=True)
+    assert "no part layout" not in capsys.readouterr().out
+    ds = _dataset(root, load_inverse=True, has_part=True)
+    out = capsys.readouterr().out
+    missing = os.path.join(root, "train", "IndexMA")
+    assert out.count("no part layout") == 1 and missing in out
+    assert not ds.has_part
+    ref = _dataset(demo["root"], load_inverse=True, has_part=False)
+    for i in range(ds.n_frames):
+        a, b = ds.frame(i), ref.frame(i)
+        for k in ("rays", "rgbs", "segmentation", "int_albedo"):
+            assert np.array_equal(a[k], b[k]), k
+
+
+def _special_segs(ds, seed, n_labels):
     """Each train frame's rays with a seeded segmentation drawn from the
-    labels that the fusion treats apart: -1, fractions, labels at and past
-    the cap, past 2048, inf, -inf and NaN."""
+    labels that the fusion treats apart and that both packages read alike:
+    -0.5, fractions, NaN (each truncates to a label) and labels up to the
+    cap. A label outside [0, n_labels) after truncation casts no vote in
+    the port and is clipped by the JAX package, so the pool leaves those
+    out (test_fuse_segmentation_ties holds them)."""
     rng = np.random.default_rng(seed)
     pool = np.array([-1, -0.5, 0, 0.7, 1, 2, 3, 7.9, 15, 16, 17, 127, 128,
                      2049, 5000, np.inf, -np.inf, np.nan], np.float32)
+    lab = tfuse.float_to_int32(torch.from_numpy(pool)).numpy()
+    pool = pool[(lab >= 0) & (lab < n_labels)]
     hw = HW[0] * HW[1]
     return [(i, rng.choice(pool, hw).astype(np.float32))
             for i in range(ds.n_frames)]
@@ -245,7 +274,7 @@ def test_fuse_segmentation_matches_jax(demo, monkeypatch, tmp_path,
     """Fused labels equal on every face and the rewritten views on every
     pixel (their EXRs the same bytes), with two traversals a frame."""
     ds = _dataset(demo["root"])
-    frames = _frames(ds, _special_segs(ds, seed))
+    frames = _frames(ds, _special_segs(ds, seed, n_labels))
     n = demo["mesh"].n_faces
     traces = count_traces(monkeypatch)
     got = tfuse.fuse_segmentation(demo["tracer"], n, frames, n_labels)
@@ -268,12 +297,14 @@ def test_fuse_segmentation_matches_jax(demo, monkeypatch, tmp_path,
 
 
 @pytest.mark.parametrize("first,second,winner", [
-    (7, 3, 3), (3, 7, 3), (-1, 0, 0), (0.5, -1, 0), (20, 15, 15)])
+    (7, 3, 3), (3, 7, 3), (-1, 3, 3), (7.5, -1, 7), (20, 16, -1)])
 def test_fuse_segmentation_ties(demo, first, second, winner):
-    """One frame's rays twice with two labels: every face it sees has as
-    many votes for each, and takes the lower label (the first maximum),
-    whichever frame came first; -1 and 0.5 vote for 0, 20 for the last
-    label of 16."""
+    """One frame's rays twice with two labels: where both lie in [0, 16),
+    every face it sees has as many votes for each and takes the lower
+    label (the first maximum), whichever frame came first, as in the JAX
+    package. A label outside [0, 16) casts no vote: -1 beside 3 leaves 3,
+    -1 beside 7.5 leaves 7, and 20 beside 16 leaves every face unobserved
+    (-1). The JAX package clips those labels instead, to 0 and 15."""
     ds = _dataset(demo["root"])
     hw = HW[0] * HW[1]
     frames = _frames(ds, [(0, np.full(hw, first, np.float32)),
@@ -282,9 +313,18 @@ def test_fuse_segmentation_ties(demo, first, second, winner):
     got = tfuse.fuse_segmentation(demo["tracer"], n, frames, 16)
     want = np.asarray(jfuse.fuse_segmentation(demo["jax_tracer"], n,
                                               frames, 16))
-    assert np.array_equal(got, want)
-    seen = got >= 0
-    assert seen.sum() > 10 and np.all(got[seen] == winner)
+    seen = want >= 0
+    assert seen.sum() > 10
+    if winner == -1:
+        assert np.all(got == -1)
+    else:
+        assert np.array_equal(got >= 0, seen)
+        assert np.all(got[seen] == winner)
+    if min(first, second) >= 0 and max(first, second) < 16:
+        assert np.array_equal(got, want)
+    else:
+        assert np.all(want[seen] == min(np.clip(int(first), 0, 15),
+                                        np.clip(int(second), 0, 15)))
 
 
 def test_fuse_segmentation_cli(demo, monkeypatch, tmp_path):

@@ -49,6 +49,21 @@ def test_port_tracer_matches_jax_build(scene12, method):
                                       np.asarray(getattr(jt, name)))
 
 
+def test_build_tracer_matches_jax(scene12):
+    """bvh.build_tracer(mesh): the tree of the mesh's triangles, the JAX
+    package's bit for bit."""
+    from iris_tpu.geometry.bvh import build_tracer as jax_build_tracer
+    from iris_tpu_torch.geometry.bvh import build_tracer
+
+    mesh, _ = make_box_scene(n_clutter=12, seed=3)
+    jt, pt = jax_build_tracer(mesh), build_tracer(mesh, device="cpu")
+    assert (pt.layout, pt.n_nodes, pt.n_faces) == (jt.layout, jt.n_nodes,
+                                                   jt.n_faces)
+    for name in ("nodes", "tris", "face_normals"):
+        np.testing.assert_array_equal(getattr(pt, name).numpy(),
+                                      np.asarray(getattr(jt, name)))
+
+
 def test_pack_paired_bit_exact(scene12):
     jt = jax_build_bvh(scene12)
     n_leaf_rows = jt.tris.shape[0] // jt.leaf_size

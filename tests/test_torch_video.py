@@ -125,6 +125,17 @@ def test_read_video_frames_resolves_the_frames_directory(tmp_path):
         assert len(back) == 3 and back[0].dtype == np.uint8
 
 
+def test_read_video_frames_raises_on_an_empty_directory(tmp_path):
+    """No frame to return is an error, not an empty list (the JAX package
+    returns [] and the caller fails later on frames[0])."""
+    (tmp_path / "empty_frames").mkdir()
+    with pytest.raises(FileNotFoundError, match="no frames"):
+        TV.read_video_frames(str(tmp_path / "empty_frames"))
+    with pytest.raises(FileNotFoundError, match="no frames"):
+        TV.read_video_frames(str(tmp_path / "empty.mp4"))
+    assert JV.read_video_frames(str(tmp_path / "empty_frames")) == []
+
+
 def _fake_imageio(monkeypatch, mimwrite):
     fake = types.ModuleType("imageio")
     fake.mimwrite = mimwrite
