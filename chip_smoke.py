@@ -8,6 +8,7 @@
     python3 chip_smoke.py --relight-only
     python3 chip_smoke.py --tools-only
     python3 chip_smoke.py --parallel-only
+    python3 chip_smoke.py --drivers-only
 
 Needs one NVIDIA card (sm_90a: H100/H200), nvcc and g++. It builds the
 traversal kernels from iris_tpu_torch/csrc/traverse.cu and the SAH builder
@@ -225,7 +226,27 @@ from csrc/bvh_builder.cpp, then:
    ray (the per-ray tensors the loss's local part computes: the batch's
    own columns are read whole on every rank); only the dataset's kernel launched. A rank that fails fails the
    run;
-17. prints the card line again and, last, the run's JSON verdict.
+17. (run right after phase 16, its launches counted in phase 13's line)
+   drives the port's twins of the four root scripts, each through the call a user
+   makes: iris_tpu_torch.bench.main([]) (the benchmark step, fwd+bwd of
+   crf_forward(path_tracing_single) at 8,100 camera rays x spp 32 with no
+   optimizer, on the demo's zero SLF, 1 + 24 calls on the flagship scene
+   and 1 + 8 on the 102,014-face scene); bench_components.main([]) (the
+   17 components of the JAX package's bench_components.py); bench_scaling
+   .main([]) (one NCCL rank on cuda:0); graft_entry.entry()'s forward and
+   graft_entry.dryrun_multichip(2, backend="gloo") (two spawned gloo
+   ranks sharing cuda:0). It prints every JSON line they print, each call
+   time of bench, bench's rates beside phase 6's (which add Adam and a
+   seeded SLF), peak device memory of the components and the phase's
+   seconds. Hard checks: bench's line holds the JAX keys but
+   "vs_baseline", with "device" and "runs", finite positive rates,
+   kernel_mode_102k trace_paired_streamed, and exactly 2 launches a call
+   of trace_union on the flagship and of trace_paired_streamed on the
+   102K scene; every component under the JAX name, in the JAX order,
+   finite and positive; one scaling line, devices 1, backend nccl; the
+   entry's forward (1024, 3), finite, in [0, 1]; the two ranks' loss
+   within 1e-4 relative of the same step with no group;
+18. prints the card line again and, last, the run's JSON verdict.
 
 Any failed check raises, and the script then exits non-zero with no
 verdict line. It imports nothing of JAX or of the JAX package.
@@ -250,6 +271,8 @@ its holds (no verdict line).
 and emitter mask, then phase 16 alone (about two minutes on an H100),
 and prints no verdict line.
 
+--drivers-only runs phases 1-2, then phase 17 alone (no verdict line).
+
 --sweep-only runs phases 1-2, builds the 102,014-face scene, takes the
 518,400 rays of one train step and runs the width sweep of phase 12 alone
 (about a minute); --counts adds the plain versions' counters (visits or
@@ -271,8 +294,11 @@ import sys
 import threading
 import time
 
-# the kernels' yardstick (median CUDA-event time, L2 flushed, a spin kernel
-# first); it imports torch, which this script otherwise imports lazily
+# the benchmark's train loss, its parameters and the trainers' estimator
+# settings (phases 6-9), and the kernels' yardstick (median CUDA-event
+# time, L2 flushed, a spin kernel first); they import torch, which this
+# script otherwise imports lazily
+from iris_tpu_torch.bench import bench_params, make_bench_loss, train_config
 from iris_tpu_torch.utils.timing import time_ms
 
 # H100 SXM peaks (NVIDIA data sheet) for the roofline bound
@@ -381,6 +407,32 @@ TOOLS_TRACES = {"extract_geometry": 1, "render_semantic": 1,
                 "fuse_segmentation": 2}
 TOOLS = tuple(TOOLS_TRACES) + ("hdr2ldr", "process_images")
 TOOLS_MLP_SEED = 41            # the implicit MLP's weights: seed + 41
+# phase 17: the root scripts' twins; the JSON keys and the components of the
+# JAX package's bench.py and bench_components.py (bench's "vs_baseline"
+# compares with a TPU number and has no twin)
+BENCH_KEYS = ("metric", "value", "unit", "rays_per_s_102k_faces",
+              "kernel_mode_102k", "device", "runs")
+COMPONENTS = (
+    "traversal_rays_per_s",
+    "hashgrid16_fwd_queries_per_s",
+    "hashgrid16_exact_fwd_bwd_queries_per_s",
+    "hashgrid16_stoch_bwd_fwd_bwd_queries_per_s",
+    "hashgrid16_stoch_fwd_fwd_bwd_queries_per_s",
+    "hashgrid16_stoch_fwd_ls4_fwd_bwd_queries_per_s",
+    "hashgrid32_fwd_queries_per_s",
+    "hashgrid32_exact_fwd_bwd_queries_per_s",
+    "hashgrid32_stoch_bwd_fwd_bwd_queries_per_s",
+    "hashgrid32_stoch_fwd_fwd_bwd_queries_per_s",
+    "hashgrid32_stoch_fwd_ls4_fwd_bwd_queries_per_s",
+    "hashgrid8x8row_fwd_queries_per_s",
+    "hashgrid8x8row_default_fwd_bwd_queries_per_s",
+    "pts_fwd_rays_per_s",
+    "pts_fwd_bwd_exact_rays_per_s",
+    "pts_fwd_bwd_stoch_bwd_rays_per_s",
+    "pts_fwd_bwd_stoch_fwd_ls4_rays_per_s",
+)
+SCALING_KEYS = ("metric", "devices", "value", "unit",
+                "efficiency_vs_linear", "backend", "device")
 
 
 def check(ok: bool, what: str) -> None:
@@ -2754,62 +2806,6 @@ def small_reference_check(tracer, em, ngp, dev, seed):
     return float(close.mean()), float(np.abs(lg - lc).max())
 
 
-def train_config(ngp, scatter="bfloat16"):
-    """A copy of the field (own table and MLP tensors: training updates
-    them in place) with the trainers' estimator settings
-    (pipeline/config.py:70-100 of the JAX package): stochastic forward and
-    backward, auto level-block subsampling, compact scatter."""
-    from iris_tpu_torch.models.hashgrid import auto_bwd_level_sample
-
-    cfg = dataclasses.replace(
-        ngp.cfg, stochastic_fwd=True, stochastic_bwd=True,
-        bwd_level_sample=auto_bwd_level_sample(ngp.cfg.n_levels),
-        bwd_compact_scatter=True, bwd_scatter_dtype=scatter)
-    return dataclasses.replace(
-        ngp, cfg=cfg, table=ngp.table.clone(),
-        mlp={k: [t.clone() for t in v] for k, v in ngp.mlp.items()})
-
-
-def bench_params(em, ngp, crf, scatter="bfloat16"):
-    return {"material": train_config(ngp, scatter),
-            "radiance": em.radiance.clone(), "crf_w": crf.weight.clone()}
-
-
-def make_bench_loss(tracer, em, crf, rays, spp):
-    """The benchmark's train loss (bench.py:91-100 of the JAX package):
-    MSE of crf_forward(path_tracing_single(...)) to 0.5, one stochastic
-    material query at the first hit, params {"material", "radiance",
-    "crf_w"}. Without samples every step jitters the ray origins by a
-    fresh 1e-6 draw, as the benchmark does."""
-    import functools
-
-    import torch
-
-    from iris_tpu_torch.models.brdf import ngp_brdf_apply
-    from iris_tpu_torch.models.crf import crf_forward
-    from iris_tpu_torch.render.integrator import (
-        draw_uniform, path_tracing_single)
-
-    o, d, dxdu, dydv = (rays[:, i:i + 3] for i in (0, 3, 6, 9))
-
-    def loss_fn(p, batch, gen, samples=None):
-        em2 = dataclasses.replace(em, radiance=p["radiance"])
-        crf2 = dataclasses.replace(crf, weight=p["crf_w"])
-        mat_fn = functools.partial(
-            ngp_brdf_apply, p["material"], gen=gen,
-            samples=None if samples is None else samples["mat"])
-        o_step = o if samples is not None else \
-            o + draw_uniform(gen, (1, 3), o.device) * 1e-6
-        l = path_tracing_single(
-            gen, tracer, em2, mat_fn, o_step, d, dxdu, dydv, spp,
-            samples=None if samples is None else samples["render"])
-        ldr = crf_forward(crf2, l, 1.0)
-        loss = torch.mean((ldr - 0.5) ** 2)
-        return loss, {"loss": loss}
-
-    return loss_fn
-
-
 def level_blocks(x, cfg):
     """(n_levels,) bool: the level blocks of a table-shaped tensor that
     hold a nonzero, in row mode ((L*T, F) rows) and in the flat and packed
@@ -3247,6 +3243,135 @@ def width_counts(tracer, o, d):
     return lines
 
 
+def printed_json(run):
+    """(run()'s result, the JSON lines it printed, parsed); everything it
+    printed is printed again here."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = run()
+    text = buf.getvalue()
+    sys.stdout.write(text)
+    sys.stdout.flush()
+    return result, [json.loads(ln) for ln in text.splitlines()
+                    if ln.startswith("{")]
+
+
+def positive(x) -> bool:
+    return isinstance(x, (int, float)) and x > 0 and x != float("inf")
+
+
+def scripts_phase(dev, train=None):
+    """Phase 17: the port's twins of the four root scripts on the card, each
+    through the call a user makes. `train` holds phase 6's stats, printed
+    beside bench's rates. Returns the phase's stats."""
+    import torch
+
+    from iris_tpu_torch import (bench, bench_components, bench_scaling,
+                                graft_entry)
+
+    t_phase = time.perf_counter()
+    stats = {}
+    name = torch.cuda.get_device_name(0)
+
+    # bench: the headline metric on the flagship and the 102K scene
+    t0 = time.perf_counter()
+    _, lines = printed_json(lambda: bench.main([]))
+    check(len(lines) == 1, f"bench printed {len(lines)} JSON lines")
+    line = lines[0]
+    check(tuple(line) == BENCH_KEYS, f"bench keys {list(line)}")
+    check(line["metric"] == "train_fwd_bwd_rays_per_s"
+          and line["unit"] == "rays/s/chip", f"bench line {line}")
+    check(positive(line["value"]) and positive(
+        line["rays_per_s_102k_faces"]), f"bench rates {line}")
+    check(line["kernel_mode_102k"] == "trace_paired_streamed",
+          f"bench kernel_mode_102k {line['kernel_mode_102k']}")
+    check(line["device"]["name"] == name, f"bench device {line['device']}")
+    for label, kernel in (("flagship", "trace_union"),
+                          ("clutter102k", "trace_paired_streamed")):
+        run = line["runs"][label]
+        check(run["launches"] == {kernel: 2 * run["calls"]},
+              f"bench {label}: launches {run['launches']} in "
+              f"{run['calls']} calls, expected 2 a call of {kernel}")
+        check(len(run["s_per_call"]) == run["calls"] - 1
+              and all(positive(t) for t in run["s_per_call"]),
+              f"bench {label}: per-call times {run['s_per_call']}")
+        ms = [round(t * 1e3, 2) for t in run["s_per_call"]]
+        print(f"bench {label} ({run['faces']} faces, {kernel}): ms a call "
+              f"{ms}; median {statistics.median(ms):.2f}")
+    stats["bench"] = line
+    stats["bench_s"] = time.perf_counter() - t0
+    print(f"bench: {line['value']:.1f} camera samples/s (flagship), "
+          f"{line['rays_per_s_102k_faces']:.1f} (102K), fwd+bwd with no "
+          "optimizer on the demo's zero SLF", end="")
+    if train is not None:
+        print(f"; phase 6, fwd+bwd+Adam on a seeded SLF: "
+              f"{train['flagship']['camera_samples_per_s']:.1f} / "
+              f"{train['clutter102k']['camera_samples_per_s']:.1f}")
+    else:
+        print("; phase 6 not run")
+
+    # bench_components: every component, peak device memory
+    t0 = time.perf_counter()
+    _, lines = printed_json(lambda: bench_components.main([]))
+    check(tuple(ln["metric"] for ln in lines) == COMPONENTS,
+          f"bench_components metrics {[ln['metric'] for ln in lines]}")
+    for ln in lines:
+        check(positive(ln["value"]) and positive(ln["ms"])
+              and ln["device"]["name"] == name, f"component {ln}")
+    stats["components"] = lines
+    # each line's peak is its component's alone
+    stats["components_peak_mb"] = max(ln["peak_mb"] for ln in lines)
+    stats["components_s"] = time.perf_counter() - t0
+    exact32 = lines[COMPONENTS.index(
+        "hashgrid32_exact_fwd_bwd_queries_per_s")]
+    print(f"bench_components: {len(lines)} components in "
+          f"{stats['components_s']:.1f} s; peak device memory "
+          f"{stats['components_peak_mb']:.1f} MB, of the 32-level exact "
+          f"fwd+bwd (262,144 x 8 x 32 x 2 scatter rows) {exact32['peak_mb']}"
+          " MB")
+
+    # bench_scaling: its defaults, one NCCL rank on cuda:0
+    t0 = time.perf_counter()
+    _, lines = printed_json(lambda: bench_scaling.main([]))
+    check(len(lines) == 1 and tuple(lines[0]) == SCALING_KEYS,
+          f"bench_scaling lines {lines}")
+    ln = lines[0]
+    check(ln["metric"] == "scaling_rays_per_s" and ln["devices"] == 1
+          and ln["backend"] == "nccl" and positive(ln["value"])
+          and ln["efficiency_vs_linear"] == 1.0, f"bench_scaling {ln}")
+    stats["scaling"] = ln
+    stats["scaling_s"] = time.perf_counter() - t0
+
+    # graft_entry: the forward on the card, then two gloo ranks sharing
+    # cuda:0 against the same step with no group
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry()
+    with torch.no_grad():
+        out = fn(*args)
+    check(tuple(out.shape) == (1024, 3) and bool(torch.isfinite(out).all())
+          and float(out.min()) >= 0 and float(out.max()) <= 1,
+          f"entry forward: {tuple(out.shape)}, [{float(out.min())}, "
+          f"{float(out.max())}]")
+    print(f"entry forward: {tuple(out.shape)} mean {float(out.mean()):.6f}")
+    loss = graft_entry.dryrun_multichip(2, backend="gloo")
+    ref = graft_entry.dryrun_step(2, device=dev)
+    check(abs(loss - ref) <= 1e-4 * abs(ref),
+          f"dryrun: two ranks' loss {loss} against no group's {ref}")
+    print(f"dryrun: two gloo ranks on cuda:0 {loss:.8f}, no group "
+          f"{ref:.8f}")
+    stats["graft"] = {"entry_mean": float(out.mean()), "dryrun_loss": loss,
+                      "no_group_loss": ref}
+    stats["graft_s"] = time.perf_counter() - t0
+    stats["total_s"] = time.perf_counter() - t_phase
+    print(f"phase 17: {stats['total_s']:.1f} s (bench {stats['bench_s']:.1f}"
+          f", components {stats['components_s']:.1f}, scaling "
+          f"{stats['scaling_s']:.1f}, graft {stats['graft_s']:.1f})")
+    return stats
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3271,6 +3396,9 @@ def main(argv=None) -> int:
     ap.add_argument("--parallel-only", action="store_true",
                     help="run the data-parallel trainer (phase 16) on new "
                     "datasets and stop (no verdict line)")
+    ap.add_argument("--drivers-only", action="store_true",
+                    help="run the root scripts' twins (phase 17) and stop (no "
+                    "verdict line)")
     ap.add_argument("--counts", action="store_true",
                     help="with --sweep-only: the plain versions' counters "
                     "at every packet width on the camera check rays")
@@ -3385,6 +3513,13 @@ def main(argv=None) -> int:
         par_stats = parallel_phase(dev, args.seed, new_datasets=True)
         shutil.rmtree(STAGE_DIR, ignore_errors=True)
         print("run: " + json.dumps({"parallel": par_stats,
+                                    "total_s": time.perf_counter() - t_run}))
+        print(f"card: {card_line()}")
+        return 0
+
+    if args.drivers_only:
+        scripts = scripts_phase(dev)
+        print("run: " + json.dumps({"scripts": scripts,
                                     "total_s": time.perf_counter() - t_run}))
         print(f"card: {card_line()}")
         return 0
@@ -3751,6 +3886,13 @@ def main(argv=None) -> int:
         for run in ("no_group", "nccl_1", "gloo_2"):
             add_launches(st[run])
 
+    # 17. the root scripts' twins: bench, bench_components, bench_scaling and
+    # the graft entry
+    reset_launches()
+    scripts = scripts_phase(dev, {"flagship": flag_train,
+                                  "clutter102k": big_train})
+    add_launches({"launches": read_launches()})
+
     # 12-13. each kernel on the largest input a main path gave it; the five
     # big-tree kernels on the same 518,400 rays of the 102K train step;
     # trace_union and trace_paired_streamed also on the stages' and the
@@ -3918,7 +4060,7 @@ def main(argv=None) -> int:
         "stages": stages, "ref32x2": ref_stats,
         "shading_cache_stages": stage_stats, "pipeline": pipe_stats,
         "relight": relight_stats, "tools": tools_stats,
-        "parallel": par_stats,
+        "parallel": par_stats, "scripts": scripts,
         "five_on_102k_ms": turns, "five_on_102k_hits": agree,
         "packet_sweep_ms": sweep,
         "build_s": build_s, "total_s": time.perf_counter() - t_run}))
@@ -3927,7 +4069,7 @@ def main(argv=None) -> int:
               "main path")
     print(json.dumps({"kernels": rows}))
 
-    # 17. verdict
+    # 18. verdict
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

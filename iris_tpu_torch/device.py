@@ -17,3 +17,26 @@ def resolve_device(device=None) -> torch.device:
             "iris_tpu_torch: no CUDA device is available; pass "
             "device='cpu' to run the plain PyTorch versions")
     return dev
+
+
+def describe(device) -> dict:
+    """What a printed result names its device by: the card's name and power
+    limit as `nvidia-smi --query-gpu=name,power.limit` reads them (a card
+    set below its maximum power runs slower under load), or {"name":
+    "cpu"}. The power limit is None where nvidia-smi cannot be run."""
+    import subprocess
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return {"name": str(dev)}
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    power = None
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=power.limit",
+             "--format=csv,noheader", "-i", str(index)],
+            capture_output=True, text=True, timeout=60, check=True)
+        power = out.stdout.strip() or None
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return {"name": torch.cuda.get_device_name(index), "power_limit": power}

@@ -135,26 +135,16 @@ def demo_step(group, batch: int = 8192, hash_levels: int = 4,
     return list(calls), trainable_bytes(params), width
 
 
-def _rank(rank, coordinator, devices, backend, kw, link_bw, compute_ms,
-          n_threads):
-    from iris_tpu_torch.parallel.distributed import ensure_multihost
-
-    torch.set_num_threads(n_threads)
-    n = len(devices)
-    group = ensure_multihost(coordinator, n, rank, backend=backend,
-                             device=devices[rank])
-    try:
-        calls, param_bytes, width = demo_step(group, **kw)
-        labels = {"device": str(group.device), "backend": group.backend,
-                  "rays_per_step": kw["batch"],
-                  "gathered_floats_per_ray": width,
-                  "grid": {k: kw[k] for k in ("hash_levels", "hash_features",
-                                              "log2_table")}}
-    finally:
-        group.close()
-    if rank == 0:
-        report(calls, param_bytes, n, link_bw, compute_ms=compute_ms,
-               labels=labels)
+def _count(group, kw):
+    """demo_step on this rank: (calls, trainable bytes, what was
+    counted)."""
+    calls, param_bytes, width = demo_step(group, **kw)
+    labels = {"device": str(group.device), "backend": group.backend,
+              "rays_per_step": kw["batch"],
+              "gathered_floats_per_ray": width,
+              "grid": {k: kw[k] for k in ("hash_levels", "hash_features",
+                                          "log2_table")}}
+    return calls, param_bytes, labels
 
 
 def rank_devices(device, backend: str | None, n: int):
@@ -178,10 +168,7 @@ def rank_devices(device, backend: str | None, n: int):
 
 
 def main(argv=None):
-    import os
-    import shutil
-    import tempfile
-
+    from iris_tpu_torch.parallel.distributed import spawn_ranks
     from iris_tpu_torch.pipeline.common import mesh_batch_size
 
     p = argparse.ArgumentParser()
@@ -203,15 +190,10 @@ def main(argv=None):
     kw = dict(batch=mesh_batch_size(a.batch, a.ranks, "batch"),
               hash_levels=a.hash_levels, hash_features=a.hash_features,
               log2_table=a.log2_table)
-    tmp = tempfile.mkdtemp(prefix="iris_comms_")
-    try:
-        torch.multiprocessing.start_processes(
-            _rank, args=("file://" + os.path.join(tmp, "rendezvous"),
-                         devices, backend, kw, a.link_bw, a.compute_ms,
-                         max(1, torch.get_num_threads() // a.ranks)),
-            nprocs=a.ranks, join=True, start_method="spawn")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    calls, param_bytes, labels = spawn_ranks(_count, devices, backend,
+                                             args=(kw,))[0]
+    report(calls, param_bytes, a.ranks, a.link_bw, compute_ms=a.compute_ms,
+           labels=labels)
 
 
 if __name__ == "__main__":

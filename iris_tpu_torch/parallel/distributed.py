@@ -160,6 +160,51 @@ def ensure_multihost(coordinator: str | None = None,
                      backend=dist.get_backend(), owned=owned)
 
 
+def spawn_ranks(fn, devices, backend: str, args=()) -> list:
+    """fn(group, *args) on len(devices) spawned processes, rank r on
+    devices[r], joined in one `backend` group through a file:// rendezvous
+    in a temporary directory (no port to pick); each rank's return value,
+    by rank. fn must be a module-level function (a spawned process imports
+    it by name), its result picklable. A rank that raises fails the call.
+    Each rank gets an equal share of this process's intra-op threads."""
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    n = len(devices)
+    tmp = tempfile.mkdtemp(prefix="iris_ranks_")
+    try:
+        torch.multiprocessing.start_processes(
+            _spawned_rank,
+            args=(fn, "file://" + os.path.join(tmp, "rendezvous"), devices,
+                  backend, args, tmp, max(1, torch.get_num_threads() // n)),
+            nprocs=n, join=True, start_method="spawn")
+        out = []
+        for r in range(n):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _spawned_rank(rank, fn, coordinator, devices, backend, args, out_dir,
+                  n_threads):
+    import os
+    import pickle
+
+    torch.set_num_threads(n_threads)
+    group = ensure_multihost(coordinator, len(devices), rank,
+                             backend=backend, device=devices[rank])
+    try:
+        out = fn(group, *args)
+    finally:
+        group.close()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
 class _GatherRows(torch.autograd.Function):
     """Forward: every rank's rows, one all-gather. Backward: the rank's
     rows of the incoming gradient times N, and no communication. Every

@@ -93,10 +93,15 @@ def bench_chained(step, iters: int = 8, warmup: int = 2,
 
 
 def bench_chained_keyed(fn, seed: int, iters: int = 8, warmup: int = 2,
-                        device=None) -> float:
+                        device=None, call_times: list | None = None
+                        ) -> float:
     """bench_keyed with the outputs chained: acc = fn(gen_i) + acc * 1e-12,
     fn(gen) returning a scalar tensor that depends on its whole
-    computation (sum a gradient leaf in when timing fwd+bwd)."""
+    computation (sum a gradient leaf in when timing fwd+bwd).
+
+    With a list as call_times, an event is also recorded between two
+    calls (no synchronisation), and each call's seconds are appended to
+    it: the spread that the mean hides."""
     dev = _card(device)
     acc = torch.zeros((), device=dev)
     for i in range(warmup):
@@ -104,21 +109,36 @@ def bench_chained_keyed(fn, seed: int, iters: int = 8, warmup: int = 2,
     torch.cuda.synchronize(dev)
     gens = [_generator(dev, seed + i) for i in range(iters)]
     state = {"acc": torch.zeros((), device=dev)}
+    marks = []
+
+    def mark():
+        if call_times is not None:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
 
     def run():
         for g in gens:
+            mark()
             state["acc"] = fn(g) + state["acc"] * 1e-12
+        mark()
 
-    return _elapsed_s(run) / iters
+    total = _elapsed_s(run)
+    if call_times is not None:
+        call_times.extend(a.elapsed_time(b) / 1e3
+                          for a, b in zip(marks, marks[1:]))
+    return total / iters
 
 
-def bench_scan(fn, seed: int, iters: int = 16, device=None) -> float:
+def bench_scan(fn, seed: int, iters: int = 16, device=None,
+               call_times: list | None = None) -> float:
     """The JAX helper runs `iters` calls inside one jitted lax.scan, one
     dispatch and one fetch in all. The card has no scan to compile: the
     calls queued back to back with one synchronisation at the end are
-    that, so this is bench_chained_keyed after one warm-up call."""
+    that, so this is bench_chained_keyed after one warm-up call. Where a
+    call's host work (its launches) takes longer than its device work,
+    the queue never fills, and the time is the host's enqueue rate."""
     return bench_chained_keyed(fn, seed, iters=iters, warmup=1,
-                               device=device)
+                               device=device, call_times=call_times)
 
 
 def bench_batched(fn, make_input, iters: int = 5, warmup: int = 1,

@@ -820,3 +820,17 @@ def test_device_trace_records_the_card(card, tmp_path):
         events = json.load(f)["traceEvents"]
     assert any(e.get("cat") == "kernel" for e in events)
     assert prof.key_averages()
+
+
+def test_bench_measure_launches_trace_union_alone(card):
+    """The benchmark step on the flagship scene, 1 + 2 calls: trace_union
+    alone, 2 launches a call (the camera rays and the fused NEE + bounce
+    rays), and a time for each timed call."""
+    from iris_tpu_torch import bench
+
+    m = bench.measure(bench.FLAGSHIP, iters=2, device=card)
+    assert m["calls"] == 3 and m["faces"] == 398
+    assert m["kernel_mode"] == "trace_union"
+    assert m["launches"] == {"trace_union": 2 * m["calls"]}
+    assert len(m["s_per_call"]) == 2 and all(t > 0 for t in m["s_per_call"])
+    assert m["rays_per_s"] > 0

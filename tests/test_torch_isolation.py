@@ -8,6 +8,8 @@ import sys
 import pytest
 import torch
 
+from iris_tpu_torch import (bench, bench_components, bench_scaling,
+                            graft_entry)
 from iris_tpu_torch.demo import make_demo_batch, make_demo_scene
 from iris_tpu_torch.geometry.bvh import build_bvh
 from iris_tpu_torch.geometry.procedural import make_box_scene
@@ -38,7 +40,8 @@ for want in ("train.steps", "train.optim", "train.loop", "utils.losses",
              "utils.fuse_segmentation", "utils.hdr2ldr",
              "utils.process_images", "data.colmap", "models.mlps",
              "utils.timing", "utils.profiling", "parallel.sharding",
-             "parallel.distributed", "parallel.comms_report"):
+             "parallel.distributed", "parallel.comms_report", "bench",
+             "bench_components", "bench_scaling", "graft_entry"):
     assert "iris_tpu_torch." + want in names, want
 from iris_tpu_torch.geometry.intersect import TraversalPolicy, kernel_for
 from iris_tpu_torch.train.loop import TrainerConfig, run_training
@@ -127,6 +130,26 @@ def test_comms_report_defaults_to_cuda(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         comms_report.main(["--link_bw", "2.5e10"])
+    assert os.listdir(tmp_path) == []
+
+
+@pytest.mark.parametrize("call", [
+    lambda: bench.main([]),
+    lambda: bench.main(["--small-only"]),
+    lambda: bench_components.main([]),
+    lambda: bench_scaling.main([]),
+    lambda: graft_entry.entry(),
+    lambda: graft_entry.dryrun_multichip(2),
+    lambda: graft_entry.main([]),
+])
+def test_root_script_twins_default_to_cuda(call, tmp_path, monkeypatch):
+    """The benchmarks and the graft entry ask for the card before they
+    build a scene, start a rank or write a file."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
     assert os.listdir(tmp_path) == []
 
 

@@ -34,11 +34,10 @@ from iris_tpu.train.optim import make_optimizer as jax_make_optimizer
 from iris_tpu.train.optim import scale_updates_for_key as jax_scale_updates
 from iris_tpu.utils import losses as jlosses
 from iris_tpu_torch import convert
+from iris_tpu_torch.bench import make_bench_loss
 from iris_tpu_torch.core.ggx import lerp_specular
 from iris_tpu_torch.models import crf as tcrf
-from iris_tpu_torch.models.brdf import ngp_brdf_apply
 from iris_tpu_torch.models.emitter import radiance_rows
-from iris_tpu_torch.render.integrator import path_tracing_single
 from iris_tpu_torch.train import steps as tsteps
 from iris_tpu_torch.train.loop import make_train_step, value_and_grad
 from iris_tpu_torch.train.optim import (
@@ -402,25 +401,6 @@ def _bench_loss_jax(jt, je, jn_cfg, jc, rays, target):
     return loss_fn
 
 
-def _bench_loss_port(pt, pe, pc, rays, target):
-    o, d, dxdu, dydv = (tt(rays[:, i:i + 3]) for i in (0, 3, 6, 9))
-
-    def loss_fn(p, batch, gen, samples=None):
-        em2 = dataclasses.replace(pe, radiance=p["radiance"])
-        crf2 = dataclasses.replace(pc, weight=p["crf_w"])
-        mat_fn = functools.partial(
-            ngp_brdf_apply, p["material"], gen=gen,
-            samples=None if samples is None else samples["mat"])
-        l = path_tracing_single(
-            gen, pt, em2, mat_fn, o, d, dxdu, dydv, SPP,
-            samples=None if samples is None else samples["render"])
-        ldr = tcrf.crf_forward(crf2, l, 1.0)
-        loss = torch.mean((ldr - target) ** 2)
-        return loss, {"loss": loss}
-
-    return loss_fn
-
-
 def _bench_draws(key, hcfg, b):
     key, k_mat = jax.random.split(key)
     return {"render": jax_single_draws(key, b, SPP),
@@ -446,7 +426,7 @@ def test_bench_step_forward_backward(scene, scatter):
         _bench_loss_jax(jt, je, jn.cfg, jc, rays, 0.5), has_aux=True))(
         jparams, {}, key)
     loss, _, pgrads = value_and_grad(
-        _bench_loss_port(pt, pe, pc, rays, 0.5),
+        make_bench_loss(pt, pe, pc, tt(rays), SPP),
         {"material": pn, "radiance": pe.radiance, "crf_w": pc.weight}, {},
         None, _bench_draws(key, jn.cfg, rays.shape[0]))
     np.testing.assert_allclose(float(loss), float(val), rtol=LOSS_RTOL)
@@ -492,7 +472,7 @@ def test_five_train_steps_match_optax(scene, kind):
                "crf_w": pc.weight.clone()}
     start = convert.leaves_to_numpy(pparams)
     pstate = popt.init(pparams)
-    pstep = make_train_step(_bench_loss_port(pt, pe, pc, rays, 0.5), popt)
+    pstep = make_train_step(make_bench_loss(pt, pe, pc, tt(rays), SPP), popt)
     jgrad = jax.jit(jax.grad(
         lambda p, b, k: _bench_loss_jax(jt, je, jn.cfg, jc, rays, 0.5)(
             p, b, k)[0]))
