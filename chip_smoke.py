@@ -9,6 +9,7 @@
     python3 chip_smoke.py --tools-only
     python3 chip_smoke.py --parallel-only
     python3 chip_smoke.py --drivers-only
+    python3 chip_smoke.py --chunks-only
 
 Needs one NVIDIA card (sm_90a: H100/H200), nvcc and g++. It builds the
 traversal kernels from iris_tpu_torch/csrc/traverse.cu and the SAH builder
@@ -99,14 +100,16 @@ from csrc/bvh_builder.cpp, then:
    production settings (batch 8,192, SPP 128 at spp 32, the 4 x 16 x 2^19
    row-mode grid, lp 0.005 la 0.01 l_crf_weight 0.001), only the steps
    cut: extract_emitter (the zero-radiance mask), initialize (20 steps in
-   chunks of 10, validation renders and a checkpoint every 10),
+   chunks of 10, the first eager, the second one CUDA-graph replay;
+   validation renders and a checkpoint every 10),
    extract_emitter --mode update, bake_shading on both train frames,
    train_brdf_crf (brdf0, warm from initialize), slf_refine (twice: the
    same bits), train_emitter, extract_emitter --mode update,
    refine_shading --encode stoch on both train frames, train_brdf_crf
    again on those caches (brdf1) and render on the first val frame with
    brdf1. Per CLI it prints wall seconds, steps and ms a step (CUDA events
-   around each step, the median after the first chunk), camera samples a
+   around each eager step and each graph replay, a replay's time split over
+   its steps; the median after the first chunk), camera samples a
    second for the two path-tracing trainers, the seconds of each
    validation render, launches by kernel against the count the settings
    give, peak device memory, and render's PSNR and SSIM against the
@@ -230,13 +233,15 @@ from csrc/bvh_builder.cpp, then:
    drives the port's twins of the four root scripts, each through the call a user
    makes: iris_tpu_torch.bench.main([]) (the benchmark step, fwd+bwd of
    crf_forward(path_tracing_single) at 8,100 camera rays x spp 32 with no
-   optimizer, on the demo's zero SLF, 1 + 24 calls on the flagship scene
-   and 1 + 8 on the 102,014-face scene); bench_components.main([]) (the
+   optimizer, on the demo's zero SLF, 24 calls a CUDA graph on the
+   flagship scene and 8 on the 102,014-face scene, after one eager call:
+   one warm and three timed replays); bench_components.main([]) (the
    17 components of the JAX package's bench_components.py); bench_scaling
    .main([]) (one NCCL rank on cuda:0); graft_entry.entry()'s forward and
    graft_entry.dryrun_multichip(2, backend="gloo") (two spawned gloo
-   ranks sharing cuda:0). It prints every JSON line they print, each call
-   time of bench, bench's rates beside phase 6's (which add Adam and a
+   ranks sharing cuda:0). It prints every JSON line they print, bench's ms
+   a call in each timed replay, bench's rates beside phase 6's (which add
+   Adam and a
    seeded SLF), peak device memory of the components and the phase's
    seconds. Hard checks: bench's line holds the JAX keys but
    "vs_baseline", with "device" and "runs", finite positive rates,
@@ -246,7 +251,34 @@ from csrc/bvh_builder.cpp, then:
    finite and positive; one scaling line, devices 1, backend nccl; the
    entry's forward (1024, 3), finite, in [0, 1]; the two ranks' loss
    within 1e-4 relative of the same step with no group;
-18. prints the card line again and, last, the run's JSON verdict.
+18. (run right after phase 17, its launches counted in phase 13's line)
+   one-dispatch training chunks, CUDA graphs (train.loop.make_train_chunk,
+   utils.timing.bench_scan): (a) phase 6's benchmark loss with Adam
+   through run_training, 40 steps on the flagship (trace_union) and on
+   the 102K scene (trace_paired_streamed), once at chunk_steps 10 (the
+   first chunk eager, one capture replayed at step0 10, 20 and 30) and
+   once at chunk_steps 1, from the same fresh parameters, a rate cut at
+   step 25 inside a replayed chunk; then a fresh chunk's eager warm-up and
+   one replay under torch.profiler, and one replay of a graph that holds
+   the chunk's registered generators and nothing else. It prints ms a
+   step of each (CUDA events around each step and each replay), the
+   launches a chunk (as the kernels count them on the card), the host's
+   kernel-launch and graph-launch calls a chunk and the bare graph's,
+   the device's busy time and idle share of a chunk, peak memory and the
+   capture's seconds. (b) initialize.main at phase 11's settings on phase 11's
+   flagship dataset and bake, 30 steps at --chunk_steps 10 and at 1,
+   validation at step 0, a checkpoint every 10, each step timed as in
+   phase 11. (c) bench_scan's graph of 4 bench.grad_step calls on both
+   scenes, and bench.measure's ms a call by replay (phase 17's) with the
+   card's name and power limit. Hard checks: in (a) the losses the same
+   bits and a digest of every parameter, moment, step count and rate
+   the same after every chunk, 2 launches a step of the scene's kernel
+   alone in both runs, one capture and three replays, one graph launch
+   for a replayed chunk and no more kernel-launch calls than the bare
+   graph's, 2 a step of the kernel counted in the profiled eager chunk
+   and replay alike; in (b) the losses and both checkpoint files the
+   same bits; in (c) the graph's scalar the eager calls' bits;
+19. prints the card line again and, last, the run's JSON verdict.
 
 Any failed check raises, and the script then exits non-zero with no
 verdict line. It imports nothing of JAX or of the JAX package.
@@ -272,6 +304,10 @@ and emitter mask, then phase 16 alone (about two minutes on an H100),
 and prints no verdict line.
 
 --drivers-only runs phases 1-2, then phase 17 alone (no verdict line).
+
+--chunks-only runs phases 1-2, builds the flagship and 102K scenes, writes
+the flagship dataset with its SLF and emitter mask as phase 10 does, then
+phase 18 alone, bench.measure included (no verdict line).
 
 --sweep-only runs phases 1-2, builds the 102,014-face scene, takes the
 518,400 rays of one train step and runs the width sweep of phase 12 alone
@@ -375,6 +411,14 @@ PIPE_CLIS = ("initialize", "bake_shading", "train_brdf_crf", "slf_refine",
 PAR_STEPS = 5
 PAR_GATHERED = 7           # floats a ray initialize's loss gathers
 PAR_DIR = os.path.join("outputs", "chip_smoke_parallel")
+CHUNK_STEPS = 40               # phase 18: run_training steps a scene
+CHUNK = 10                     # the trainers' default chunk_steps
+CHUNK_MILESTONE = 25           # a rate cut inside the third chunk
+CHUNK_INIT_STEPS = 30          # phase 18's initialize runs
+CHUNK_SCAN_ITERS = 4           # bench.grad_step calls in the held graph
+CHUNK_DIR = os.path.join("outputs", "chip_smoke_chunks")
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
 # phase 14: the consumers of phase 11's trained scene; relight_demo.sh's
 # SPP 32 at spp 8, frames cut to 2
 REPO_DIR = os.path.dirname(os.path.abspath(__file__))
@@ -538,16 +582,19 @@ def roofline(tracer, counts, n_rays, paired):
 
 
 def reset_launches():
+    """Zero the launch counts the kernels keep on the card."""
     from iris_tpu_torch.geometry import cuda_intersect as ci
 
-    for name in KERNELS:
-        getattr(ci, name).launches = 0
+    ci.reset_kernel_counts()
 
 
 def read_launches():
+    """Each kernel's launches since reset_launches, as the kernels counted
+    them on the card (a graph's replays included: they run the kernels)."""
     from iris_tpu_torch.geometry import cuda_intersect as ci
 
-    return {name: getattr(ci, name).launches for name in KERNELS}
+    counts = ci.launch_counts()
+    return {name: counts[name] for name in KERNELS}
 
 
 class record_largest_trace:
@@ -556,7 +603,9 @@ class record_largest_trace:
     the spatial sort), and the tree it was traced against. Entered again,
     it goes on keeping the largest batch of every stretch it was active.
     With by_tree, it keeps the largest batch of each tree: {the tree's
-    n_faces: that record}."""
+    n_faces: that record}. A trace recorded into a CUDA graph capture is
+    not kept: its inputs live in the graph's pool, rewritten at every
+    replay (a trainer's eager first chunk holds its traces)."""
 
     def __init__(self, by_tree=False):
         self.by_tree = by_tree
@@ -570,6 +619,10 @@ class record_largest_trace:
         captured, by_tree = self.captured, self.by_tree
 
         def recording(tr, xs, ds):
+            import torch
+
+            if torch.cuda.is_current_stream_capturing():
+                return ray_trace(tr, xs, ds)
             cap = (captured.setdefault(tr.n_faces, {}) if by_tree
                    else captured)
             if xs.shape[0] > cap.get("n", 0):
@@ -609,26 +662,24 @@ def seed_slf(em, seed, dev):
 
 
 class count_traced_rays:
-    """While active, sums the rays that geometry.intersect.ray_trace is
-    given (every traversal of the port goes through it)."""
+    """While active, counts the rays the traversal kernels trace and their
+    launches, as the kernels count them on the card (so a CUDA graph's
+    replays count what they run): `counted` holds {"rays", "calls"} once
+    the block has ended."""
 
     def __enter__(self):
-        from iris_tpu_torch.geometry import intersect
+        from iris_tpu_torch.geometry import cuda_intersect as ci
 
-        self._intersect = intersect
-        self._ray_trace = ray_trace = intersect.ray_trace
-        counted = self.counted = {"rays": 0, "calls": 0}
-
-        def counting(tr, xs, ds):
-            counted["rays"] += xs.shape[0]
-            counted["calls"] += 1
-            return ray_trace(tr, xs, ds)
-
-        intersect.ray_trace = counting
-        return counted
+        self._ci = ci
+        self._before = ci.kernel_counts()
+        self.counted = {"rays": 0, "calls": 0}
+        return self.counted
 
     def __exit__(self, *exc):
-        self._intersect.ray_trace = self._ray_trace
+        after = self._ci.kernel_counts()
+        self.counted.update(
+            calls=sum(after[k][0] - self._before[k][0] for k in after),
+            rays=sum(after[k][1] - self._before[k][1] for k in after))
 
 
 class time_calls:
@@ -1093,13 +1144,16 @@ def report_stage(label, stage, st):
 
 
 class time_train_steps:
-    """While active, brackets every step of run_training (the step that
-    train.loop.make_train_step makes) with two CUDA events, read after the
-    run (no host sync inside it), and keeps the largest traversal input of
-    the steps alone (record_largest_trace), not of the hooks between
-    them. A data-parallel step's collectives are counted too
-    (parallel.comms_report.counting): `collectives` holds each step's
-    (kind, bytes) list, `groups` the RankGroup of each run."""
+    """While active, times the steps of run_training on the card, read
+    after the run (no host sync inside it): an eager step (the step that
+    train.loop.make_train_step makes) between two CUDA events, and a chunk
+    that is one CUDA-graph replay (utils.graphs.Graph.replay) between two
+    events, its time split evenly over its K steps (the step inside a
+    capture is not timed: it runs nothing then). Keeps the largest
+    traversal input of the eager steps alone (record_largest_trace), not
+    of the hooks between them. A data-parallel step's collectives are
+    counted too (parallel.comms_report.counting): `collectives` holds each
+    step's (kind, bytes) list, `groups` the RankGroup of each run."""
 
     def __enter__(self):
         import contextlib
@@ -1108,13 +1162,23 @@ class time_train_steps:
 
         from iris_tpu_torch.parallel.comms_report import counting
         from iris_tpu_torch.train import loop
+        from iris_tpu_torch.utils import graphs
 
         self._loop, self._make = loop, loop.make_train_step
         make, events = self._make, []
-        self.events = events
+        self.events = events          # (start, end, steps it timed)
         self.collectives, self.groups = [], []
         recorder = record_largest_trace()
         self.captured = recorder.captured
+
+        def bracket(run, k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = run()
+            end.record()
+            events.append((start, end, k))
+            return out
 
         def make_timed(loss_fn, optimizer, group=None):
             step = make(loss_fn, optimizer, group)
@@ -1122,30 +1186,52 @@ class time_train_steps:
                 self.groups.append(group)
 
             def timed(*a, **k):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                with recorder, (counting(group) if group is not None
-                                else contextlib.nullcontext()) as calls:
-                    out = step(*a, **k)
-                end.record()
-                events.append((start, end))
-                if group is not None:
-                    self.collectives.append(list(calls))
-                return out
+                if torch.cuda.is_current_stream_capturing():
+                    return step(*a, **k)
+
+                def run():
+                    with recorder, (counting(group) if group is not None
+                                    else contextlib.nullcontext()) as calls:
+                        out = step(*a, **k)
+                    if group is not None:
+                        self.collectives.append(list(calls))
+                    return out
+                return bracket(run, 1)
             return timed
 
+        class ReplayTimer:
+            def captured(self, graph):
+                pass
+
+            def replayed(self, graph, seeds, start, end):
+                events.append((start, end, len(graph.generators)))
+
         loop.make_train_step = make_timed
+        self._observing = graphs.observing(ReplayTimer())
+        self._observing.__enter__()
         return self
 
     def __exit__(self, *exc):
         self._loop.make_train_step = self._make
+        self._observing.__exit__(*exc)
 
     def step_ms(self):
+        """Milliseconds of each step in order: an eager step's own, a
+        replayed chunk's divided over its K steps."""
         import torch
 
         torch.cuda.synchronize()
-        return [a.elapsed_time(b) for a, b in self.events]
+        out = []
+        for a, b, k in self.events:
+            out += [a.elapsed_time(b) / k] * k
+        return out
+
+    def graphed_ms(self):
+        """Milliseconds a step of each replayed chunk."""
+        import torch
+
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) / k for a, b, k in self.events if k > 1]
 
 
 class time_validation:
@@ -1256,9 +1342,11 @@ def emitter_radiance_ok(label, bake):
 
 def run_trainer(module, argv, n_steps, samples_per_step=None):
     """One trainer CLI's main(argv) through run_stage, with its steps
-    timed (CUDA events around each step; ms a step = the median of the
-    steps after the first chunk), its validation renders timed, and the
-    largest traversal input of its steps kept."""
+    timed (time_train_steps: CUDA events around each eager step and each
+    graph replay of a chunk; ms a step = the median of the steps after the
+    first chunk, which are replays at chunk_steps > 1; eager_ms_per_step
+    the first chunk's median), its validation renders timed, and the
+    largest traversal input of its eager steps kept."""
     with time_train_steps() as steps, time_validation(module) as val:
         st = run_stage(module.main, argv)
     ms = steps.step_ms()
@@ -1266,7 +1354,8 @@ def run_trainer(module, argv, n_steps, samples_per_step=None):
           f"{n_steps} expected")
     after = ms[PIPE_CHUNK:] or ms
     st.update(steps=len(ms), ms_per_step=statistics.median(after),
-              step_ms=ms, val_render_s=val)
+              step_ms=ms, val_render_s=val, replays=len(steps.graphed_ms()),
+              eager_ms_per_step=statistics.median(ms[:PIPE_CHUNK]))
     if samples_per_step:
         st["camera_samples_per_s"] = samples_per_step / (
             st["ms_per_step"] / 1e3)
@@ -1478,7 +1567,9 @@ def report_pipeline(label, stats):
         extra = ""
         if "ms_per_step" in st:
             extra += (f"; {st['steps']} steps, {st['ms_per_step']:.2f} "
-                      f"ms/step (median after the first chunk), loss "
+                      f"ms/step (median after the first chunk, "
+                      f"{st['replays']} graph replays; the eager first "
+                      f"chunk {st['eager_ms_per_step']:.2f}), loss "
                       f"{st['first_loss']:.6f} -> {st['last_loss']:.6f}, "
                       f"validation renders "
                       + ", ".join(f"step {s}: {t:.2f} s"
@@ -3295,12 +3386,13 @@ def scripts_phase(dev, train=None):
         check(run["launches"] == {kernel: 2 * run["calls"]},
               f"bench {label}: launches {run['launches']} in "
               f"{run['calls']} calls, expected 2 a call of {kernel}")
-        check(len(run["s_per_call"]) == run["calls"] - 1
+        check(len(run["s_per_call"]) == 3
               and all(positive(t) for t in run["s_per_call"]),
-              f"bench {label}: per-call times {run['s_per_call']}")
-        ms = [round(t * 1e3, 2) for t in run["s_per_call"]]
+              f"bench {label}: per-replay times {run['s_per_call']}")
+        ms = [round(t * 1e3, 3) for t in run["s_per_call"]]
         print(f"bench {label} ({run['faces']} faces, {kernel}): ms a call "
-              f"{ms}; median {statistics.median(ms):.2f}")
+              f"in each timed graph replay {ms}; median "
+              f"{statistics.median(ms):.3f}; {run['calls']} calls run")
     stats["bench"] = line
     stats["bench_s"] = time.perf_counter() - t0
     print(f"bench: {line['value']:.1f} camera samples/s (flagship), "
@@ -3372,6 +3464,439 @@ def scripts_phase(dev, train=None):
     return stats
 
 
+class time_captures:
+    """While active, the host seconds of each CUDA graph capture
+    (utils.graphs.Graph.capture_s), a list."""
+
+    def __enter__(self):
+        from iris_tpu_torch.utils import graphs
+
+        times = []
+
+        class CaptureTimer:
+            def captured(self, graph):
+                times.append(graph.capture_s)
+
+            def replayed(self, graph, seeds, start, end):
+                pass
+
+        self._observing = graphs.observing(CaptureTimer())
+        self._observing.__enter__()
+        return times
+
+    def __exit__(self, *exc):
+        self._observing.__exit__(*exc)
+
+
+def state_digest(params, opt_state):
+    """One int64 device digest a tensor (parallel.distributed.bits_digest;
+    no host sync) of every parameter leaf, every optimizer-state tensor
+    (moments and step counts), the schedule's step count and its rates."""
+    import torch
+
+    from iris_tpu_torch.parallel.distributed import bits_digest
+    from iris_tpu_torch.train.optim import named_leaves
+
+    ts = [t for _, t in named_leaves(params)]
+    for st in opt_state["opt"].state.values():
+        ts += [st[k] for k in sorted(st) if isinstance(st[k], torch.Tensor)]
+    sched = opt_state["sched"]
+    ts += [sched.last_epoch] + list(sched.lrs)
+    return torch.cat([bits_digest(t) for t in ts])
+
+
+def chunk_run(label, tracer, em, ngp, crf, rays, chunk, seed):
+    """Phase 18 (a), one run: the benchmark loss with Adam through
+    run_training, CHUNK_STEPS steps at chunk_steps `chunk` from fresh
+    parameters, a rate cut at CHUNK_MILESTONE. Keeps every loss, the
+    state's digest at each chunk's last step, each step's CUDA-event ms,
+    the launches, peak memory (and its rise above what the process held
+    at the start) and the captures' host seconds."""
+    import itertools
+
+    import torch
+
+    from iris_tpu_torch.train.loop import run_training
+    from iris_tpu_torch.train.optim import make_optimizer
+
+    params = bench_params(em, ngp, crf)
+    loss_fn = make_bench_loss(tracer, em, crf, rays, TRAIN_SPP)
+    opt = make_optimizer(learning_rate=1e-3, milestones=(CHUNK_MILESTONE,))
+    losses, digests = [], {}
+    ends = set(range(CHUNK - 1, CHUNK_STEPS, CHUNK))
+
+    def keep(step, p, o):
+        if step in ends:
+            digests[step] = state_digest(p, o)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_launches()
+    with time_train_steps() as steps, time_captures() as captures:
+        t0 = time.perf_counter()
+        run_training(loss_fn, params, itertools.repeat({}), opt, CHUNK_STEPS,
+                     seed, log_fn=None,
+                     hooks=[lambda s, p, loss, a: losses.append(loss)],
+                     state_hooks=[keep], chunk_steps=chunk)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return {"losses": [float(x) for x in losses],
+            "digests": {s: d.cpu() for s, d in digests.items()},
+            "step_ms": steps.step_ms(), "graphed_ms": steps.graphed_ms(),
+            "launches": read_launches(), "capture_s": captures,
+            "peak_memory_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
+            "peak_rise_mb": (torch.cuda.max_memory_allocated() - held)
+            / 2 ** 20, "wall_s": wall}
+
+
+def chunk_profile(tracer, em, ngp, crf, rays, seed):
+    """A fresh make_train_chunk of CHUNK steps of the benchmark loss: its
+    eager warm-up chunk, then (after the capture) one replay, each under
+    torch.profiler and between CUDA events: the host's launch calls
+    (kernel launches and graph launches), the card's kernels and their
+    device time, the chunk's event ms, and the device's idle share of
+    it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from iris_tpu_torch.train.loop import make_train_chunk
+    from iris_tpu_torch.train.optim import make_optimizer
+    from profile_render import device_kernels, device_time_us
+
+    params = bench_params(em, ngp, crf)
+    loss_fn = make_bench_loss(tracer, em, crf, rays, TRAIN_SPP)
+    opt = make_optimizer(learning_rate=1e-3)
+    state = opt.init(params)
+    chunk = make_train_chunk(loss_fn, opt, CHUNK)
+    batches = [{}] * CHUNK
+    out = {}
+
+    def profiled(name, step0):
+        before = read_launches()        # waits for the card
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ms, _ = timed_once(lambda: chunk(params, state, batches, seed,
+                                             step0))
+        rec = launch_calls(prof)
+        rec.update(ms_under_profiler=ms, traversal_launches=sum(
+            v - before[k] for k, v in read_launches().items()))
+        try:
+            kernels = device_kernels(prof)
+        except RuntimeError:        # the profiler saw no device kernel
+            rec.update(device_busy_ms="not measured",
+                       idle_share="not measured")
+        else:
+            busy = sum(device_time_us(e) for e in kernels) / 1e3
+            rec.update(device_busy_ms=busy,
+                       kernels=sum(e.count for e in kernels),
+                       idle_share=max(0.0, 1 - busy / ms))
+        out[name] = rec
+
+    profiled("eager", 0)
+    chunk(params, state, batches, seed, CHUNK)       # capture, then replay
+    profiled("graphed", 2 * CHUNK)
+    out["bare"] = bare_replay_calls(CHUNK, rays.device)
+    return out
+
+
+def launch_calls(prof):
+    """The host's kernel-launch and graph-launch calls that torch.profiler
+    saw."""
+    calls = {e.key: e.count for e in prof.key_averages()
+             if e.key in LAUNCH_CALLS + ("cudaGraphLaunch",)}
+    return {"launch_calls": calls,
+            "kernel_launch_calls": sum(calls.get(k, 0)
+                                       for k in LAUNCH_CALLS),
+            "graph_launch_calls": calls.get("cudaGraphLaunch", 0)}
+
+
+def bare_replay_calls(n_gens, device):
+    """The host's launch calls (launch_calls) of one replay, under
+    torch.profiler, of a graph that holds n_gens registered generators,
+    one draw from each, and nothing else: what a replay costs the host
+    beside its graph launch whatever the graph runs (before it launches
+    the graph, CUDAGraph.replay refills each registered generator's seed
+    and offset tensors on the card)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from iris_tpu_torch.utils.graphs import GraphContext
+
+    ctx = GraphContext(device)
+    gens = [torch.Generator(device=device).manual_seed(i)
+            for i in range(n_gens)]
+
+    def draws():
+        return torch.stack([torch.rand((), generator=g, device=device)
+                            for g in gens])
+
+    with ctx.on_stream():
+        draws()
+    ctx.warm = True
+    graph = ctx.capture(draws, gens)
+    graph.replay(range(n_gens))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        graph.replay(range(1, n_gens + 1))
+        torch.cuda.synchronize()
+    return launch_calls(prof)
+
+
+def chunk_scan_check(label, tracer, em, ngp, crf, rays, seed):
+    """Phase 18 (c): utils.timing.bench_scan of CHUNK_SCAN_ITERS calls of
+    bench.grad_step in one CUDA graph; its last timed replay's scalar
+    against the same calls run eagerly under the same generators, bit for
+    bit. Returns (the scalar, bench_scan's ms a call)."""
+    import torch
+
+    from iris_tpu_torch import bench
+    from iris_tpu_torch.utils import graphs, timing
+
+    step = bench.grad_step(make_bench_loss(tracer, em, crf, rays, TRAIN_SPP),
+                           bench_params(em, ngp, crf))
+    kept = []
+
+    class Keep:
+        def captured(self, graph):
+            pass
+
+        def replayed(self, graph, seeds, start, end):
+            kept.append((list(seeds), graph.outputs.clone()))
+
+    with graphs.observing(Keep()):
+        dt = timing.bench_scan(step, seed, iters=CHUNK_SCAN_ITERS,
+                               device=rays.device)
+    seeds, got = kept[-1]
+    acc = torch.zeros((), device=rays.device)
+    for s in seeds:
+        acc = step(torch.Generator(device=rays.device).manual_seed(s)) \
+            + acc * 1e-12
+    check(seeds == [seed + i for i in range(CHUNK_SCAN_ITERS)]
+          and torch.equal(got, acc),
+          f"{label}: bench_scan's graph gave {got.item()!r}, the eager "
+          f"calls {acc.item()!r}")
+    return got.item(), dt * 1e3
+
+
+def chunk_initialize(root, bake, dev):
+    """Phase 18 (b): initialize.main at phase 11's settings (batch 8,192,
+    SPP 128 at spp 32, the 4 x 16 x 2^19 row-mode grid) on the flagship
+    dataset, CHUNK_INIT_STEPS steps at --chunk_steps 10 and at 1, in a
+    directory of its own: the same losses and checkpoint bits. Returns
+    the two runs' stats."""
+    from iris_tpu_torch.pipeline import initialize
+
+    args = ["--dataset", "synthetic", root, "--ldr_img_dir", "ldr",
+            "--device", str(dev), "--crf_basis", "3", "--has_part", "1",
+            "--batch_size", str(PIPE_BATCH), "--val_step",
+            str(CHUNK_INIT_STEPS), "--save_every", str(CHUNK),
+            "--hash_levels", str(PRODUCTION_GRID["hash_levels"]),
+            "--hash_features", str(PRODUCTION_GRID["hash_features"]),
+            "--log2_hashmap_size", str(LOG2_TABLE), "--SPP", str(PIPE_SPP),
+            "--spp", str(TRAIN_SPP), "--voxel_path",
+            os.path.join(bake, "vslf.npz"), "--emitter_path",
+            os.path.join(bake, "emitter.npz"), "--max_steps",
+            str(CHUNK_INIT_STEPS)]
+    samples = PIPE_BATCH * PIPE_SPP
+    work = os.path.join(CHUNK_DIR, "initialize")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    here = os.getcwd()
+    os.chdir(work)
+    try:
+        runs = {}
+        for chunk in (CHUNK, 1):
+            with time_captures() as captures:
+                runs[chunk], _ = run_trainer(
+                    initialize, args + ["--chunk_steps", str(chunk),
+                                        "--experiment_name", f"c{chunk}"],
+                    CHUNK_INIT_STEPS, samples)
+            runs[chunk]["capture_s"] = captures
+        a, b = (train_log(os.path.join("outputs", f"c{c}",
+                                       "train_log.jsonl"))
+                for c in (CHUNK, 1))
+        check(len(a) == CHUNK_INIT_STEPS and a == b,
+              f"initialize --chunk_steps {CHUNK}: losses {a} differ from "
+              f"--chunk_steps 1's {b}")
+        for f in ("last.pkl", "last_state.pkl"):
+            check(same_pickle(os.path.join("checkpoints", f"c{CHUNK}", f),
+                              os.path.join("checkpoints", "c1", f)),
+                  f"initialize --chunk_steps {CHUNK}: {f} differs from "
+                  "--chunk_steps 1's")
+    finally:
+        os.chdir(here)
+    return runs
+
+
+def chunks_phase(dev, seed, scenes, root, bake, bench_runs=None):
+    """Phase 18, one-dispatch chunks, printed. `scenes` are (label,
+    kernel, (tracer, em, ngp, crf, mesh)) of the flagship and the 102K
+    scene; root and bake the flagship dataset and its SLF and emitter;
+    bench_runs phase 17's bench line (None: bench.measure runs here).
+    Returns the phase's stats (their launches under "launches")."""
+    import torch
+
+    from iris_tpu_torch import bench
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    rays = frame_rays(dev)
+    stats = {"launches": {k: 0 for k in KERNELS}}
+    for label, kernel, (tracer, em, ngp, crf, _) in scenes:
+        runs = {c: chunk_run(label, tracer, em, ngp, crf, rays, c, seed)
+                for c in (CHUNK, 1)}
+        g, e = runs[CHUNK], runs[1]
+        for r in runs.values():
+            check(only_launched(r["launches"], kernel, 2 * CHUNK_STEPS),
+                  f"chunks {label}: launches {r['launches']}, "
+                  f"{2 * CHUNK_STEPS} of {kernel} alone expected")
+            for k, v in r["launches"].items():
+                stats["launches"][k] += v
+        check(g["losses"] == e["losses"] and len(g["losses"]) ==
+              CHUNK_STEPS, f"chunks {label}: graphed losses differ from "
+              "the eager steps'")
+        for s in sorted(g["digests"]):
+            check(torch.equal(g["digests"][s], e["digests"][s]),
+                  f"chunks {label}: the state after step {s} differs "
+                  "from the eager steps' (parameters, moments, schedule)")
+        check(len(g["graphed_ms"]) == CHUNK_STEPS // CHUNK - 1
+              and len(g["capture_s"]) == 1,
+              f"chunks {label}: {len(g['graphed_ms'])} replays, "
+              f"{len(g['capture_s'])} captures")
+        reset_launches()
+        prof = chunk_profile(tracer, em, ngp, crf, rays, seed)
+        eager_ms = statistics.median(e["step_ms"][CHUNK:])
+        graphed_ms = statistics.median(g["graphed_ms"])
+        st = {"eager_ms_per_step": eager_ms,
+              "graphed_ms_per_step": graphed_ms,
+              "graphed_chunk_ms": [m * CHUNK for m in g["graphed_ms"]],
+              "replays_at_step0": list(range(CHUNK, CHUNK_STEPS, CHUNK)),
+              "launches_per_chunk": {k: v * CHUNK // CHUNK_STEPS for k, v
+                                     in g["launches"].items() if v},
+              "eager_peak_memory_mb": e["peak_memory_mb"],
+              "graphed_peak_memory_mb": g["peak_memory_mb"],
+              "eager_peak_rise_mb": e["peak_rise_mb"],
+              "graphed_peak_rise_mb": g["peak_rise_mb"],
+              "capture_s": g["capture_s"][0], "profile": prof,
+              "eager_wall_s": e["wall_s"], "graphed_wall_s": g["wall_s"]}
+        for name in ("eager", "graphed"):
+            rec = prof[name]
+            busy = rec["device_busy_ms"]
+            if isinstance(busy, float):
+                chunk_ms = CHUNK * (eager_ms if name == "eager"
+                                    else graphed_ms)
+                rec["idle_share_unprofiled"] = max(0.0, 1 - busy / chunk_ms)
+        stats[label] = st
+        print(f"chunks {label} ({kernel}; {card}): {CHUNK_STEPS} steps of "
+              f"the benchmark loss with Adam, chunks of {CHUNK} graphed "
+              f"against single steps from the same state, a rate cut at "
+              f"step {CHUNK_MILESTONE}: losses, parameters, moments and "
+              f"schedule the same bits after every chunk (one capture "
+              f"replayed at step0 {st['replays_at_step0']}); ms a step "
+              f"eager {eager_ms:.3f}, graphed {graphed_ms:.3f} (chunk ms "
+              f"{[round(m, 3) for m in st['graphed_chunk_ms']]}); launches "
+              f"a chunk {st['launches_per_chunk']}; peak memory eager "
+              f"{e['peak_memory_mb']:.0f} MB, graphed "
+              f"{g['peak_memory_mb']:.0f} MB (above the run's start "
+              f"{e['peak_rise_mb']:.0f} / {g['peak_rise_mb']:.0f} MB); "
+              f"capture "
+              f"{st['capture_s']:.3f} s")
+        for name in ("eager", "graphed"):
+            rec = prof[name]
+            print(f"chunks {label} {name} chunk under torch.profiler: host "
+                  f"kernel-launch calls {rec['kernel_launch_calls']}, graph "
+                  f"launches {rec['graph_launch_calls']}, traversal "
+                  f"launches the kernels counted {rec['traversal_launches']}"
+                  f", device busy {rec['device_busy_ms']} ms of "
+                  f"{rec['ms_under_profiler']:.3f} ms, idle share "
+                  f"{rec['idle_share']} (against the unprofiled chunk "
+                  f"{rec.get('idle_share_unprofiled', 'not measured')})")
+        bare = prof["bare"]
+        print(f"chunks {label}: a replay of a graph of {CHUNK} registered "
+              f"generators and nothing else: host kernel-launch calls "
+              f"{bare['kernel_launch_calls']} ({bare['launch_calls']})")
+        check(prof["graphed"]["graph_launch_calls"] == 1,
+              f"chunks {label}: a replayed chunk made "
+              f"{prof['graphed']['graph_launch_calls']} graph launches")
+        check(prof["graphed"]["kernel_launch_calls"]
+              == bare["kernel_launch_calls"],
+              f"chunks {label}: a replayed chunk made "
+              f"{prof['graphed']['kernel_launch_calls']} kernel-launch "
+              f"calls from the host, a graph of its generators alone "
+              f"{bare['kernel_launch_calls']}")
+        for name in ("eager", "graphed"):
+            check(prof[name]["traversal_launches"] == 2 * CHUNK,
+                  f"chunks {label}: the kernels counted "
+                  f"{prof[name]['traversal_launches']} launches in the "
+                  f"{name} chunk, {2 * CHUNK} expected")
+        value, scan_ms = chunk_scan_check(label, tracer, em, ngp, crf, rays,
+                                          seed)
+        for k, v in read_launches().items():
+            stats["launches"][k] += v
+        stats[label].update(scan_value=value, scan_ms_per_call=scan_ms)
+        print(f"chunks {label}: bench_scan's graph of {CHUNK_SCAN_ITERS} "
+              f"grad_step calls = the eager calls' bits ({value!r}); "
+              f"{scan_ms:.3f} ms a call")
+
+    # (b) initialize at phase 11's settings
+    stats["initialize"] = chunk_initialize(root, bake, dev)
+    for chunk, st in stats["initialize"].items():
+        for k, v in st["launches"].items():
+            stats["launches"][k] += v
+        print(f"chunks initialize --chunk_steps {chunk} ({card}): "
+              f"{st['steps']} steps, {st['ms_per_step']:.2f} ms/step "
+              f"(median after the first chunk), "
+              f"{st['camera_samples_per_s']:.0f} camera samples/s, peak "
+              f"memory {st['peak_memory_mb']:.0f} MB, captures "
+              f"{[round(c, 3) for c in st['capture_s']]} s, "
+              f"{st['wall_s']:.1f} s in all")
+    print(f"chunks initialize: --chunk_steps {CHUNK} gives --chunk_steps "
+          f"1's {CHUNK_INIT_STEPS} losses and checkpoint bits")
+
+    # (c) bench's figures with the graphed bench_scan
+    if bench_runs is None:
+        reset_launches()
+        bench_runs = {
+            "flagship": bench.measure(bench.FLAGSHIP, bench.ITERS, dev),
+            "clutter102k": bench.measure(bench.CLUTTER_102K,
+                                         bench.ITERS_102K, dev)}
+        for k, v in read_launches().items():
+            stats["launches"][k] += v
+    for label, run in bench_runs.items():
+        ms = [round(t * 1e3, 3) for t in run["s_per_call"]]
+        print(f"chunks bench.measure {label} ({run['faces']} faces, "
+              f"{run['kernel_mode']}; {card}): ms a call by replay {ms}, "
+              f"{run['calls']} calls, launches {run['launches']}")
+    stats["bench"] = bench_runs
+    stats["phase_s"] = time.perf_counter() - t_phase
+    print(f"chunks: phase 18 took {stats['phase_s']:.1f} s")
+    return stats
+
+
+def chunks_dataset(dev, seed):
+    """The flagship dataset with its SLF and emitter mask, as phase 10 and
+    phase 11 write them (--chunks-only): (root, bake)."""
+    from iris_tpu_torch.data.make_demo_dataset import make_dataset
+    from iris_tpu_torch.pipeline import extract_emitter, slf_bake
+
+    label, n_clutter, _, orbit = STAGE_DATASETS[0]
+    root = os.path.join(STAGE_DIR, label)
+    bake = os.path.abspath(os.path.join(CHUNK_DIR, "bake"))
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(bake, ignore_errors=True)
+    make_dataset(root, img_hw=STAGE_HW, n_train=STAGE_SPLITS[0],
+                 n_val=STAGE_SPLITS[1], spp=STAGE_GEN_SPP,
+                 indir_depth=STAGE_GEN_DEPTH, n_clutter=n_clutter, seed=seed,
+                 orbit=orbit, device=dev)
+    common = ["--dataset", "synthetic", "--scene", root, "--ldr_img_dir",
+              "ldr", "--device", str(dev), "--output", bake]
+    slf_bake.main(common + ["--voxel_num", str(STAGE_VOXELS)])
+    extract_emitter.main(common + ["--threshold", "0.99"])
+    return os.path.abspath(root), bake
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3399,6 +3924,10 @@ def main(argv=None) -> int:
     ap.add_argument("--drivers-only", action="store_true",
                     help="run the root scripts' twins (phase 17) and stop (no "
                     "verdict line)")
+    ap.add_argument("--chunks-only", action="store_true",
+                    help="run the one-dispatch training chunks (phase 18) on "
+                    "the flagship and 102K scenes and a new flagship "
+                    "dataset, and stop (no verdict line)")
     ap.add_argument("--counts", action="store_true",
                     help="with --sweep-only: the plain versions' counters "
                     "at every packet width on the camera check rays")
@@ -3520,6 +4049,20 @@ def main(argv=None) -> int:
     if args.drivers_only:
         scripts = scripts_phase(dev)
         print("run: " + json.dumps({"scripts": scripts,
+                                    "total_s": time.perf_counter() - t_run}))
+        print(f"card: {card_line()}")
+        return 0
+
+    if args.chunks_only:
+        flag, big = scene(FLAGSHIP_CLUTTER), scene(CLUTTER_102K)
+        root, bake = chunks_dataset(dev, args.seed)
+        chunks = chunks_phase(
+            dev, args.seed, (("flagship", "trace_union", flag),
+                             ("clutter102k", "trace_paired_streamed", big)),
+            root, bake)
+        for d in (STAGE_DIR, CHUNK_DIR):
+            shutil.rmtree(d, ignore_errors=True)
+        print("run: " + json.dumps({"chunks": chunks,
                                     "total_s": time.perf_counter() - t_run}))
         print(f"card: {card_line()}")
         return 0
@@ -3880,8 +4423,6 @@ def main(argv=None) -> int:
 
     # 16. the data-parallel trainer on phase 11's datasets and bakes
     par_stats = parallel_phase(dev, args.seed)
-    for d in (STAGE_DIR, TOOLS_DIR):
-        shutil.rmtree(d, ignore_errors=True)
     for st in par_stats.values():
         for run in ("no_group", "nccl_1", "gloo_2"):
             add_launches(st[run])
@@ -3892,6 +4433,19 @@ def main(argv=None) -> int:
     scripts = scripts_phase(dev, {"flagship": flag_train,
                                   "clutter102k": big_train})
     add_launches({"launches": read_launches()})
+
+    # 18. one-dispatch chunks: the benchmark loss on both scenes, then
+    # initialize on phase 11's flagship dataset and bake
+    chunks = chunks_phase(
+        dev, args.seed, (("flagship", "trace_union", flag),
+                         ("clutter102k", "trace_paired_streamed", big)),
+        os.path.abspath(os.path.join(STAGE_DIR, "flagship")),
+        os.path.abspath(os.path.join(STAGE_DIR, "flagship_pipeline",
+                                     "bake")),
+        {k: v for k, v in scripts["bench"]["runs"].items()})
+    add_launches(chunks)
+    for d in (STAGE_DIR, TOOLS_DIR, CHUNK_DIR):
+        shutil.rmtree(d, ignore_errors=True)
 
     # 12-13. each kernel on the largest input a main path gave it; the five
     # big-tree kernels on the same 518,400 rays of the 102K train step;
@@ -4060,7 +4614,7 @@ def main(argv=None) -> int:
         "stages": stages, "ref32x2": ref_stats,
         "shading_cache_stages": stage_stats, "pipeline": pipe_stats,
         "relight": relight_stats, "tools": tools_stats,
-        "parallel": par_stats, "scripts": scripts,
+        "parallel": par_stats, "scripts": scripts, "chunks": chunks,
         "five_on_102k_ms": turns, "five_on_102k_hits": agree,
         "packet_sweep_ms": sweep,
         "build_s": build_s, "total_s": time.perf_counter() - t_run}))
@@ -4069,7 +4623,7 @@ def main(argv=None) -> int:
               "main path")
     print(json.dumps({"kernels": rows}))
 
-    # 18. verdict
+    # 19. verdict
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,21 +18,23 @@ JAX benchmark counts it.
 Each call draws a fresh 1e-6 jitter of the ray origins and fresh samples
 from its own generator, and folds every gradient leaf into the scalar it
 returns (sum(g^2) * 1e-20), so that no backward is skipped. The calls go
-through utils.timing.bench_scan: queued back to back between two CUDA
-events, one synchronisation at the end, a warm-up call first. The JAX
-helper runs them inside one jitted lax.scan; the port runs each step
-eagerly, about a thousand launches, and a step's host work is longer than
-its device work, so this time is the host's enqueue rate: what the port
-costs today, not the card's limit. The time of every call is printed
-beside the mean.
+through utils.timing.bench_scan: the `iters` calls of a run captured in
+one CUDA graph, as the JAX helper runs them inside one jitted lax.scan
+and as the trainers run a chunk of steps (train.loop.make_train_chunk),
+after one eager warm-up call and one warm replay; then three timed
+replays, each between two CUDA events. A step is about a thousand
+launches, which the host issues more slowly than the card runs them; a
+replay issues them all at once, so the time is the card's and not the
+host's enqueue rate. The rate is the median replay's.
 
 One JSON line: "metric" (train_fwd_bwd_rays_per_s), "value" (the 398-face
 flagship), "unit", "rays_per_s_102k_faces" and "kernel_mode_102k" (the
 102,014-face scene, the traversal kernel kernel_for picks for it; skipped
 with --small-only), "device" (the card's name and power limit), and
 "runs": per scene measure()'s record but the rate: its faces, kernel,
-calls (the warm-up too), the seconds of each timed call and the traversal
-launches of all of them. The JAX
+calls (every call run: the warm-up, the warm replay's and the timed
+replays'), "s_per_call" (each timed replay's seconds divided by its
+calls) and the traversal launches of all the calls. The JAX
 line's "vs_baseline" is missing: it compares with BASELINE_BENCH.json, a
 TPU number, which is no target of the port, so the twin reads and writes
 no baseline file.
@@ -153,32 +155,29 @@ def grad_step(loss_fn, params):
     return step
 
 
-def launch_counts() -> dict:
-    """Each traversal kernel's launches so far (the wrappers' counters)."""
-    from iris_tpu_torch.geometry import cuda_intersect as ci
-
-    return {name: getattr(ci, name).launches for name in ci.KERNELS}
-
-
 def measure(n_clutter: int, iters: int, device=None) -> dict:
     """Camera samples a second of the benchmark step on the demo scene with
-    n_clutter boxes, timed over `iters` calls after a warm-up call
-    (utils.timing.bench_scan, seed 0), with the scene's faces, the
-    traversal kernel it runs, each call's seconds and the traversal
-    launches of all iters + 1 calls."""
+    n_clutter boxes, `iters` calls captured in one CUDA graph
+    (utils.timing.bench_scan, seed 0; the median of its timed replays),
+    with the scene's faces, the traversal kernel it runs, the calls run
+    (one eager warm-up, then `iters` a replay), each timed replay's
+    seconds a call and the traversal launches of all the calls, as the
+    kernels counted them on the card."""
+    from iris_tpu_torch.geometry.cuda_intersect import launch_counts
     from iris_tpu_torch.geometry.intersect import kernel_for
 
     tracer, mesh, rays, params, loss_fn = setup(n_clutter, device)
-    before = launch_counts()
+    before = launch_counts(rays.device)
     calls = []
     dt = bench_scan(grad_step(loss_fn, params), 0, iters=iters,
                     device=rays.device, call_times=calls)
-    launched = {k: v - before[k] for k, v in launch_counts().items()
+    launched = {k: v - before[k]
+                for k, v in launch_counts(rays.device).items()
                 if v != before[k]}
     return {"rays_per_s": rays.shape[0] * SPP / dt,
             "faces": int(mesh.n_faces),
             "kernel_mode": kernel_for(tracer).__name__,
-            "calls": iters + 1, "s_per_call": calls,
+            "calls": 1 + iters * (1 + len(calls)), "s_per_call": calls,
             "launches": launched}
 
 

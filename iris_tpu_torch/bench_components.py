@@ -6,12 +6,13 @@ held before it included) and "device" (the card's name and power limit).
 
     python -m iris_tpu_torch.bench_components [--device cuda]
 
-Each component goes through utils.timing.bench_scan: 16 calls queued back
-to back between two CUDA events after a warm-up call, each call with a
-fresh torch.Generator seeded from the component's seed (0 for the
-traversal, 1 for the encode forwards, 2 for their fwd+bwd, 3 and 4 for
-the path tracer's, the seeds of the JAX keys), which draws its inputs
-afresh. Each call returns a scalar that depends on all of its work (a sum
+Each component goes through utils.timing.bench_scan: 16 calls captured
+in one CUDA graph after a warm-up call, one warm replay, then the median
+of three timed replays, each call with a torch.Generator of its own
+seeded from the component's seed (0 for the traversal, 1 for the encode
+forwards, 2 for their fwd+bwd, 3 and 4 for the path tracer's, the seeds
+of the JAX keys), which draws its inputs afresh. Every component is
+captured: nothing in a call reads the card from the host. Each call returns a scalar that depends on all of its work (a sum
 of face ids, of features, of a whole table gradient), as the JAX probes
 do to keep the compiler from dropping it; eager PyTorch drops nothing,
 and the sums keep the calls alike.

@@ -67,6 +67,8 @@ def reflect(wo: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
 
 def luminance(rgb: torch.Tensor) -> torch.Tensor:
     """Rec. 709 luminance (..., 1) of rgb (..., 3)."""
-    w = torch.tensor([0.2126, 0.7152, 0.0722], dtype=rgb.dtype,
-                     device=rgb.device)
+    # filled on the device: a host tensor's copy would stop a graph capture
+    w = torch.empty(3, dtype=rgb.dtype, device=rgb.device)
+    for i, c in enumerate((0.2126, 0.7152, 0.0722)):
+        w.narrow(0, i, 1).fill_(c)
     return torch.sum(rgb * w, dim=-1, keepdim=True)

@@ -3,8 +3,9 @@
 // Built by iris_tpu_torch/geometry/cuda_intersect.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
 //        -shared -Xcompiler -fPIC
-// and called through ctypes. Every entry point launches on the caller's
-// stream, allocates nothing, and returns cudaGetLastError().
+// and called through ctypes. Every traversal entry point launches on the
+// caller's stream, allocates nothing, and returns cudaGetLastError(); each
+// kernel counts its own launches and rays (g_counts).
 //
 // Every kernel computes what its Pallas kernel of
 // iris_tpu/geometry/pallas_intersect.py computes: per ray, the closest hit
@@ -75,6 +76,24 @@ constexpr int kPairPacket = 32;
 // 128-float row, pallas_intersect.py:1055-1099)
 constexpr int kSlot4 = 16;
 constexpr unsigned kFullMask = 0xffffffffu;
+
+// What each kernel has run, counted by the kernel itself: thread 0 of a
+// launch's first block adds 1 and the launch's n_rays to its kernel's row,
+// so a launch replayed from a CUDA graph counts when it runs, as an eager
+// one does. Rows in the order of cuda_intersect.py's KERNELS; read and
+// cleared by iris_read_counts and iris_reset_counts.
+enum CountSlot {
+  kCountUnion, kCountStreamed, kCountOrdered, kCountPaired,
+  kCountPairedStreamed, kCountDense, kCountDenseStreamed, kCountSlots
+};
+__device__ unsigned long long g_counts[kCountSlots][2];  // {launches, rays}
+
+__device__ __forceinline__ void count_launch(CountSlot slot, int n_rays) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    atomicAdd(&g_counts[slot][0], 1ULL);
+    atomicAdd(&g_counts[slot][1], static_cast<unsigned long long>(n_rays));
+  }
+}
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz;
@@ -301,6 +320,7 @@ __global__ void __launch_bounds__(kWalkThreads) trace_union_kernel(
     const float* __restrict__ orig, const float* __restrict__ dirs,
     int n_rays, float* __restrict__ t_out, float* __restrict__ u_out,
     float* __restrict__ v_out, int* __restrict__ f_out) {
+  count_launch(kCountUnion, n_rays);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i - static_cast<int>(threadIdx.x & 31) >= n_rays) return;  // warp
   const bool live = i < n_rays;
@@ -436,6 +456,7 @@ __global__ void __launch_bounds__(kWalkThreads) trace_paired_kernel(
     const float* __restrict__ orig, const float* __restrict__ dirs,
     int n_rays, float* __restrict__ t_out, float* __restrict__ u_out,
     float* __restrict__ v_out, int* __restrict__ f_out) {
+  count_launch(kCountPaired, n_rays);
   pair_walk<kRow4, kRow4, L>(pairs, n_pairs, leaves, n_leaf_rows,
                              stack_depth, orig, dirs, n_rays, t_out, u_out,
                              v_out, f_out);
@@ -448,6 +469,7 @@ __global__ void __launch_bounds__(kWalkThreads) trace_dense_kernel(
     const float* __restrict__ orig, const float* __restrict__ dirs,
     int n_rays, float* __restrict__ t_out, float* __restrict__ u_out,
     float* __restrict__ v_out, int* __restrict__ f_out) {
+  count_launch(kCountDense, n_rays);
   pair_walk<kPair4, kSlot4, L>(pairs, n_pairs, leaves, n_leaf_rows,
                                stack_depth, orig, dirs, n_rays, t_out, u_out,
                                v_out, f_out);
@@ -506,6 +528,7 @@ __global__ void __launch_bounds__(kWalkThreads) trace_ordered_kernel(
     const float* __restrict__ dirs, int n_rays, float* __restrict__ t_out,
     float* __restrict__ u_out, float* __restrict__ v_out,
     int* __restrict__ f_out) {
+  count_launch(kCountOrdered, n_rays);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i - static_cast<int>(threadIdx.x & 31) >= n_rays) return;  // warp
   const bool live = i < n_rays;
@@ -878,6 +901,7 @@ __global__ void __launch_bounds__(kPacketWarps * 32)
     const float* __restrict__ dirs, int n_rays, float* __restrict__ t_out,
     float* __restrict__ u_out, float* __restrict__ v_out,
     int* __restrict__ f_out) {
+  count_launch(kCountPairedStreamed, n_rays);
   packet_pair_walk<W, 0>(pairs16, n_pairs, leaves, n_leaf_rows, leaf_size,
                          stack_depth, orig, dirs, n_rays, t_out, u_out, v_out,
                          f_out);
@@ -896,6 +920,7 @@ __global__ void __launch_bounds__(kPacketWarps * 32)
     const float* __restrict__ dirs, int n_rays, float* __restrict__ t_out,
     float* __restrict__ u_out, float* __restrict__ v_out,
     int* __restrict__ f_out) {
+  count_launch(kCountDenseStreamed, n_rays);
   packet_pair_walk<W, kSlot4>(pairs16, n_pairs, leaves, n_leaf_rows,
                               leaf_size, stack_depth, orig, dirs, n_rays,
                               t_out, u_out, v_out, f_out);
@@ -960,6 +985,7 @@ __global__ void __launch_bounds__(kPacketWarps * 32) trace_streamed_kernel(
     const float* __restrict__ orig, const float* __restrict__ dirs,
     int n_rays, float* __restrict__ t_out, float* __restrict__ u_out,
     float* __restrict__ v_out, int* __restrict__ f_out) {
+  count_launch(kCountStreamed, n_rays);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int first = blockIdx.x * blockDim.x + warp * 32;
@@ -1200,6 +1226,27 @@ int launch_pair_walk(WalkKernel kernel, const void* pairs, int n_pairs,
 extern "C" {
 
 int iris_paired_stack_cap() { return kStackCap; }
+
+// {launches, rays} of each kernel on the current device since the library
+// was loaded or last reset (g_counts), into out[2 * kCountSlots], once the
+// device has finished all its work. 0, or a CUDA error.
+int iris_read_counts(unsigned long long* out) {
+  cudaError_t rc = cudaDeviceSynchronize();
+  if (rc == cudaSuccess) rc = cudaMemcpyFromSymbol(out, g_counts,
+                                                   sizeof(g_counts));
+  return static_cast<int>(rc);
+}
+
+// Zero g_counts on the current device once it has finished all its work.
+int iris_reset_counts() {
+  static const unsigned long long zeros[kCountSlots][2] = {};
+  cudaError_t rc = cudaDeviceSynchronize();
+  if (rc == cudaSuccess) rc = cudaMemcpyToSymbol(g_counts, zeros,
+                                                 sizeof(zeros));
+  return static_cast<int>(rc);
+}
+
+int iris_count_slots() { return kCountSlots; }
 
 // nodes: the (N, 8) rows; tris: the (P, 12) rows, P >= leaf_size.
 int iris_trace_union(const void* nodes, int n_nodes, const void* tris,

@@ -68,8 +68,11 @@ not carry over: on the card every call launches a kernel.
 A CUDA tensor launches the kernel, or raises: nothing catches a build or
 launch error to fall back, and no environment switch swaps kernels. A CPU
 tensor takes the plain version, which walks the same arrays in the same
-visiting order. Each wrapper counts its launches in a plain integer
-attribute (trace_union.launches, ...; KERNELS lists the wrappers' names).
+visiting order. Each kernel counts its own launches and rays on the card
+(thread 0 of a launch's first block), so a launch recorded into a CUDA
+graph counts at each replay, when it runs, and a capture, which runs
+nothing, counts nothing; kernel_counts() and launch_counts() read the
+counts by wrapper name (KERNELS), reset_kernel_counts() clears them.
 
 The kernels are built at first use with nvcc for sm_90a into
 iris_tpu_torch/build/ (plain C ABI, loaded with ctypes).
@@ -77,6 +80,7 @@ iris_tpu_torch/build/ (plain C ABI, loaded with ctypes).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -207,6 +211,17 @@ def get_lib() -> ctypes.CDLL:
                                                ctypes.POINTER(i32)]
             lib.iris_walk_config.restype = i32
             lib.iris_walk_config.argtypes = [i32, i32, ctypes.POINTER(i32)]
+            lib.iris_read_counts.restype = i32
+            lib.iris_read_counts.argtypes = [
+                ctypes.POINTER(ctypes.c_ulonglong)]
+            lib.iris_reset_counts.restype = i32
+            lib.iris_reset_counts.argtypes = []
+            lib.iris_count_slots.restype = i32
+            lib.iris_count_slots.argtypes = []
+            if lib.iris_count_slots() != len(KERNELS):
+                raise RuntimeError(f"{SOURCE} counts "
+                                   f"{lib.iris_count_slots()} kernels, "
+                                   f"KERNELS names {len(KERNELS)}")
             _LIB = lib
         return _LIB
 
@@ -1104,10 +1119,11 @@ def _outputs(b: int, dev):
 def _launch(wrapper, arrays: dict, head: tuple, origins, dirs, hint="",
             width: int | None = None):
     """Check the inputs, launch the wrapper's kernel (the C function
-    iris_<wrapper name>) on the current stream, count the launch and
-    return (t, u, v, face). `arrays` are the two tree arrays by name,
-    `head` the C function's arguments before the rays, `width` a packet
-    walk's packet width (None: the shipped one), passed after the stream."""
+    iris_<wrapper name>, which counts its own launch: kernel_counts) on
+    the current stream and return (t, u, v, face). `arrays` are the two
+    tree arrays by name, `head` the C function's arguments before the
+    rays, `width` a packet walk's packet width (None: the shipped one),
+    passed after the stream."""
     name = wrapper.__name__
     last = (_packet_width(name, width),) if name in _PACKET_KERNELS else ()
     _check_cuda(name, arrays, origins, dirs)
@@ -1121,9 +1137,49 @@ def _launch(wrapper, arrays: dict, head: tuple, origins, dirs, hint="",
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}"
                            + (f" ({hint})" if hint and rc == 1 else ""))
-    if b:   # the C entries launch nothing for zero rays
-        wrapper.launches += 1
     return t, u, v, face
+
+
+def _on_card(device):
+    """A block run with `device` current (None: the current card)."""
+    return (contextlib.nullcontext() if device is None
+            else torch.cuda.device(device))
+
+
+def kernel_counts(device=None) -> dict[str, tuple[int, int]]:
+    """{wrapper name: (launches, rays)} of each kernel on `device` (the
+    current card by default) since the library was loaded or
+    reset_kernel_counts() last ran, as the kernels counted them on the card
+    (a zero-ray call launches nothing). Waits for the card to finish its
+    work. All zero for a CPU device, and in a process that has launched no
+    kernel (the library is not loaded)."""
+    if _LIB is None or (device is not None
+                        and torch.device(device).type != "cuda"):
+        return {name: (0, 0) for name in KERNELS}
+    out = (ctypes.c_ulonglong * (2 * len(KERNELS)))()
+    with _on_card(device):
+        rc = _LIB.iris_read_counts(out)
+    if rc != 0:
+        raise RuntimeError(f"reading the kernels' counts: CUDA error {rc}")
+    return {name: (out[2 * i], out[2 * i + 1])
+            for i, name in enumerate(KERNELS)}
+
+
+def launch_counts(device=None) -> dict[str, int]:
+    """{wrapper name: launches} (kernel_counts)."""
+    return {name: n for name, (n, _) in kernel_counts(device).items()}
+
+
+def reset_kernel_counts(device=None) -> None:
+    """Zero the kernels' counts on `device` (the current card by
+    default), once it has finished its work."""
+    if _LIB is None or (device is not None
+                        and torch.device(device).type != "cuda"):
+        return
+    with _on_card(device):
+        rc = _LIB.iris_reset_counts()
+    if rc != 0:
+        raise RuntimeError(f"resetting the kernels' counts: CUDA error {rc}")
 
 
 def walk_stack_depth(tracer: Tracer) -> int:
@@ -1297,8 +1353,3 @@ def trace_dense_streamed(tracer: Tracer, origins: torch.Tensor,
                                           auto_stack_depth(tracer))),
         origins, dirs, hint=_WINDOW_HINT.format(tracer.leaf_size),
         width=width)
-
-
-for _name in KERNELS:
-    globals()[_name].launches = 0
-del _name

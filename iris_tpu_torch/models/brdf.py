@@ -93,7 +93,10 @@ def eval_specular(wi, wo, normal, roughness):
 def sample_specular(sample2, wo, normal, roughness):
     """Sample the GGX lobe; weights are brdf/pdf for the two Fresnel
     terms. roughness: a scalar, (B,) or (B, 1)."""
-    roughness = torch.as_tensor(roughness, dtype=wo.dtype, device=wo.device)
+    if not isinstance(roughness, torch.Tensor):     # filled on the device
+        roughness = torch.full((), float(roughness), dtype=wo.dtype,
+                               device=wo.device)
+    roughness = roughness.to(dtype=wo.dtype, device=wo.device)
     if roughness.dim() <= 1:
         roughness = roughness.reshape(-1, 1)
     roughness = roughness.expand(wo.shape[0], 1)

@@ -29,18 +29,25 @@ leaves to XLA, so plain PyTorch is their port. Every scatter of a backward
 is a segment sum whose order the indices fix (core/segment.py), so a
 training step gives the same gradient bits twice on the card, where
 `index_add_` would add with atomics. Nothing in the encode reads the
-device back: level blocks and phases are host integers.
+device back, and nothing copies from the host once a grid's level
+constants lie on the device (_level_constants): the level-block phases
+are (1,) int64 tensors drawn on the device, and the level blocks they
+pick are taken by device indices (index_select, index_copy_), where the
+JAX package takes them by dynamic_slice. An encode can therefore be
+captured in a CUDA graph (utils/graphs.py), each replay drawing its own
+phases.
 
 Randomness is explicit. The stochastic estimators draw from a
 torch.Generator, or take a `samples` dict that overrides every draw:
-"u3" (3, B*L_eff) corner uniforms, "phase" and "fphase" (ints) the
-level-block phases of the backward and forward subsampling. The parity
-tests replay the JAX package's key stream into that dict.
+"u3" (3, B*L_eff) corner uniforms, "phase" and "fphase" (ints or (1,)
+integer tensors) the level-block phases of the backward and forward
+subsampling. The parity tests replay the JAX package's key stream into
+that dict.
 """
 
 from __future__ import annotations
 
-import random
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -180,62 +187,77 @@ def _lookup_packed_impl(table, idxs, weights, block):
     return torch.stack([acc0, acc1], 0)
 
 
+def _phase_index(phase, device) -> torch.Tensor:
+    """A level-block phase as the (1,) int64 device index that selects it:
+    a tensor drawn on the device stays there, a host integer (a replayed
+    JAX draw, a test's phase) is filled in on the device, not copied."""
+    if isinstance(phase, torch.Tensor):
+        return phase.reshape(1).to(device=device, dtype=torch.int64)
+    return torch.full((1,), int(phase), dtype=torch.int64, device=device)
+
+
+def _take_phase(a, b, bwd_k, stride, phase):
+    """The phase column of the strided level blocks: a (b*bwd_k*stride,
+    ...) flat array viewed (b, bwd_k, stride, ...), index `phase` of axis
+    2, back to (b*bwd_k, ...)."""
+    tail = tuple(a.shape[1:])
+    return a.reshape((b, bwd_k, stride) + tail).index_select(2, phase) \
+        .reshape((b * bwd_k,) + tail)
+
+
 def _scatter_chosen(g, chosen_idx, phase, n_features, block, tsize,
-                    levels=0, bwd_k=0, tbl=0, compact=False,
-                    level_ids=None):
+                    levels=0, bwd_k=0, tbl=0, compact=False):
     """(F, M) cotangent -> flat (tsize,) = (F*block,) table cotangent by
     ONE segment sum of every feature at the sampled corner
     (hashgrid.py:272-324).
 
     With 0 < bwd_k < levels: strided level-block subsampling. Flat
-    m = q*levels + lvl with lvl = j*stride + r; keep r == phase, scale by
-    stride. With `compact`, tbl < block and at most 32 (slot, feature)
-    pairs: each kept level's cotangents are scattered with local indices
-    into that (feature, level)'s own (tbl,) block of the cotangent (every
-    index of one slot column shares a level block); otherwise one scatter
-    per feature over the whole table. level_ids names the level of each of
-    the `levels` columns (default 0..levels-1; the encode passes the
-    forward-sampled levels), so a slot's block is a host integer. All
-    slots share one segment sum."""
-    cols = [g[j] for j in range(g.shape[0])]
+    m = q*levels + lvl with lvl = j*stride + r; keep r == phase (an int
+    or a (1,) device tensor), scale by stride. With `compact`, tbl <
+    block and at most 32 (slot, feature) pairs: each kept level's
+    cotangents are scattered with local indices into that (feature,
+    level)'s own (tbl,) block of the cotangent; otherwise one scatter per
+    feature over the whole table. Every index of one slot column shares a
+    level block, so a slot's block is its first index // tbl, read on the
+    device as the JAX package reads it (idx2[0, s] // tbl), and the slots'
+    sums are placed by one index_copy_. All slots share one segment
+    sum."""
+    cols = torch.stack([g[j] for j in range(g.shape[0])], 1)
     k_slots = levels or 1
-    stride = 1
     if bwd_k and levels and bwd_k < levels:
         stride = levels // bwd_k
         b = chosen_idx.shape[0] // levels
-        chosen_idx = chosen_idx.reshape(b, bwd_k, stride)[:, :, phase] \
-            .reshape(b * bwd_k)
-        cols = [c.reshape(b, bwd_k, stride)[:, :, phase].reshape(b * bwd_k)
-                * float(stride) for c in cols]
+        ph = _phase_index(phase, g.device)
+        chosen_idx = _take_phase(chosen_idx, b, bwd_k, stride, ph)
+        cols = _take_phase(cols, b, bwd_k, stride, ph) * float(stride)
         k_slots = bwd_k
-    if not (compact and 0 < tbl < block and k_slots * len(cols) <= 32):
+    nf = cols.shape[1]
+    if not (compact and 0 < tbl < block and k_slots * nf <= 32):
         # (block, F) sums, feature-major as the table
-        return segment_sum(torch.stack(cols, 1), chosen_idx, block) \
-            .t().reshape(tsize)
-    acc = torch.zeros(tsize, dtype=cols[0].dtype, device=cols[0].device)
-    if level_ids is None:
-        level_ids = range(levels)
+        return segment_sum(cols, chosen_idx, block).t().reshape(tsize)
+    acc = torch.zeros(tsize, dtype=cols.dtype, device=cols.device)
     b = chosen_idx.shape[0] // k_slots
+    if b == 0:
+        return acc
+    idx2 = chosen_idx.reshape(b, k_slots)
     # every slot's local indices in one sum, slot s at [s*tbl, (s+1)*tbl)
-    slot_key = (chosen_idx.reshape(b, k_slots) & (tbl - 1)) + torch.arange(
+    slot_key = (idx2 & (tbl - 1)) + torch.arange(
         k_slots, device=chosen_idx.device) * tbl
-    sums = segment_sum(torch.stack(cols, 1), slot_key.reshape(-1),
-                       k_slots * tbl).reshape(k_slots, tbl, len(cols))
-    for s in range(k_slots):
-        base = level_ids[s * stride + (phase if stride > 1 else 0)] * tbl
-        for j in range(len(cols)):
-            lo = base + j * block
-            acc[lo:lo + tbl] += sums[s, :, j]
+    sums = segment_sum(cols, slot_key.reshape(-1),
+                       k_slots * tbl).reshape(k_slots, tbl, nf)
+    acc.view(nf, block // tbl, tbl).index_copy_(
+        1, idx2[0] // tbl, sums.permute(2, 0, 1))
     return acc
 
 
 def _stoch_gather_impl(table, chosen_idx, n_features, block, packed,
-                       levels=0, tbl=0, fwd_block=False, level_ids=None):
+                       levels=0, tbl=0, fwd_block=False):
     """(F, M): every feature at the one sampled corner
-    (hashgrid.py:361-393). Packed with fwd_block: one gather per level
-    block with local indices (flat m = q*levels + lvl, so every column of
-    the (B, levels) view shares a level block), bit-equal to the global
-    gather."""
+    (hashgrid.py:361-393). Packed with fwd_block: each column of the
+    (B, levels) view (flat m = q*levels + lvl: a column shares a level
+    block) is read from its (tbl,) level block with local indices, the
+    block found on the device from the column's first index, as the JAX
+    package finds it; bit-equal to the global gather."""
     m = chosen_idx.shape[0]
     if not packed:
         return torch.stack([table[chosen_idx + j * block]
@@ -243,14 +265,10 @@ def _stoch_gather_impl(table, chosen_idx, n_features, block, packed,
     packed_t = _pack_bf16(table, block)
     if (fwd_block and levels and 0 < tbl < block and levels <= 32
             and m % levels == 0):
-        if level_ids is None:
-            level_ids = range(levels)
         idx2 = chosen_idx.reshape(m // levels, levels)
-        outs = []
-        for s in range(levels):
-            base = level_ids[s] * tbl
-            outs.append(packed_t[base:base + tbl][idx2[:, s] - base])
-        words = torch.stack(outs, 1).reshape(-1)
+        lvl = idx2[:1] // tbl                               # (1, levels)
+        words = packed_t.view(block // tbl, tbl)[lvl, idx2 - lvl * tbl] \
+            .reshape(-1)
     else:
         words = packed_t[chosen_idx]
     return torch.stack(_unpack_bf16(words), 0)
@@ -289,10 +307,10 @@ class _LookupStochBwd(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table, idxs, weights, chosen_idx, phase, n_features,
-                block, packed, levels, bwd_k, tbl, compact, level_ids):
+                block, packed, levels, bwd_k, tbl, compact):
         ctx.save_for_backward(chosen_idx)
         ctx.args = (phase, n_features, block, table.shape[0], levels, bwd_k,
-                    tbl, compact, level_ids)
+                    tbl, compact)
         if packed:
             return _lookup_packed_impl(table, idxs, weights, block)
         return _lookup_impl(table, idxs, weights, n_features, block)
@@ -300,7 +318,7 @@ class _LookupStochBwd(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (chosen_idx,) = ctx.saved_tensors
-        return (_scatter_chosen(g, chosen_idx, *ctx.args),) + (None,) * 12
+        return (_scatter_chosen(g, chosen_idx, *ctx.args),) + (None,) * 11
 
 
 class _StochLookup(torch.autograd.Function):
@@ -309,17 +327,17 @@ class _StochLookup(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table, chosen_idx, phase, n_features, block, packed,
-                levels, bwd_k, tbl, compact, fwd_block, level_ids):
+                levels, bwd_k, tbl, compact, fwd_block):
         ctx.save_for_backward(chosen_idx)
         ctx.args = (phase, n_features, block, table.shape[0], levels, bwd_k,
-                    tbl, compact, level_ids)
+                    tbl, compact)
         return _stoch_gather_impl(table, chosen_idx, n_features, block,
-                                  packed, levels, tbl, fwd_block, level_ids)
+                                  packed, levels, tbl, fwd_block)
 
     @staticmethod
     def backward(ctx, g):
         (chosen_idx,) = ctx.saved_tensors
-        return (_scatter_chosen(g, chosen_idx, *ctx.args),) + (None,) * 11
+        return (_scatter_chosen(g, chosen_idx, *ctx.args),) + (None,) * 10
 
 
 def weighted_lookup(table, idxs, weights, n_features: int, block: int):
@@ -332,21 +350,17 @@ def weighted_lookup_packed(table, idxs, weights, block: int):
 
 
 def lookup_stoch_bwd(table, idxs, weights, chosen_idx, phase, n_features,
-                     block, packed, levels, bwd_k, tbl=0, compact=False,
-                     level_ids=None):
+                     block, packed, levels, bwd_k, tbl=0, compact=False):
     return _LookupStochBwd.apply(
-        table, idxs, weights, chosen_idx, int(phase), n_features, block,
-        packed, levels, bwd_k, tbl, compact,
-        None if level_ids is None else tuple(int(v) for v in level_ids))
+        table, idxs, weights, chosen_idx, phase, n_features, block, packed,
+        levels, bwd_k, tbl, compact)
 
 
 def stoch_lookup(table, chosen_idx, phase, n_features, block, packed, levels,
-                 bwd_k, tbl=0, compact=False, fwd_block=False,
-                 level_ids=None):
+                 bwd_k, tbl=0, compact=False, fwd_block=False):
     return _StochLookup.apply(
-        table, chosen_idx, int(phase), n_features, block, packed, levels,
-        bwd_k, tbl, compact, fwd_block,
-        None if level_ids is None else tuple(int(v) for v in level_ids))
+        table, chosen_idx, phase, n_features, block, packed, levels, bwd_k,
+        tbl, compact, fwd_block)
 
 
 # ---------------------------------------------------------- row-mode lookups
@@ -357,21 +371,21 @@ def _row_scatter_chosen(g_rows, chosen_idx, phase, lt, levels, bwd_k,
     at the sampled corner rows (hashgrid.py:426-472).
 
     With 0 < bwd_k < levels: strided level-block subsampling. Flat
-    m = q*levels + lvl with lvl = j*stride + r; keep r == phase and scale
-    by stride. With `compact` ("bfloat16" or "float32"), tsize < lt and at
-    most 16 slots: each kept level's rows go into a (tsize, F) buffer of
-    that dtype (every index of one slot column shares a level block), all
-    slots in one segment sum, and the buffers are placed into the full
-    cotangent; otherwise one segment sum into the full table."""
+    m = q*levels + lvl with lvl = j*stride + r; keep r == phase (an int or
+    a (1,) device tensor) and scale by stride. With `compact` ("bfloat16"
+    or "float32"), tsize < lt and at most 16 slots: each kept level's rows
+    go into a (tsize, F) buffer of that dtype (every index of one slot
+    column shares a level block), all slots in one segment sum, and the
+    buffers are placed into the full cotangent; otherwise one segment sum
+    into the full table."""
     f = g_rows.shape[1]
     k_slots = levels or 1
     if bwd_k and levels and bwd_k < levels:
         stride = levels // bwd_k
         b = chosen_idx.shape[0] // levels
-        chosen_idx = chosen_idx.reshape(b, bwd_k, stride)[:, :, phase] \
-            .reshape(b * bwd_k)
-        g_rows = g_rows.reshape(b, bwd_k, stride, f)[:, :, phase] \
-            .reshape(b * bwd_k, f) * float(stride)
+        ph = _phase_index(phase, g_rows.device)
+        chosen_idx = _take_phase(chosen_idx, b, bwd_k, stride, ph)
+        g_rows = _take_phase(g_rows, b, bwd_k, stride, ph) * float(stride)
         k_slots = bwd_k
     if not (compact and 0 < tsize < lt and k_slots <= 16):
         return segment_sum(g_rows, chosen_idx, lt)
@@ -473,29 +487,38 @@ def row_weighted(rows, idxs, weights):
 
 def row_stoch_bwd(rows, idxs, weights, chosen_idx, phase, levels, bwd_k,
                   tsize=0, compact=None, gdtype=None):
-    return _RowStochBwd.apply(rows, idxs, weights, chosen_idx, int(phase),
+    return _RowStochBwd.apply(rows, idxs, weights, chosen_idx, phase,
                               levels, bwd_k, tsize, compact, gdtype)
 
 
 def row_stoch(rows, chosen_idx, phase, levels, bwd_k, tsize=0, compact=None,
               gdtype=None):
-    return _RowStoch.apply(rows, chosen_idx, int(phase), levels, bwd_k,
-                           tsize, compact, gdtype)
+    return _RowStoch.apply(rows, chosen_idx, phase, levels, bwd_k, tsize,
+                           compact, gdtype)
 
 
-def _draw_phase(gen, samples, name, n) -> int:
-    """One level-block phase in [0, n), as a host integer (it slices numpy
-    arrays and reshaped views) drawn without reading the device: a CPU
-    generator draws it directly; a CUDA generator's seed and Philox offset
-    are host-side counters, and the phase is drawn from them (the offset
-    moves on with every corner draw, so each step gets a fresh phase; the
-    name keeps the forward and backward phases of one call apart)."""
+def _draw_phase(gen, samples, name, n, dev) -> torch.Tensor:
+    """One level-block phase in [0, n) as a (1,) int64 tensor on `dev`,
+    drawn on the generator's device (jax.random.randint at hashgrid.py:621
+    and :671): it selects level blocks by device index and is never read
+    by the host, so a captured step draws a fresh phase at every replay.
+    samples[name] (an int or a tensor) replaces the draw."""
     if samples is not None:
-        return int(samples[name])
-    if gen.device.type == "cpu":
-        return int(torch.randint(0, n, (1,), generator=gen))
-    return random.Random(
-        f"{name}:{gen.initial_seed()}:{gen.get_offset()}").randrange(n)
+        return _phase_index(samples[name], dev)
+    return torch.randint(0, n, (1,), generator=gen, device=gen.device).to(dev)
+
+
+@functools.lru_cache(maxsize=32)
+def _level_constants(cfg: HashGridConfig, dev: torch.device):
+    """(resolution f32, resolution + 1 i64, dense-level mask, level ids
+    i64), each (L,) on `dev`: copied from the host once per grid and
+    device, on the first encode (an eager call, before any capture), and
+    shared, never written, by every encode after it."""
+    res = cfg.resolutions()
+    return (torch.as_tensor(res, dtype=torch.float32, device=dev),
+            torch.as_tensor(res + 1, dtype=torch.int64, device=dev),
+            torch.as_tensor((res + 1) ** 3 <= cfg.table_size, device=dev),
+            torch.arange(cfg.n_levels, dtype=torch.int64, device=dev))
 
 
 def hashgrid_encode(table: torch.Tensor, cfg: HashGridConfig,
@@ -528,8 +551,9 @@ def hashgrid_encode(table: torch.Tensor, cfg: HashGridConfig,
     keyed = gen is not None or samples is not None
     stoch = keyed and (cfg.stochastic_bwd or cfg.stochastic_fwd)
 
-    res_np = cfg.resolutions()
-    level_np = np.arange(l, dtype=np.int64)
+    # int64 index math: the low log2(T) bits of the products and XORs are
+    # those of the JAX package's uint32 math, and masks keep only those
+    res, res_u, dense_ok, level_ids = _level_constants(cfg, dev)
     if cfg.fwd_level_sample and keyed and not cfg.stochastic_fwd:
         raise ValueError("fwd_level_sample requires stochastic_fwd")
     fwd_k = cfg.fwd_level_sample if (stoch and cfg.stochastic_fwd) else 0
@@ -539,22 +563,18 @@ def hashgrid_encode(table: torch.Tensor, cfg: HashGridConfig,
             raise ValueError(
                 f"fwd_level_sample={fwd_k} must divide n_levels={l}")
         fstride = l // fwd_k
-        fphase = _draw_phase(gen, samples, "fphase", fstride)
-        # slice every per-level array to the sampled levels first, so the
-        # index math, corner sampling and gather all shrink by the stride
-        res_np = res_np.reshape(fwd_k, fstride)[:, fphase]
-        level_np = level_np.reshape(fwd_k, fstride)[:, fphase]
+        fphase = _draw_phase(gen, samples, "fphase", fstride, dev)
+        # take every per-level array down to the sampled levels first, so
+        # the index math, corner sampling and gather all shrink by the
+        # stride
+        res, res_u, dense_ok, level_ids = (
+            a.reshape(fwd_k, fstride).index_select(1, fphase).reshape(fwd_k)
+            for a in (res, res_u, dense_ok, level_ids))
         l_eff = fwd_k
     else:
         fwd_k = 0
         l_eff = l
-
-    res = torch.as_tensor(res_np, dtype=torch.float32, device=dev)
-    # int64 index math: the low log2(T) bits of the products and XORs are
-    # those of the JAX package's uint32 math, and masks keep only those
-    res_u = torch.as_tensor(res_np + 1, dtype=torch.int64, device=dev)
-    dense_ok = torch.as_tensor((res_np + 1) ** 3 <= t, device=dev)
-    level_off = torch.as_tensor(level_np * t, dtype=torch.int64, device=dev)
+    level_off = level_ids * t
 
     x = torch.clamp(x, 0.0, 1.0)
     # flat (M,) = (B*L_eff,) arrays: m = query*L_eff + level
@@ -586,7 +606,7 @@ def hashgrid_encode(table: torch.Tensor, cfg: HashGridConfig,
             raise ValueError(
                 f"bwd_level_sample={bwd_k} must divide the "
                 f"{'fwd-sampled ' if fwd_k else ''}level count {l_eff}")
-        phase = _draw_phase(gen, samples, "phase", l_eff // bwd_k)
+        phase = _draw_phase(gen, samples, "phase", l_eff // bwd_k, dev)
     else:
         bwd_k = 0
 
@@ -606,7 +626,7 @@ def hashgrid_encode(table: torch.Tensor, cfg: HashGridConfig,
     fdim = cfg.n_features
     if not cfg.row_gather:
         return _encode_flat(table, cfg, b, l, l_eff, fwd_k, fphase, bwd_k,
-                            phase, level_np, stoch, chosen_idx,
+                            phase, stoch, chosen_idx,
                             lambda: _corners(corner_index, cell, frac))
     compact = cfg.bwd_scatter_dtype if cfg.bwd_compact_scatter else None
     if stoch and cfg.stochastic_fwd:
@@ -623,8 +643,8 @@ def hashgrid_encode(table: torch.Tensor, cfg: HashGridConfig,
         # kept levels back into the full (B, L) layout, scaled by the
         # stride (inverse dropout); the rest zero
         z = torch.zeros((b, fwd_k, l // fwd_k, fdim), dtype=fr.dtype,
-                        device=dev)
-        z[:, :, fphase] = (fr * float(l // fwd_k)).reshape(b, fwd_k, fdim)
+                        device=dev).index_copy(
+            2, fphase, (fr * float(l // fwd_k)).reshape(b, fwd_k, 1, fdim))
         return z.reshape(b, l * fdim)
     return fr.reshape(b, l_eff * fdim)
 
@@ -643,7 +663,7 @@ def _corners(corner_index, cell, frac):
 
 
 def _encode_flat(table, cfg, b, l, l_eff, fwd_k, fphase, bwd_k, phase,
-                 level_np, stoch, chosen_idx, corners):
+                 stoch, chosen_idx, corners):
     """The lookups and output order of the flat and packed modes
     (hashgrid.py:693-708, 739-749, 762-780)."""
     t = cfg.table_size
@@ -655,13 +675,13 @@ def _encode_flat(table, cfg, b, l, l_eff, fwd_k, fphase, bwd_k, phase,
         # sampled corner; the 8-corner arrays are never built
         feats = stoch_lookup(table, chosen_idx, phase, nf, blk, packed,
                              l_eff, bwd_k, t, cfg.bwd_compact_scatter,
-                             cfg.fwd_block_gather, level_np)
+                             cfg.fwd_block_gather)
     else:
         idxs, weights = corners()
         if stoch and cfg.stochastic_bwd:
             feats = lookup_stoch_bwd(table, idxs, weights, chosen_idx, phase,
                                      nf, blk, packed, l_eff, bwd_k, t,
-                                     cfg.bwd_compact_scatter, level_np)
+                                     cfg.bwd_compact_scatter)
         elif packed:
             feats = weighted_lookup_packed(table, idxs, weights, blk)
         else:
@@ -671,7 +691,7 @@ def _encode_flat(table, cfg, b, l, l_eff, fwd_k, fphase, bwd_k, phase,
         # each feature's kept levels back into its (B, L) columns, scaled
         # by the stride (inverse dropout); the rest zero
         z = torch.zeros((nf, b, fwd_k, l // fwd_k), dtype=feats.dtype,
-                        device=feats.device)
-        z[:, :, :, fphase] = (feats * float(l // fwd_k)).reshape(nf, b, fwd_k)
+                        device=feats.device).index_copy(
+            3, fphase, (feats * float(l // fwd_k)).reshape(nf, b, fwd_k, 1))
         return z.reshape(nf, b, l).permute(1, 0, 2).reshape(b, nf * l)
     return feats.reshape(nf, b, l).permute(1, 0, 2).reshape(b, nf * l)

@@ -97,7 +97,9 @@ def _nee_and_bounce(gen, tracer: Tracer, em: Emitter, mat_fn: MatFn,
     # spatially incoherent, so ray_intersect may sort it (big trees).
     act2 = torch.cat([active, active], 0)[:, None]
     o2 = torch.where(act2, o2, 1e7)
-    d2 = torch.where(act2, d2, torch.tensor([0.0, 0.0, 1.0], device=dev))
+    park = torch.zeros(3, device=dev)     # +z, filled on the device
+    park.narrow(0, 2, 1).fill_(1.0)
+    d2 = torch.where(act2, d2, park)
     pos2, nrm2, _, tri2, valid2 = ray_intersect(tracer, o2, d2, sort=True)
     emit_pos, pos_next = pos2[:n], pos2[n:]
     emit_nrm, nrm_next = nrm2[:n], nrm2[n:]

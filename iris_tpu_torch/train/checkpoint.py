@@ -88,7 +88,8 @@ def load_pytree(path: str, device=None):
 
 def opt_state_to_numpy(opt_state: dict) -> dict:
     """The optimizer's and scheduler's state_dicts (moments, step counts,
-    learning rates) as numpy."""
+    learning rates, the schedule's step count: optim.DeviceSchedule) as
+    numpy."""
     return {"opt": to_numpy(opt_state["opt"].state_dict()),
             "sched": to_numpy(opt_state["sched"].state_dict())}
 
@@ -96,9 +97,11 @@ def opt_state_to_numpy(opt_state: dict) -> dict:
 def restore_opt_state(optimizer: Optimizer, params: dict, saved: dict
                       ) -> dict:
     """A live opt_state over `params` from opt_state_to_numpy's dict. The
-    state is handed over on the CPU: load_state_dict moves the moments to
-    their parameters' device and leaves the step counts where a fresh
-    optimizer keeps them."""
+    state is handed over on the CPU: the optimizer's load_state_dict
+    moves the moments and step counts to their parameters' device, and
+    the schedule's load puts its step count back and its learning-rate
+    tensors back into the optimizer's groups, so that a resumed run
+    steps, eagerly or in CUDA graphs, on the uninterrupted run's bits."""
     opt_state = optimizer.init(params)
     opt_state["opt"].load_state_dict(from_numpy(saved["opt"], "cpu"))
     opt_state["sched"].load_state_dict(from_numpy(saved["sched"], "cpu"))

@@ -1,8 +1,11 @@
 """The training step and loop (counterpart of iris_tpu/train/loop.py:
-make_train_step :31-44, TrainerConfig :25-29, run_training :93-199), on
-one device or data-parallel over the ranks of a RankGroup
-(parallel/distributed.py), where the JAX package shards one logical batch
-over a ('data',) mesh.
+make_train_step :31-44, TrainerConfig :25-29, make_train_chunk :55-90,
+run_training :93-199), on one device or data-parallel over the ranks of a
+RankGroup (parallel/distributed.py), where the JAX package shards one
+logical batch over a ('data',) mesh.
+
+On the card a chunk of steps is one CUDA graph replay (make_train_chunk,
+utils/graphs.py), where the JAX package runs it as one lax.scan.
 
 A stage provides loss_fn(params, batch, gen, samples=None) -> (loss, aux);
 a data-parallel run needs it split (train.steps.SplitLoss). An N-rank step
@@ -27,6 +30,7 @@ from iris_tpu_torch.parallel.distributed import (
 )
 from iris_tpu_torch.parallel.sharding import RankGenerator, shard_rows
 from iris_tpu_torch.train.optim import Optimizer, named_leaves
+from iris_tpu_torch.utils.graphs import GraphContext, StaticBatches
 
 
 def value_and_grad(loss_fn: Callable, params: dict, batch: dict, gen,
@@ -101,7 +105,7 @@ def step_generator(seed: int, step: int, device,
     RankGenerator, seeded alike on every rank."""
     gen = (torch.Generator(device=device) if group is None else
            RankGenerator(device, group.rank, group.world_size))
-    gen.manual_seed((int(seed) * _STEP_SEED_MIX + int(step)) % (1 << 63))
+    gen.manual_seed(_step_seed(seed, step))
     return gen
 
 
@@ -120,6 +124,133 @@ def batch_to_device(batch: dict, device) -> dict:
             v = torch.from_numpy(np.ascontiguousarray(v))
         out[k] = v.to(device) if isinstance(v, torch.Tensor) else v
     return out
+
+
+def _step_seed(seed: int, step: int) -> int:
+    return (int(seed) * _STEP_SEED_MIX + int(step)) % (1 << 63)
+
+
+def _stack_aux(auxes: list, device) -> dict:
+    """{name: (K,)} of K steps' aux dicts."""
+    return {k: torch.stack([torch.as_tensor(a[k], device=device)
+                            for a in auxes]) for k in auxes[0]}
+
+
+def make_train_chunk(loss_fn: Callable, optimizer: Optimizer, k_steps: int,
+                     group=None, graphs: GraphContext | None = None):
+    """chunk(params, opt_state, batches, seed, step0, samples_for_step=None)
+    -> (params, opt_state, losses (K,), auxes {name: (K,)}): k_steps
+    optimizer steps, the counterpart of make_train_chunk at loop.py:55-90.
+    `batches` are the chunk's K batch dicts; step j draws from
+    step_generator(seed, step0 + j), so a chunk consumes what K single
+    steps consume. The parameters and optimizer state are updated in
+    place and returned.
+
+    On a CUDA device with no group the chunk is a CUDA graph (utils/
+    graphs.py), replayed: one host-to-device copy of the stacked batches
+    (StaticBatches), the K slot generators reseeded from (seed, step0 +
+    j), one replay. `graphs` is the GraphContext the chunks of a run share
+    (run_training passes one; None: the chunk's own). The context's first
+    chunk runs eagerly on its stream, the warm-up that builds the kernels,
+    Adam's state and cuBLAS's workspace, and wastes no step; a chunk size
+    is captured at its first call after that, and that call and every
+    later one is a replay. The returned losses and auxes are copies, and
+    the replay's bits are the eager steps' bits. A graph is bound to the
+    parameter and optimizer-state tensors it captured: other ones raise.
+
+    On the CPU the steps run eagerly, one after the other, the CPU being
+    the device the caller asked for. With a RankGroup they run eagerly
+    too: the collectives of a gloo group run on the host and cannot be
+    captured. samples_for_step(step) -> dict | None (the parity tests'
+    hook) replaces the draws of eager steps; with a graph it raises."""
+    step_fn = make_train_step(loss_fn, optimizer, group)
+    k_steps = int(k_steps)
+    state = {"ctx": graphs, "graph": None}
+
+    def eager(params, opt_state, batches, seed, step0, samples_for_step):
+        device = _params_device(params)
+        losses, auxes = [], []
+        for j, batch in enumerate(batches):
+            s = step0 + j
+            samples = samples_for_step(s) if samples_for_step else None
+            params, opt_state, loss, aux = step_fn(
+                params, opt_state, batch_to_device(batch, device),
+                step_generator(seed, s, device, group), samples)
+            losses.append(loss)
+            auxes.append(aux or {})
+        return (params, opt_state, torch.stack(losses),
+                _stack_aux(auxes, device))
+
+    def capture(params, opt_state, batches, device, ctx):
+        inputs = StaticBatches(batches, device)
+        gens = [torch.Generator(device=device) for _ in range(k_steps)]
+
+        def body():
+            losses, auxes = [], []
+            for j in range(k_steps):
+                _, _, loss, aux = step_fn(params, opt_state,
+                                          inputs.views[j], gens[j])
+                losses.append(loss)
+                auxes.append(aux or {})
+            return torch.stack(losses), _stack_aux(auxes, device)
+
+        inputs.fill(batches)
+        graph = ctx.capture(body, gens)
+        return {"graph": graph, "inputs": inputs,
+                "bound": [t for _, t in named_leaves(params)],
+                "opt": opt_state["opt"]}
+
+    def chunk(params, opt_state, batches, seed, step0,
+              samples_for_step=None):
+        batches = list(batches)
+        if len(batches) != k_steps:
+            raise ValueError(f"{len(batches)} batches for a chunk of "
+                             f"{k_steps} steps")
+        device = _params_device(params)
+        if device.type != "cuda" or group is not None:
+            return eager(params, opt_state, batches, seed, step0,
+                         samples_for_step)
+        if samples_for_step is not None:
+            raise ValueError(
+                "samples_for_step replaces the draws of eager steps (the "
+                "CPU parity hook); a chunk on the card is a CUDA graph that "
+                "draws from its own generators")
+        ctx = state["ctx"] = state["ctx"] or GraphContext(device)
+        if not ctx.warm:
+            with ctx.on_stream():
+                out = eager(params, opt_state, batches, seed, step0, None)
+            ctx.warm = True
+            return out
+        g = state["graph"]
+        if g is None:
+            g = state["graph"] = capture(params, opt_state, batches, device,
+                                         ctx)
+        else:
+            g["inputs"].fill(batches)
+        leaves = [t for _, t in named_leaves(params)]
+        if (opt_state["opt"] is not g["opt"] or len(leaves) != len(
+                g["bound"]) or any(a is not b
+                                   for a, b in zip(leaves, g["bound"]))):
+            raise ValueError("a captured chunk updates the parameter and "
+                             "optimizer-state tensors it was captured with; "
+                             "make a new chunk for other ones")
+        losses, auxes = g["graph"].replay(
+            [_step_seed(seed, step0 + j) for j in range(k_steps)])
+        return (params, opt_state, losses.clone(),
+                {k: v.clone() for k, v in auxes.items()})
+
+    return chunk
+
+
+def _to_host(losses: torch.Tensor, auxes: dict):
+    """The chunk's losses and auxes on the host in ONE copy (float64 holds
+    every float32, bfloat16 and 32-bit integer exactly), each back in its
+    own dtype."""
+    cols = [losses] + list(auxes.values())
+    flat = torch.cat([c.reshape(-1).to(torch.float64) for c in cols]).cpu()
+    out = [c.to(col.dtype).reshape(col.shape) for c, col in
+           zip(flat.split([col.numel() for col in cols]), cols)]
+    return out[0], dict(zip(auxes, out[1:]))
 
 
 def run_training(loss_fn: Callable, params: dict, batches: Iterable,
@@ -144,16 +275,20 @@ def run_training(loss_fn: Callable, params: dict, batches: Iterable,
 
     chunk_steps > 1 keeps the JAX package's observable meaning
     (loop.py:120-125): that many batches are taken from the iterator at
-    once and that many optimizer steps run before anyone looks; hooks are
-    then called per step with that step's loss and the END-OF-CHUNK
-    parameters, and state_hooks once per chunk at its LAST step index, so
-    a resume never replays updates already applied. The steps of a chunk
-    run eagerly, one after the other, with the same generators and update
-    math as chunk_steps=1; capturing a chunk in a CUDA graph, which is
-    what one lax.scan dispatch buys on the TPU, is not done here.
+    once and run as one chunk (make_train_chunk) before anyone looks;
+    hooks are then called per step with that step's loss and aux (host
+    tensors) and the END-OF-CHUNK parameters, and state_hooks once per
+    chunk at its LAST step index, so a resume never replays updates
+    already applied. On the card a chunk after the first is one CUDA
+    graph replay, as it is one lax.scan dispatch on the TPU: one copy of
+    the stacked batches in, one host synchronisation out (its losses).
+    Every chunk size of the run (the last chunk may be shorter) shares one
+    GraphContext. The generators and update math are chunk_steps=1's, and
+    so are the bits. A chunk of one step is a plain step.
 
     samples_for_step(step) -> dict | None replaces a step's draws (the
-    hook the parity tests replay the JAX package's keys through).
+    hook the parity tests replay the JAX package's keys through); with
+    chunks on the card it raises (make_train_chunk).
 
     group: a RankGroup for a data-parallel run. Every rank passes the same
     `batches` (the same global batch each step, as the JAX trainers feed
@@ -164,7 +299,8 @@ def run_training(loss_fn: Callable, params: dict, batches: Iterable,
     its RankGenerator; replayed samples come at the global batch's
     shape. hooks, state_hooks and log_fn run on rank 0 alone, so
     that no two ranks write one file; the loss and aux they see are the
-    global loss's, the same on every rank.
+    global loss's, the same on every rank. A group's chunks run their
+    steps one by one (make_train_chunk), which the log says once.
 
     Returns params, or (params, opt_state) with return_state=True."""
     if opt_state is None:
@@ -175,6 +311,13 @@ def run_training(loss_fn: Callable, params: dict, batches: Iterable,
         hooks = state_hooks = log_fn = None
     step_fn = make_train_step(loss_fn, optimizer, group)
     device = _params_device(params)
+    chunk_fns: dict = {}
+    graphs = None
+    if group is not None and int(chunk_steps) > 1 and log_fn:
+        log_fn(f"[run_training] data-parallel over {group.world_size} "
+               f"ranks: each chunk of {int(chunk_steps)} runs its steps one "
+               "by one (a group's collectives are not captured in a CUDA "
+               "graph)")
 
     t0 = time.time()
     it = iter(batches)
@@ -182,15 +325,24 @@ def run_training(loss_fn: Callable, params: dict, batches: Iterable,
     while step < n_steps:
         k_chunk = min(max(int(chunk_steps), 1), n_steps - step)
         chunk = [next(it) for _ in range(k_chunk)]
-        results = []
-        for j, batch in enumerate(chunk):
-            s = step + j
-            samples = samples_for_step(s) if samples_for_step else None
+        if k_chunk > 1:
+            if device.type == "cuda" and group is None and graphs is None:
+                graphs = GraphContext(device)
+            if k_chunk not in chunk_fns:
+                chunk_fns[k_chunk] = make_train_chunk(
+                    loss_fn, optimizer, k_chunk, group, graphs)
+            params, opt_state, losses, auxes = chunk_fns[k_chunk](
+                params, opt_state, chunk, seed, step, samples_for_step)
+            losses, auxes = _to_host(losses, auxes)
+            results = [(step + j, losses[j], {k: v[j] for k, v in
+                                              auxes.items()})
+                       for j in range(k_chunk)]
+        else:
+            samples = samples_for_step(step) if samples_for_step else None
             params, opt_state, loss, aux = step_fn(
-                params, opt_state,
-                batch_to_device(batch, device),
-                step_generator(seed, s, device, group), samples)
-            results.append((s, loss, aux))
+                params, opt_state, batch_to_device(chunk[0], device),
+                step_generator(seed, step, device, group), samples)
+            results = [(step, loss, aux)]
         for s, loss, aux in results:
             if hooks:
                 for h in hooks:

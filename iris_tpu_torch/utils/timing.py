@@ -7,9 +7,12 @@ scan, and fetch one scalar at the end. On the card the same aims take
 other means. Each helper here queues its calls back to back between two
 CUDA events and synchronises once, at the end, so that no host round trip
 falls between two calls; each call gets a fresh torch.Generator or a
-fresh input, so that no call times another's result. The names and the
-arguments are the JAX package's, a seed in place of a PRNG key; each
-returns seconds a call.
+fresh input, so that no call times another's result. bench_scan, the
+trainers' yardstick, captures its calls in one CUDA graph (utils/
+graphs.py), as the JAX helper runs them in one scan, so that the host's
+launch rate is out of its clock too. The names and the arguments are
+the JAX package's, a seed in place of a PRNG key; each returns seconds a
+call.
 
 A device time needs the card: the helpers raise on a CPU device, or with
 no card, rather than time the CPU under a device metric's name.
@@ -28,6 +31,7 @@ import torch
 from iris_tpu_torch.device import resolve_device
 
 SPIN_CYCLES = 500_000          # ~0.3 ms of a spin kernel before a timed run
+SCAN_REPLAYS = 3               # bench_scan's timed replays: a spread
 
 
 def _card(device) -> torch.device:
@@ -131,14 +135,42 @@ def bench_chained_keyed(fn, seed: int, iters: int = 8, warmup: int = 2,
 
 def bench_scan(fn, seed: int, iters: int = 16, device=None,
                call_times: list | None = None) -> float:
-    """The JAX helper runs `iters` calls inside one jitted lax.scan, one
-    dispatch and one fetch in all. The card has no scan to compile: the
-    calls queued back to back with one synchronisation at the end are
-    that, so this is bench_chained_keyed after one warm-up call. Where a
-    call's host work (its launches) takes longer than its device work,
-    the queue never fills, and the time is the host's enqueue rate."""
-    return bench_chained_keyed(fn, seed, iters=iters, warmup=1,
-                               device=device, call_times=call_times)
+    """`iters` calls of fn, carry-chained (acc = fn(gen_i) + acc * 1e-12)
+    and captured in ONE CUDA graph, the counterpart of the JAX helper's
+    one jitted lax.scan (timing.py:91-115): one dispatch a run, so that a
+    call's launches cost the host nothing inside the clock. Call i draws
+    from a generator of its own, reseeded seed + i before each replay.
+
+    One eager call (seed + 1000) on the graph's stream warms fn up, the
+    capture follows, one replay runs under the seeds seed + 1000 + i (the
+    JAX helper's fold_in(key, 999) run), and then SCAN_REPLAYS timed
+    replays under seed + i, each between two CUDA events. Returns the
+    median of their seconds a call; with a list as call_times, each
+    timed replay's seconds divided by iters are appended to it. Every
+    call of fn must be capturable: a host read inside it raises."""
+    from iris_tpu_torch.utils.graphs import GraphContext
+
+    dev = _card(device)
+    ctx = GraphContext(dev)
+    with ctx.on_stream():
+        fn(_generator(dev, seed + 1000))
+    ctx.warm = True
+    gens = [_generator(dev, seed + 1000 + i) for i in range(iters)]
+
+    def chained():
+        acc = torch.zeros((), device=dev)
+        for g in gens:
+            acc = fn(g) + acc * 1e-12
+        return acc
+
+    graph = ctx.capture(chained, gens)
+    graph.replay([seed + 1000 + i for i in range(iters)])
+    seeds = [seed + i for i in range(iters)]
+    times = [_elapsed_s(lambda: graph.replay(seeds)) / iters
+             for _ in range(SCAN_REPLAYS)]
+    if call_times is not None:
+        call_times.extend(times)
+    return statistics.median(times)
 
 
 def bench_batched(fn, make_input, iters: int = 5, warmup: int = 1,

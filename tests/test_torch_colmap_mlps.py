@@ -25,6 +25,7 @@ from iris_tpu_torch.data import colmap as tcolmap
 from iris_tpu_torch.models import mlps as tmlps
 from iris_tpu_torch.models.mlp import apply_mlp, init_mlp
 from iris_tpu_torch.utils import profiling, timing
+import torch_graph_stand_in
 from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 # ------------------------------------------------------------------ COLMAP
@@ -385,7 +386,14 @@ def test_bench_chained_threads_the_carry(fake_card):
 
 @pytest.mark.parametrize("helper,warmup", [("bench_chained_keyed", 2),
                                            ("bench_scan", 1)])
-def test_bench_chained_keyed_accumulates(fake_card, helper, warmup):
+def test_bench_chained_keyed_accumulates(fake_card, helper, warmup,
+                                         monkeypatch):
+    """bench_chained_keyed: the warm-up calls, then the timed calls.
+    bench_scan (its CUDA graph stood in for: a replay re-runs the captured
+    calls): one eager warm-up call, the capture and the warm replay under
+    seed + 1000 + i, then three timed replays under seed + i, each call's
+    carry chained into the next; the time is the median replay's."""
+    made = torch_graph_stand_in.use(monkeypatch)
     seen = fake_card["calls"]
 
     def fn(g):
@@ -393,10 +401,22 @@ def test_bench_chained_keyed_accumulates(fake_card, helper, warmup):
         return torch.tensor(1.0)
 
     iters = 4
-    s = getattr(timing, helper)(fn, 7, iters=iters)
+    times = []
+    if helper == "bench_scan":
+        s = timing.bench_scan(fn, 7, iters=iters, call_times=times)
+        warm = [1007, 1008, 1009, 1010]
+        assert seen == [1007] + warm * 2 + [7, 8, 9, 10] * 3
+        assert times == [2.0 / iters] * timing.SCAN_REPLAYS == [0.5] * 3
+        assert len(made) == 1 and made[0].replays == 4
+        assert len(made[0].generators) == iters
+        # the chained scalar the graph returns: sum of 1 * 1e-12^i
+        assert float(made[0].fn()) == pytest.approx(1.0 + 1e-12)
+    else:
+        s = timing.bench_chained_keyed(fn, 7, iters=iters)
+        assert seen == [1007 + i for i in range(warmup)] + [7, 8, 9, 10]
     assert s == 2.0 / iters
-    assert seen == [1007 + i for i in range(warmup)] + [7, 8, 9, 10]
     assert fake_card["timed"] == [7, 8, 9, 10]
+
 
 
 def test_bench_batched_fresh_inputs(fake_card):

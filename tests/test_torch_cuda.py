@@ -53,7 +53,8 @@ def test_union_matches_plain_at_every_leaf_size(card, leaf_size):
     the runtime-size fold), on the flagship scene's tree (398 faces, under
     48 KB: the size the previous kernel staged in shared memory), on a
     6,014-face preorder tree and on its Morton tree (past 48 KB); 2,600
-    rays, not a multiple of the block, bit for bit."""
+    rays, not a multiple of the block, bit for bit; the kernel counts its
+    launch once, with its rays."""
     o1, d1 = random_rays(1000, seed=11)
     o2, d2, *_ = camera_rays(40)
     o = torch.from_numpy(np.concatenate([o1, o2])).to(card)
@@ -64,10 +65,10 @@ def test_union_matches_plain_at_every_leaf_size(card, leaf_size):
                            method=method, device=card)
         tree = tracer.n_nodes * 32 + tracer.tris.shape[0] * 48
         assert (tree <= 48 * 1024) == (n_clutter == 32)
-        before = ci.trace_union.launches
+        before = ci.kernel_counts()["trace_union"]
         got = ci.trace_union(tracer, o, d)
-        torch.cuda.synchronize()
-        assert ci.trace_union.launches == before + 1
+        assert ci.kernel_counts()["trace_union"] == (
+            before[0] + 1, before[1] + o.shape[0])
         want = ci.trace_union_plain(tracer, o, d)
         assert int((want[3] >= 0).sum()) > 500
         for g, w in zip(got, want):
@@ -93,12 +94,12 @@ def test_union_of_no_rays(card):
     mesh, _ = make_box_scene(n_clutter=32, seed=4)
     tracer = build_bvh(mesh.triangles(), device=card)
     empty = torch.zeros((0, 3), device=card)
-    before = ci.trace_union.launches
+    before = ci.launch_counts()["trace_union"]
     got = ci.trace_union(tracer, empty, empty)
     torch.cuda.synchronize()
     assert [g.shape for g in got] == [(0,)] * 4
     assert got[3].dtype == torch.int32
-    assert ci.trace_union.launches == before
+    assert ci.launch_counts()["trace_union"] == before
 
 
 def test_union_refuses_what_it_does_not_take(card):
@@ -134,10 +135,10 @@ def test_paired_streamed_matches_plain(card, n_clutter, leaf_size, n_rays):
     o2, d2, *_ = camera_rays(40)
     o = torch.from_numpy(np.concatenate([o1, o2])).to(card)
     d = torch.from_numpy(np.concatenate([d1, d2])).to(card)
-    before = ci.trace_paired_streamed.launches
+    before = ci.launch_counts()["trace_paired_streamed"]
     got = ci.trace_paired_streamed(tracer, o, d)
     torch.cuda.synchronize()
-    assert ci.trace_paired_streamed.launches == before + 1
+    assert ci.launch_counts()["trace_paired_streamed"] == before + 1
     want = ci.trace_paired_streamed_plain(tracer, o, d)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -166,10 +167,10 @@ def test_ordered_matches_plain(card, n_clutter, leaf_size):
     o2, d2, *_ = camera_rays(40)
     o = torch.from_numpy(np.concatenate([o1, o2])).to(card)
     d = torch.from_numpy(np.concatenate([d1, d2])).to(card)
-    before = ci.trace_ordered.launches
+    before = ci.launch_counts()["trace_ordered"]
     got = ci.trace_ordered(tracer, o, d)
     torch.cuda.synchronize()
-    assert ci.trace_ordered.launches == before + 1
+    assert ci.launch_counts()["trace_ordered"] == before + 1
     want = ci.trace_ordered_plain(tracer, o, d)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -190,10 +191,10 @@ def test_per_ray_pair_walks_match_plain(card, leaf_size):
     if leaf_size <= 5:
         walks.append((ci.trace_dense, ci.trace_dense_plain))
     for kernel, plain in walks:
-        before = kernel.launches
+        before = ci.launch_counts()[kernel.__name__]
         got = kernel(tracer, o, d)
         torch.cuda.synchronize()
-        assert kernel.launches == before + 1
+        assert ci.launch_counts()[kernel.__name__] == before + 1
         for g, w in zip(got, plain(tracer, o, d)):
             assert torch.equal(g, w), (kernel.__name__, leaf_size)
 
@@ -226,10 +227,10 @@ def test_deepest_tree_the_stacks_admit(card):
             assert torch.equal(g, w), kernel.__name__
     too_deep = chain_tree(125, device=card)
     for kernel in (ci.trace_ordered, ci.trace_paired, ci.trace_dense):
-        before = kernel.launches
+        before = ci.launch_counts()[kernel.__name__]
         with pytest.raises(ValueError, match="128"):
             kernel(too_deep, o, d)
-        assert kernel.launches == before
+        assert ci.launch_counts()[kernel.__name__] == before
 
 
 def test_new_kernels_refuse_what_they_do_not_take(card):
@@ -267,10 +268,10 @@ def test_streamed_and_dense_kernels_match_plain(card, n_clutter, leaf_size,
                   (ci.trace_dense_streamed, ci.trace_dense_streamed_plain,
                    ci.trace_paired_streamed)]
     for kernel, plain, twin in walks:
-        before = kernel.launches
+        before = ci.launch_counts()[kernel.__name__]
         got = kernel(tracer, o, d)
         torch.cuda.synchronize()
-        assert kernel.launches == before + 1
+        assert ci.launch_counts()[kernel.__name__] == before + 1
         for g, w in zip(got, plain(tracer, o, d)):
             assert torch.equal(g, w), kernel.__name__
         for g, w in zip(got, twin(tracer, o, d)):
@@ -316,10 +317,10 @@ def test_every_packet_width_matches_plain(card, n_clutter, leaf_size, ragged):
             for n in sizes:
                 o, d = o_all[-n:].contiguous(), d_all[-n:].contiguous()
                 want = plain(tracer, o, d, width=width)
-                before = kernel.launches
+                before = ci.launch_counts()[kernel.__name__]
                 got = kernel(tracer, o, d, width=width)
                 torch.cuda.synchronize()
-                assert kernel.launches == before + 1
+                assert ci.launch_counts()[kernel.__name__] == before + 1
                 for g, w in zip(got, want):
                     assert torch.equal(g, w), (kernel.__name__, width, n)
 
@@ -672,13 +673,13 @@ def test_relight_round_launches(card, with_spots):
     if not with_spots:
         scene = dataclasses.replace(scene, spots=None)
     depth = 3
-    before = {k: getattr(ci, k).launches for k in ci.KERNELS}
+    before = ci.launch_counts()
     gen = torch.Generator(device=card).manual_seed(0)
     out = R.relight_path_tracing(gen, scene, *_relight_rays(card, 8), 2,
                                  depth)
     torch.cuda.synchronize()
     assert torch.isfinite(out).all()
-    launched = {k: getattr(ci, k).launches - before[k] for k in ci.KERNELS}
+    launched = {k: v - before[k] for k, v in ci.launch_counts().items()}
     want = (1 + depth * (2 + int(with_spots))) * 2
     assert launched == {k: want if k == "trace_union" else 0
                         for k in ci.KERNELS}
@@ -719,7 +720,7 @@ def test_dataset_tools_card_match_cpu(card, tools_root):
     out = []
     for dev in (card, torch.device("cpu")):
         tracer = build_bvh(mesh.triangles(), device=dev)
-        before = {k: getattr(ci, k).launches for k in ci.KERNELS}
+        before = ci.launch_counts()
         res = {"geo": [], "sem": []}
         for fr in frames:
             rays = torch.from_numpy(fr["rays"]).to(dev)
@@ -733,8 +734,8 @@ def test_dataset_tools_card_match_cpu(card, tools_root):
             torch.from_numpy(fr["rays"]).to(dev),
             torch.from_numpy(fr["segmentation"]).to(dev)) for fr in frames]
         res["tie"] = fuse.fuse_segmentation(tracer, mesh.n_faces, tie, 16)
-        res["launches"] = {k: getattr(ci, k).launches - before[k]
-                           for k in ci.KERNELS}
+        res["launches"] = {k: v - before[k]
+                           for k, v in ci.launch_counts().items()}
         out.append(res)
     got, want = out
     n = len(frames)
@@ -823,14 +824,156 @@ def test_device_trace_records_the_card(card, tmp_path):
 
 
 def test_bench_measure_launches_trace_union_alone(card):
-    """The benchmark step on the flagship scene, 1 + 2 calls: trace_union
-    alone, 2 launches a call (the camera rays and the fused NEE + bounce
-    rays), and a time for each timed call."""
+    """The benchmark step on the flagship scene, 2 calls a graph: one eager
+    warm-up call, then the warm replay and three timed replays of 2 calls
+    (9 calls): trace_union alone, 2 launches a call (the camera rays and
+    the fused NEE + bounce rays), counted at each replay, and a time for
+    each timed replay."""
     from iris_tpu_torch import bench
 
     m = bench.measure(bench.FLAGSHIP, iters=2, device=card)
-    assert m["calls"] == 3 and m["faces"] == 398
+    assert m["calls"] == 9 and m["faces"] == 398
     assert m["kernel_mode"] == "trace_union"
     assert m["launches"] == {"trace_union": 2 * m["calls"]}
-    assert len(m["s_per_call"]) == 2 and all(t > 0 for t in m["s_per_call"])
+    assert len(m["s_per_call"]) == 3 and all(t > 0 for t in m["s_per_call"])
     assert m["rays_per_s"] > 0
+
+
+def _chunk_case(card):
+    """The benchmark loss (spp 4) on _card_scene with fresh parameters, and
+    a batch stream whose rays move each step (numpy, as RayBatcher yields
+    them), for run_training."""
+    import dataclasses
+    import functools
+
+    from iris_tpu_torch.models.brdf import ngp_brdf_apply
+    from iris_tpu_torch.models.crf import crf_forward
+    from iris_tpu_torch.render.integrator import path_tracing_single
+
+    tracer, em, ngp, crf, rays = _card_scene(card)
+    host = rays.cpu().numpy()
+
+    def loss_fn(p, batch, gen, samples=None):
+        r = batch["rays"]
+        em2 = dataclasses.replace(em, radiance=p["radiance"])
+        crf2 = dataclasses.replace(crf, weight=p["crf_w"])
+        mat_fn = functools.partial(ngp_brdf_apply, p["material"], gen=gen)
+        l = path_tracing_single(gen, tracer, em2, mat_fn,
+                                *(r[:, i:i + 3] for i in (0, 3, 6, 9)), 4)
+        loss = torch.mean((crf_forward(crf2, l, 1.0) - 0.5) ** 2)
+        return loss, {"mean_l": l.mean()}
+
+    def params():
+        return {"material": dataclasses.replace(
+                    ngp, table=ngp.table.clone(),
+                    mlp={k: [t.clone() for t in v]
+                         for k, v in ngp.mlp.items()}),
+                "radiance": em.radiance.clone(), "crf_w": crf.weight.clone()}
+
+    def batches(step0=0):
+        s = step0
+        while True:
+            yield {"rays": np.roll(host, 37 * s, 0)}
+            s += 1
+
+    return loss_fn, params, batches
+
+
+def _state_bits(params, state):
+    from iris_tpu_torch.train.optim import named_leaves
+
+    out = [t.clone() for _, t in named_leaves(params)]
+    for st in state["opt"].state_dict()["state"].values():
+        out += [st[k].clone() for k in sorted(st)]
+    return out + [state["sched"].last_epoch.clone()]
+
+
+def test_graphed_chunks_match_eager_steps(card):
+    """run_training on the card: 11 Adam steps in chunks of 4 (the first
+    chunk eager, the second captured and replayed, the third replayed,
+    then a 3-step chunk captured in the same pool) against 11 single
+    steps, a milestone at step 6 inside a replayed chunk: the same losses,
+    auxes, parameters, moments and schedule, every bit; the launches the
+    kernel counted on the card, replays included, equal the eager run's."""
+    from iris_tpu_torch.geometry import cuda_intersect as ci
+    from iris_tpu_torch.train.loop import run_training
+    from iris_tpu_torch.train.optim import make_optimizer
+
+    loss_fn, params, batches = _chunk_case(card)
+    runs = {}
+    for chunk in (4, 1):
+        before = ci.launch_counts()["trace_union"]
+        logs = []
+        p, st = run_training(
+            loss_fn, params(), batches(), make_optimizer(
+                learning_rate=1e-2, milestones=(6,)), 11, 3, log_fn=None,
+            hooks=[lambda s, p_, l, a: logs.append(
+                (s, l.item(), a["mean_l"].item()))],
+            return_state=True, chunk_steps=chunk)
+        torch.cuda.synchronize()
+        runs[chunk] = (logs, _state_bits(p, st),
+                       ci.launch_counts()["trace_union"] - before)
+    (la, sa, na), (lb, sb, nb) = runs[4], runs[1]
+    assert la == lb and [s for s, *_ in la] == list(range(11))
+    assert len(sa) == len(sb) and all(torch.equal(a, b)
+                                      for a, b in zip(sa, sb))
+    assert na == nb == 2 * 11
+
+
+def test_one_capture_replays_at_other_steps(card):
+    """One captured chunk of 3 replayed at three step0 (its slot generators
+    reseeded each time): each replay equals 3 eager steps from the same
+    state at that step0, every bit."""
+    from iris_tpu_torch.train.loop import (
+        make_train_chunk, make_train_step, step_generator)
+    from iris_tpu_torch.train.optim import make_optimizer
+
+    loss_fn, params, batches = _chunk_case(card)
+    opt = make_optimizer(learning_rate=1e-2, milestones=(4,))
+    pg, pe = params(), params()
+    sg, se = opt.init(pg), opt.init(pe)
+    chunk = make_train_chunk(loss_fn, opt, 3)
+    step = make_train_step(loss_fn, opt)
+    for step0 in (0, 9, 3, 20):          # the first call is the warm-up
+        bs = [{"rays": torch.from_numpy(b["rays"])} for b, _ in
+              zip(batches(step0), range(3))]
+        _, _, losses, _ = chunk(pg, sg, [{"rays": b["rays"].numpy()}
+                                         for b in bs], 5, step0)
+        eager = []
+        for j, b in enumerate(bs):
+            _, _, loss, _ = step(pe, se, {"rays": b["rays"].to(card)},
+                                 step_generator(5, step0 + j, card))
+            eager.append(loss)
+        assert torch.equal(losses, torch.stack(eager)), step0
+        assert all(torch.equal(a, b) for a, b in
+                   zip(_state_bits(pg, sg), _state_bits(pe, se))), step0
+
+
+def test_graphed_bench_scan_is_the_eager_calls(card):
+    """bench_scan's graph of 4 chained calls of bench.grad_step returns the
+    bits of the same 4 calls run eagerly under the same generators."""
+    from iris_tpu_torch import bench
+    from iris_tpu_torch.utils import timing
+    from iris_tpu_torch.utils.graphs import observing
+
+    loss_fn, params, _ = _chunk_case(card)
+    batch = {"rays": _card_scene(card)[4]}
+    step = bench.grad_step(lambda p, b, g, s=None: loss_fn(p, batch, g, s),
+                           params())
+    got = []
+
+    class Keep:
+        def captured(self, graph):
+            pass
+
+        def replayed(self, graph, seeds, start, end):
+            got.append((list(seeds), graph.outputs.clone()))
+
+    with observing(Keep()):
+        timing.bench_scan(step, 11, iters=4, device=card)
+    seeds, out = got[-1]
+    assert seeds == [11, 12, 13, 14] and len(got) == 4
+    acc = torch.zeros((), device=card)
+    for s in seeds:
+        acc = step(torch.Generator(device=card).manual_seed(s)) + acc * 1e-12
+    assert torch.equal(out, acc)

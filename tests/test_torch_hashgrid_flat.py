@@ -210,10 +210,10 @@ def test_block_gather_is_the_global_gather():
     b = th._stoch_gather_impl(tt(table), _i64(chosen), F, BLK, True, L, T,
                               False)
     assert torch.equal(a, b)
-    # the forward-sampled levels {1, 5} of 8: the blocks are named
+    # the forward-sampled levels {1, 5} of 8: each column's block is read
+    # from its own indices
     sub = _i64(chosen).reshape(B, L)[:, [1, 5]].reshape(-1)
-    c = th._stoch_gather_impl(tt(table), sub, F, BLK, True, 2, T, True,
-                              level_ids=(1, 5))
+    c = th._stoch_gather_impl(tt(table), sub, F, BLK, True, 2, T, True)
     d = th._stoch_gather_impl(tt(table), sub, F, BLK, True, 2, T, False)
     assert torch.equal(c, d)
 
@@ -320,6 +320,57 @@ def test_encode_block_gather_on_and_off_are_bit_equal(fwd_k):
     np.testing.assert_array_equal(on[0], off[0])
     np.testing.assert_array_equal(on[2], off[2])
     np.testing.assert_array_equal(on[1], off[1])    # and in JAX
+
+
+@pytest.mark.parametrize("row", [False, True])
+def test_encode_phase_as_int_or_device_tensor(row):
+    """The level-block phases are device indices: replayed phases given as
+    ints and as (1,) int64 tensors give the same bits, forward and
+    backward; the int form is held against the JAX encode under its
+    replayed draws (test_encode_stochastic_fwd's bar); and a drawn phase
+    is a (1,) int64 tensor in range that a seeded generator repeats."""
+    extra = dict(packed_gather=not row, row_gather=row, stochastic_bwd=True,
+                 stochastic_fwd=True, fwd_level_sample=4, bwd_level_sample=2)
+    b = 200
+    jcfg = jh.HashGridConfig(**ENC, **extra)
+    tcfg = th.HashGridConfig(**ENC, **extra)
+    rng = np.random.default_rng(17)
+    table = rng.uniform(-1, 1, jcfg.n_levels * jcfg.table_size * 2) \
+        .astype(np.float32)
+    x = rng.uniform(0, 1, (b, 3)).astype(np.float32)
+    g = rng.normal(size=(b, 2 * jcfg.n_levels)).astype(np.float32)
+    key = jax.random.PRNGKey(17)
+    draws = jax_hashgrid_draws(key, jcfg, b)
+    assert isinstance(draws["phase"], int) and isinstance(draws["fphase"],
+                                                          int)
+
+    def encode(samples):
+        tb = tt(table).requires_grad_(True)
+        out = th.hashgrid_encode(tb, tcfg, tt(x), samples=samples)
+        (d,) = torch.autograd.grad(out, tb, tt(g))
+        return out.detach(), d
+
+    as_int = encode(draws)
+    as_tensor = encode({**draws, **{k: torch.tensor([draws[k]])
+                                    for k in ("phase", "fphase")}})
+    assert torch.equal(as_int[0], as_tensor[0])
+    assert torch.equal(as_int[1], as_tensor[1])
+    if not row:
+        ref = np.asarray(jh.hashgrid_encode(jnp.asarray(table), jcfg,
+                                            jnp.asarray(x), key))
+        out = as_int[0].numpy()
+        assert (out == ref).all(1).mean() >= 0.995
+        np.testing.assert_array_equal(out == 0, ref == 0)
+    gen = torch.Generator().manual_seed(3)
+    ph = th._draw_phase(gen, None, "phase", 4, torch.device("cpu"))
+    assert ph.shape == (1,) and ph.dtype == torch.int64 and 0 <= ph < 4
+    again = th._draw_phase(torch.Generator().manual_seed(3), None, "phase",
+                           4, torch.device("cpu"))
+    assert torch.equal(ph, again)
+    drawn = [th.hashgrid_encode(tt(table), tcfg, tt(x),
+                                torch.Generator().manual_seed(5))
+             for _ in range(2)]
+    assert torch.equal(drawn[0], drawn[1])
 
 
 def test_encode_without_draws_ignores_estimators():

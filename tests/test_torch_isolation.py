@@ -39,12 +39,15 @@ for want in ("train.steps", "train.optim", "train.loop", "utils.losses",
              "utils.extract_geometry", "utils.render_semantic",
              "utils.fuse_segmentation", "utils.hdr2ldr",
              "utils.process_images", "data.colmap", "models.mlps",
-             "utils.timing", "utils.profiling", "parallel.sharding",
+             "utils.timing", "utils.profiling", "utils.graphs",
+             "parallel.sharding",
              "parallel.distributed", "parallel.comms_report", "bench",
              "bench_components", "bench_scaling", "graft_entry"):
     assert "iris_tpu_torch." + want in names, want
 from iris_tpu_torch.geometry.intersect import TraversalPolicy, kernel_for
-from iris_tpu_torch.train.loop import TrainerConfig, run_training
+from iris_tpu_torch.train.loop import (
+    TrainerConfig, make_train_chunk, run_training)
+from iris_tpu_torch.utils.graphs import Graph, GraphContext, StaticBatches
 from iris_tpu_torch.train.checkpoint import (
     load_into, load_pytree, load_train_state, make_state_saver, save_pytree)
 assert TraversalPolicy() == TraversalPolicy("auto", "auto", True, False)
@@ -165,8 +168,7 @@ def test_cpu_tensors_take_plain_walks(n_clutter, leaf_size, kernel):
     from iris_tpu_torch.geometry.intersect import (
         TraversalPolicy, kernel_for, ray_intersect)
 
-    wrappers = [getattr(ci, name) for name in ci.KERNELS]
-    before = [w.launches for w in wrappers]
+    before = ci.launch_counts()
     mesh, _ = make_box_scene(n_clutter=n_clutter)
     tracer = build_bvh(
         mesh.triangles(), leaf_size=leaf_size, device="cpu",
@@ -184,7 +186,7 @@ def test_cpu_tensors_take_plain_walks(n_clutter, leaf_size, kernel):
         assert kernel_for(tracer).__name__ == kernel
         _, _, _, _, valid = ray_intersect(tracer, o, d)
         assert valid.all()
-    assert [w.launches for w in wrappers] == before
+    assert ci.launch_counts() == before
 
 
 def test_training_entry_points_run_on_cpu_when_asked():

@@ -296,13 +296,13 @@ def test_cpu_wrappers_take_width_and_refuse_unknown_widths(tree, name):
     o, d = (tt(x) for x in camera_rays(8)[:2])
     wrapper, plain = getattr(ci, name), getattr(ci, name + "_plain")
     shipped = ci.STREAMED_PACKET if name == "trace_streamed" else ci.PACKET
-    before = wrapper.launches
+    before = ci.launch_counts()[name]
     for width in (None, 4, 32):
         got = wrapper(tree, o, d, width=width)
         want = plain(tree, o, d, width=shipped if width is None else width)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
-    assert wrapper.launches == before
+    assert ci.launch_counts()[name] == before
     assert ci._packet_width(name, None) == 0     # the kernel's own constant
     assert ci._packet_width(name, shipped) == shipped
     with pytest.raises(ValueError, match="packet width"):

@@ -26,6 +26,7 @@ from iris_tpu.models.brdf import ngp_brdf_apply as jax_ngp_apply
 from iris_tpu.models.hashgrid import auto_bwd_level_sample
 from iris_tpu.parallel.sharding import data_mesh
 from iris_tpu.render import integrator as jint
+from iris_tpu.train.loop import make_train_chunk as jax_make_train_chunk
 from iris_tpu.train.loop import run_training as jax_run_training
 from iris_tpu.train.optim import make_optimizer as jax_make_optimizer
 from iris_tpu_torch import convert
@@ -33,7 +34,7 @@ from iris_tpu_torch.demo import demo_mat_fn, make_demo_scene
 from iris_tpu_torch.models import crf as tcrf
 from iris_tpu_torch.models.brdf import ngp_brdf_apply
 from iris_tpu_torch.render import integrator as tint
-from iris_tpu_torch.train.loop import run_training
+from iris_tpu_torch.train.loop import make_train_chunk, run_training
 from iris_tpu_torch.train.optim import make_optimizer
 from torch_parity import (
     jax_hashgrid_draws, jax_leaves_by_name, jax_single_draws, port_crf,
@@ -228,6 +229,57 @@ def test_four_run_training_steps_match_jax(scene, packed, chunk_steps):
     moved = np.abs(got["material.table"] - start["material.table"]) \
         .reshape(2, LEVELS, -1).sum(2) > 0
     assert (moved[0] == moved[1]).all() and 2 <= moved[0].sum() <= LEVELS
+
+
+def test_make_train_chunk_matches_jax(scene):
+    """make_train_chunk in both packages: three SGD steps of the benchmark
+    loss from step0 = 5 in one chunk (one lax.scan on a one-device mesh;
+    the port's eager steps on the CPU), the rate cut by the milestone at
+    the chunk's second step, under the JAX chunk's replayed keys
+    (fold_in(key, step0 + j)): losses (K,) and auxes {name: (K,)} within
+    rtol 2e-3, every leaf within rtol 1e-4 / atol 1e-6, as four
+    run_training steps are held."""
+    jt, je, jn, jc, rays = scene
+    jn = _with_cfg(jn, stochastic_fwd=True, stochastic_bwd=True,
+                   bwd_level_sample=auto_bwd_level_sample(LEVELS))
+    k, step0 = 3, 5
+    batches = [{"rays": rays}, {"rays": rays[::-1].copy()},
+               {"rays": rays[::2].repeat(2, 0)}]
+    key = jax.random.PRNGKey(4)
+    kw = dict(learning_rate=1e-2, milestones=(1,), optimizer="SGD")
+    jopt = jax_make_optimizer(**kw)
+    jparams = jax.tree_util.tree_map(lambda x: jnp.array(x, copy=True), {
+        "material": jn, "radiance": je.radiance, "crf_w": jc.weight})
+    jchunk = jax_make_train_chunk(_loss_jax(jt, je, jc), jopt, data_mesh(1),
+                                  k)
+    jparams, _, jlosses, jauxes = jchunk(
+        jparams, jopt.init(jparams),
+        {"rays": np.stack([b["rays"] for b in batches])}, key,
+        jnp.int32(step0))
+
+    pparams = {"material": port_ngp(jn),
+               "radiance": port_emitter(je).radiance.clone(),
+               "crf_w": port_crf(jc).weight.clone()}
+    start = convert.leaves_to_numpy(pparams)
+    opt = make_optimizer(**kw)
+    chunk = make_train_chunk(_loss_port(port_tracer(jt), port_emitter(je),
+                                        port_crf(jc)), opt, k)
+    b = rays.shape[0]
+    out, _, losses, auxes = chunk(
+        pparams, opt.init(pparams),
+        [{"rays": tt(v["rays"])} for v in batches], 0, step0,
+        samples_for_step=lambda s: _step_draws(key, s, jn.cfg, b))
+    assert out is pparams and losses.shape == (k,)
+    assert set(auxes) == {"loss"} and auxes["loss"].shape == (k,)
+    np.testing.assert_allclose(losses.numpy(), np.asarray(jlosses),
+                               rtol=2e-3)
+    np.testing.assert_allclose(auxes["loss"].numpy(),
+                               np.asarray(jauxes["loss"]), rtol=2e-3)
+    ref = jax_leaves_by_name(jparams)
+    for name, g in convert.leaves_to_numpy(pparams).items():
+        assert np.abs(g - start[name]).max() > 0, name
+        np.testing.assert_allclose(g, ref[name], rtol=1e-4, atol=1e-6,
+                                   err_msg=name)
 
 
 # ------------------------------------------------- convert and the demo
