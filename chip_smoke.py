@@ -10,6 +10,7 @@
     python3 chip_smoke.py --parallel-only
     python3 chip_smoke.py --drivers-only
     python3 chip_smoke.py --chunks-only
+    python3 chip_smoke.py --renders-only
 
 Needs one NVIDIA card (sm_90a: H100/H200), nvcc and g++. It builds the
 traversal kernels from iris_tpu_torch/csrc/traverse.cu and the SAH builder
@@ -33,8 +34,10 @@ from csrc/bvh_builder.cpp, then:
 4. renders the flagship frame (camera_rays(90) = 8,100 pixels) at the
    production width — 4-level x 16-feature x 2^19 row-mode hash grid (a
    128 MB table), MLP 64-64-64-5, 3-basis EMoR CRF, 64^3 SLF seeded with
-   nonzero radiance — at spp 8 and indir_depth 5, for --rounds rounds
-   after one warm-up round (a cut of the 64 rounds that SPP=512 takes),
+   nonzero radiance — at spp 8 and indir_depth 5, for --rounds rounds,
+   each one CUDA graph replay, after the warm-up round and the capture
+   (pipeline.render.make_render_round; a cut of the 64 rounds that
+   SPP=512 takes),
    with the AOV pass and CRF to LDR; counts one more round's material
    evaluations (one at the camera hits, one per bounce, one in the AOV
    pass: 8) and, under torch.profiler, the kernels it launches and their
@@ -278,7 +281,35 @@ from csrc/bvh_builder.cpp, then:
    graph's, 2 a step of the kernel counted in the profiled eager chunk
    and replay alike; in (b) the losses and both checkpoint files the
    same bits; in (c) the graph's scalar the eager calls' bits;
-19. prints the card line again and, last, the run's JSON verdict.
+19. (run right after phase 18, its launches counted in phase 13's line)
+   one-dispatch rendering, CUDA graphs (utils.graphs.GraphedUnit, the
+   JAX package's jitted render units), on the flagship (trace_union) and
+   the 102K scene (trace_paired_streamed) with the 4 x 16 x 2^19 row-mode
+   grid: (a) the render round (render_chunk + aov_chunk, 8,100 pixels,
+   spp 8, depth 5) eager and through pipeline.render.make_render_round
+   (its eager warm-up round, one capture, replays), 2 frames x 3 rounds
+   and render_frame's mean; ms a round each way (CUDA events, median of
+   5), one round of each under torch.profiler, capture s and peak MB;
+   (b) a relight_1-shaped round (the scene's mesh with the BRDF and its
+   emitters, relight_1's disco ball: 40 lights, 40 spots, D = 7; a 240 x
+   320 frame at spp 8) through pipeline.render_relight.make_relight_round
+   over 3 frames at 3 phases of 2 rounds, the ball turned in place
+   (set_disco_phase(..., out=)), each round against relight_path_tracing
+   of set_disco_phase's new scene; (c) the trainers' validation render
+   (make_validation_hook: a 240 x 320 frame at spp 32, depth 5, 9 chunks
+   of 8,192 rays and one of 3,072) sharing a GraphContext with a
+   make_train_chunk of 2 steps of the benchmark loss with Adam, after the
+   chunk's warm-up and after each of two replayed chunks (in-place
+   parameter updates), against the eager render, then the hook's PNGs.
+   Hard checks: every graphed round, relight round and validation image
+   the eager one's bits; 8 traversal launches counted by the kernels in
+   the eager and in the replayed render round; one graph launch for a
+   replayed round and as many kernel-launch calls as a graph of its one
+   generator alone (2); one capture a round unit, three in (c); the
+   relight replays' launches (1 + 3 D) on each tree; the disco frames
+   different; the parameters moved between validation renders. Phases
+   4, 5, 9, 11 (render) and 14 now run and time rounds as graph replays;
+20. prints the card line again and, last, the run's JSON verdict.
 
 Any failed check raises, and the script then exits non-zero with no
 verdict line. It imports nothing of JAX or of the JAX package.
@@ -308,6 +339,9 @@ and prints no verdict line.
 --chunks-only runs phases 1-2, builds the flagship and 102K scenes, writes
 the flagship dataset with its SLF and emitter mask as phase 10 does, then
 phase 18 alone, bench.measure included (no verdict line).
+
+--renders-only runs phases 1-2, builds the flagship and 102K scenes, then
+phase 19 alone (no verdict line).
 
 --sweep-only runs phases 1-2, builds the 102,014-face scene, takes the
 518,400 rays of one train step and runs the width sweep of phase 12 alone
@@ -417,6 +451,14 @@ CHUNK_MILESTONE = 25           # a rate cut inside the third chunk
 CHUNK_INIT_STEPS = 30          # phase 18's initialize runs
 CHUNK_SCAN_ITERS = 4           # bench.grad_step calls in the held graph
 CHUNK_DIR = os.path.join("outputs", "chip_smoke_chunks")
+# phase 19: one-dispatch rendering
+RENDER_ROUNDS = 3              # rounds a frame held bit for bit
+RENDER_TIMED = 5               # rounds timed each way
+RELIGHT_ROUND_DEPTH = 7        # relight_1's max_depth
+RELIGHT_ROUND_SPOTS = 40       # relight_1's disco lights and spots
+RELIGHT_ROUND_PHASES = (0.0, 0.7, 1.9)
+VAL_RENDER_STEPS = (0, 10, 20)
+RENDERS_DIR = os.path.join("outputs", "chip_smoke_renders")
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx")
 # phase 14: the consumers of phase 11's trained scene; relight_demo.sh's
@@ -1147,8 +1189,9 @@ class time_train_steps:
     """While active, times the steps of run_training on the card, read
     after the run (no host sync inside it): an eager step (the step that
     train.loop.make_train_step makes) between two CUDA events, and a chunk
-    that is one CUDA-graph replay (utils.graphs.Graph.replay) between two
-    events, its time split evenly over its K steps (the step inside a
+    that is one CUDA-graph replay (utils.graphs.Graph.replay of a graph
+    named "train_chunk", not a validation chunk's) between two events,
+    its time split evenly over its K steps (the step inside a
     capture is not timed: it runs nothing then). Keeps the largest
     traversal input of the eager steps alone (record_largest_trace), not
     of the hooks between them. A data-parallel step's collectives are
@@ -1204,7 +1247,8 @@ class time_train_steps:
                 pass
 
             def replayed(self, graph, seeds, start, end):
-                events.append((start, end, len(graph.generators)))
+                if graph.name == "train_chunk":     # not a validation chunk
+                    events.append((start, end, len(graph.generators)))
 
         loop.make_train_step = make_timed
         self._observing = graphs.observing(ReplayTimer())
@@ -1940,10 +1984,11 @@ def parallel_phase(dev, seed, new_datasets=False):
 
 
 class watch_relight:
-    """While active, a render_relight run is watched: each round's
-    relight_path_tracing bracketed by CUDA events, every BVH build counted,
-    the scene it builds kept, and every frame it saves kept with its
-    statistics."""
+    """While active, a render_relight run is watched: each round (a call
+    of the unit make_relight_round makes: the eager warm-up, the capture
+    with its first replay, then replays) bracketed by CUDA events, every
+    BVH build counted, the scene it builds kept, and every frame it saves
+    kept with its statistics."""
 
     def __enter__(self):
         import numpy as np
@@ -1953,20 +1998,24 @@ class watch_relight:
         from iris_tpu_torch.render import relight
 
         self._saved = [(render_relight, n) for n in (
-            "relight_path_tracing", "build_relight_scene", "save_image")]
+            "make_relight_round", "build_relight_scene", "save_image")]
         self._saved.append((relight, "build_bvh"))
         self._orig = [getattr(m, n) for m, n in self._saved]
-        trace, build_scene, save, build_bvh = self._orig
+        make_round, build_scene, save, build_bvh = self._orig
         self.events, self.builds, self.frames, self.scenes = [], [], [], []
 
         def timed(*a, **k):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = trace(*a, **k)
-            end.record()
-            self.events.append((start, end))
-            return out
+            unit = make_round(*a, **k)
+
+            def round_(*args, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = unit(*args, **kw)
+                end.record()
+                self.events.append((start, end))
+                return out
+            return round_
 
         def keep_scene(*a, **k):
             scene = build_scene(*a, **k)
@@ -1991,6 +2040,8 @@ class watch_relight:
             setattr(m, n, f)
 
     def round_ms(self):
+        """Each round's ms; the first two hold the warm-up and the
+        capture."""
         import torch
 
         torch.cuda.synchronize()
@@ -2202,7 +2253,8 @@ def run_relight(label, kernel, name, argv, depth, n_spots, disco):
               launches_expected=want, bvh_builds=w.builds,
               static_faces=scene.tracer.n_faces,
               sub_scene_faces=scene.dyn_tracer.n_faces if disco else 0,
-              ms_per_round=statistics.median(ms), round_ms=ms,
+              # the replays: past the warm-up and the capture
+              ms_per_round=statistics.median(ms[2:]), round_ms=ms,
               rays_per_round=st["rays"] // rounds,
               frame_means=frames_ok(f"{label} {name}", w.frames,
                                     RELIGHT_FRAMES),
@@ -2270,7 +2322,8 @@ def relight_phase_on(label, kernel, root, work, dev, seed):
           f"{st['launches']}, {want} expected")
     st.update(frames=n_frames, rounds=rounds, launches_expected=want,
               s_per_frame=st["wall_s"] / n_frames,
-              ms_per_round=1e3 * statistics.median(frame_s)
+              # the frames past the first (its warm-up and capture): replays
+              ms_per_round=1e3 * statistics.median(frame_s[1:])
               * TRAIN_SPP / PIPE_SPP, rays_per_round=st["rays"] // rounds,
               videos={b: video_written(out, b, 2 * n_frames) for b in
                       ("video",) + render_video.AOV_VIDEOS})
@@ -2385,7 +2438,8 @@ def report_relight(label, stats):
         extra = ""
         if "rounds" in st:
             extra = (f"; {st['rounds']} rounds, {st['ms_per_round']:.2f} ms "
-                     f"a round (median), {st['rays_per_round']} rays a "
+                     f"a round (median of the graph replays), "
+                     f"{st['rays_per_round']} rays a "
                      f"round, {st['s_per_frame']:.2f} s a frame")
         if "depth" in st:
             extra += (f"; depth {st['depth']}, {st['spots']} spots, trees "
@@ -2749,27 +2803,31 @@ def frame_rays(dev):
 
 def render_scene(label, tracer, em, mat_fn, crf, rays, n_rounds, seed,
                  depth=INDIR_DEPTH):
-    """Warm-up round (recording the largest traversal input), then
-    n_rounds timed rounds through render_frame with launch counts reset
-    just before and read just after. Returns (stats, captured input)."""
+    """The round as the render CLIs run it (pipeline.render.
+    make_render_round): its eager warm-up round (recording the largest
+    traversal input), its capture and first replay, then n_rounds timed
+    rounds through render_frame, each one CUDA graph replay, with launch
+    counts reset just before and read just after. Returns (stats,
+    captured input)."""
     import numpy as np
     import torch
 
     from iris_tpu_torch.models.crf import crf_forward
-    from iris_tpu_torch.pipeline.render import make_render_fns, render_frame
+    from iris_tpu_torch.pipeline.render import (
+        make_render_fns, make_render_round, render_frame)
 
-    render_chunk, aov_chunk = make_render_fns(tracer, em, mat_fn, SPP, depth)
-    gen = torch.Generator(device=rays.device).manual_seed(seed)
+    render_round = make_render_round(
+        *make_render_fns(tracer, em, mat_fn, SPP, depth), rays.device)
     with record_largest_trace() as captured:
-        render_chunk(rays, gen)
-        aov_chunk(rays, gen)
+        render_round(rays, seed=seed)
         torch.cuda.synchronize()
+    render_round(rays)
 
     reset_launches()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    l_img, aovs = render_frame(render_chunk, aov_chunk, rays, n_rounds, gen)
+    l_img, aovs = render_frame(render_round, rays, n_rounds, seed)
     end.record()
     end.synchronize()
     launches = read_launches()
@@ -2787,6 +2845,7 @@ def render_scene(label, tracer, em, mat_fn, crf, rays, n_rounds, seed,
           ldr.max() <= 1, f"{label}: LDR out of [0, 1]")
     stats = {"ms_per_round": ms, "camera_samples_per_round": samples,
              "rays_per_s": samples / (ms / 1e3), "rounds": n_rounds,
+             "round": "graph replay",
              "depth": depth, "launches": launches,
              "hdr_mean": l_img.mean(0).tolist(),
              "ldr_mean": ldr.mean(0).tolist(),
@@ -3557,12 +3616,8 @@ def chunk_profile(tracer, em, ngp, crf, rays, seed):
     (kernel launches and graph launches), the card's kernels and their
     device time, the chunk's event ms, and the device's idle share of
     it."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     from iris_tpu_torch.train.loop import make_train_chunk
     from iris_tpu_torch.train.optim import make_optimizer
-    from profile_render import device_kernels, device_time_us
 
     params = bench_params(em, ngp, crf)
     loss_fn = make_bench_loss(tracer, em, crf, rays, TRAIN_SPP)
@@ -3572,32 +3627,40 @@ def chunk_profile(tracer, em, ngp, crf, rays, seed):
     batches = [{}] * CHUNK
     out = {}
 
-    def profiled(name, step0):
-        before = read_launches()        # waits for the card
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            ms, _ = timed_once(lambda: chunk(params, state, batches, seed,
-                                             step0))
-        rec = launch_calls(prof)
-        rec.update(ms_under_profiler=ms, traversal_launches=sum(
-            v - before[k] for k, v in read_launches().items()))
-        try:
-            kernels = device_kernels(prof)
-        except RuntimeError:        # the profiler saw no device kernel
-            rec.update(device_busy_ms="not measured",
-                       idle_share="not measured")
-        else:
-            busy = sum(device_time_us(e) for e in kernels) / 1e3
-            rec.update(device_busy_ms=busy,
-                       kernels=sum(e.count for e in kernels),
-                       idle_share=max(0.0, 1 - busy / ms))
-        out[name] = rec
-
-    profiled("eager", 0)
+    out["eager"] = profiled_run(
+        lambda: chunk(params, state, batches, seed, 0))
     chunk(params, state, batches, seed, CHUNK)       # capture, then replay
-    profiled("graphed", 2 * CHUNK)
+    out["graphed"] = profiled_run(
+        lambda: chunk(params, state, batches, seed, 2 * CHUNK))
     out["bare"] = bare_replay_calls(CHUNK, rays.device)
     return out
+
+
+def profiled_run(fn):
+    """fn() once under torch.profiler and between CUDA events: the host's
+    launch calls (launch_calls), the traversal launches the kernels
+    counted, the card's kernels and their busy ms, the ms under the
+    profiler and the idle share against them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from profile_render import device_kernels, device_time_us
+
+    before = read_launches()        # waits for the card
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ms, _ = timed_once(fn)
+    rec = launch_calls(prof)
+    rec.update(ms_under_profiler=ms, traversal_launches=sum(
+        v - before[k] for k, v in read_launches().items()))
+    try:
+        kernels = device_kernels(prof)
+    except RuntimeError:        # the profiler saw no device kernel
+        rec.update(device_busy_ms="not measured", idle_share="not measured")
+    else:
+        busy = sum(device_time_us(e) for e in kernels) / 1e3
+        rec.update(device_busy_ms=busy, kernels=sum(e.count for e in kernels),
+                   idle_share=max(0.0, 1 - busy / ms))
+    return rec
 
 
 def launch_calls(prof):
@@ -3897,6 +3960,390 @@ def chunks_dataset(dev, seed):
     return os.path.abspath(root), bake
 
 
+def frame_240x320(dev):
+    """(240 x 320 rays (76,800, 12) on dev, as numpy too): the first 240
+    rows of camera_rays(320), a frame of phase 11's datasets' size."""
+    import numpy as np
+    import torch
+
+    from iris_tpu_torch.geometry.procedural import camera_rays
+
+    h, w = STAGE_HW
+    rays = np.concatenate(camera_rays(w), -1).astype(np.float32)[:h * w]
+    return torch.from_numpy(rays).to(dev), rays
+
+
+def same_bits(got, want):
+    import torch
+
+    return len(got) == len(want) and all(
+        torch.equal(a, b) for a, b in zip(got, want))
+
+
+def events_ms(fn, n):
+    """fn() n times, each between two CUDA events: their ms."""
+    import torch
+
+    marks = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in marks]
+
+
+def peak_mb():
+    import torch
+
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2 ** 20
+
+
+def fresh_peak():
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def idle_against(rec, ms):
+    """The profiled run's busy ms against an unprofiled run's ms."""
+    busy = rec["device_busy_ms"]
+    return (max(0.0, 1 - busy / ms) if isinstance(busy, float)
+            else "not measured")
+
+
+def render_round_check(label, kernel, tracer, em, ngp, rays, seed, bare):
+    """Phase 19 (a) on one scene: the render round (render_chunk +
+    aov_chunk, spp 8, depth 5) eager and as the CLIs run it
+    (make_render_round: an eager warm-up, a capture, replays), bit for bit
+    over 2 frames x RENDER_ROUNDS rounds and through render_frame; ms a
+    round each way (CUDA events, RENDER_TIMED rounds), one round of each
+    under torch.profiler (host launch calls, traversal launches the
+    kernels counted, busy and idle), capture s and peak MB."""
+    import numpy as np
+    import torch
+
+    from iris_tpu_torch.demo import demo_mat_fn
+    from iris_tpu_torch.pipeline.render import (
+        make_render_fns, make_render_round, render_frame)
+
+    dev = rays.device
+    rc, ac = make_render_fns(tracer, em, demo_mat_fn(ngp), SPP, INDIR_DEPTH)
+
+    def eager(gen):
+        return (rc(rays, gen),) + tuple(ac(rays, gen))
+
+    fresh_peak()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    eager(gen)                                      # warm-up
+    eager_ms = events_ms(lambda: eager(gen), RENDER_TIMED)
+    eager_peak = peak_mb()
+
+    fresh_peak()
+    with time_captures() as captures:
+        unit = make_render_round(rc, ac, dev)
+        for f in range(2):
+            gen = torch.Generator(device=dev).manual_seed(seed + f)
+            for rd in range(RENDER_ROUNDS):
+                got = [x.clone() for x in unit(
+                    rays, seed=seed + f if rd == 0 else None)]
+                check(same_bits(got, eager(gen)),
+                      f"renders {label}: frame {f} round {rd}: the "
+                      "graphed round differs from the eager round")
+    # render_frame, the CLIs' path: the eager rounds' mean, bit for bit
+    l_img, aovs = render_frame(unit, rays, RENDER_ROUNDS, seed + 2)
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    acc = None
+    for _ in range(RENDER_ROUNDS):
+        out = eager(gen)
+        acc = list(out) if acc is None else [a + b for a, b in zip(acc, out)]
+    want = [(x / RENDER_ROUNDS).cpu().numpy() for x in acc]
+    check(all(np.array_equal(a, b) for a, b in zip([l_img] + aovs, want)),
+          f"renders {label}: render_frame's image and AOVs differ from "
+          "the eager rounds'")
+    graphed_ms = events_ms(lambda: unit(rays), RENDER_TIMED)
+    graphed_peak = peak_mb()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    prof = {"eager": profiled_run(lambda: eager(gen)),
+            "graphed": profiled_run(lambda: unit(rays))}
+    st = {"kernel": kernel, "rays": rays.shape[0], "spp": SPP,
+          "depth": INDIR_DEPTH,
+          "eager_ms_per_round": statistics.median(eager_ms),
+          "graphed_ms_per_round": statistics.median(graphed_ms),
+          "eager_round_ms": eager_ms, "graphed_round_ms": graphed_ms,
+          "eager_peak_memory_mb": eager_peak,
+          "graphed_peak_memory_mb": graphed_peak,
+          "capture_s": captures, "profile": prof, "bare": bare}
+    for name in ("eager", "graphed"):
+        prof[name]["idle_share_unprofiled"] = idle_against(
+            prof[name], st[f"{name}_ms_per_round"])
+        check(prof[name]["traversal_launches"] == 2 + INDIR_DEPTH + 1,
+              f"renders {label}: the kernels counted "
+              f"{prof[name]['traversal_launches']} launches in the {name} "
+              f"round, {2 + INDIR_DEPTH + 1} expected")
+    check(len(captures) == 1, f"renders {label}: {len(captures)} captures")
+    check(prof["graphed"]["graph_launch_calls"] == 1
+          and prof["graphed"]["kernel_launch_calls"]
+          == bare["kernel_launch_calls"],
+          f"renders {label}: a replayed round made "
+          f"{prof['graphed']['graph_launch_calls']} graph launches and "
+          f"{prof['graphed']['kernel_launch_calls']} kernel-launch calls, "
+          f"a graph of its generator alone {bare['kernel_launch_calls']}")
+    return st
+
+
+def relight_round_check(label, kernel, mesh, em, ngp, seed):
+    """Phase 19 (b) on one scene: a relight_1-shaped round (the scene's
+    mesh with the learned BRDF and its emitters, relight_1's disco ball:
+    40 lights and 40 spots, D = 7; a 240 x 320 frame at spp 8) over
+    RELIGHT_ROUND_PHASES frames of 2 rounds, the ball turned in place
+    between frames: each round as make_relight_round runs it against
+    relight_path_tracing on set_disco_phase's new scene under the same
+    generator, bit for bit; ms a round each way, launches a replay, capture
+    s and peak MB."""
+    import numpy as np
+    import torch
+
+    from iris_tpu_torch.pipeline.render_relight import (
+        make_relight_round, relight_generator, relight_seed)
+    from iris_tpu_torch.render import relight as R
+
+    dev = em.radiance.device
+    rays, _ = frame_240x320(dev)
+    disco, spots = R.make_disco_ball(
+        RELIGHT_DISCO_POSITION, 0.2, 40.0, light_num=RELIGHT_ROUND_SPOTS,
+        light_radius_rate=0.1, spot_intensity=0.5, spot_cutoff_angle=20.0,
+        device=dev)
+    scene0 = R.build_relight_scene(
+        [{"kind": "mesh", "tris": mesh.triangles(),
+          "bsdf": {"type": "fipt"}}], ngp=ngp,
+        main_is_emitter=em.is_emitter.cpu().numpy(),
+        main_emitter_radiance=em.radiance.cpu().numpy(),
+        dynamic_shapes=disco, dynamic_center=RELIGHT_DISCO_POSITION,
+        device=dev)
+    live = R.set_disco_phase(scene0, spots, 0.0)
+    per_round = 1 + RELIGHT_ROUND_DEPTH * 3
+    want_launches = dict.fromkeys(KERNELS, 0)
+    want_launches[kernel] += per_round
+    want_launches["trace_union"] += per_round
+
+    def eager(scene, gen):
+        return R.relight_path_tracing(
+            gen, scene, rays[..., :3], rays[..., 3:6], rays[..., 6:9],
+            rays[..., 9:12], RELIGHT_SPP_ROUND, RELIGHT_ROUND_DEPTH)
+
+    fresh_peak()
+    eager_ms, graphed_ms, frames, launches = [], [], [], []
+    with time_captures() as captures:
+        unit = make_relight_round(live, RELIGHT_SPP_ROUND,
+                                  RELIGHT_ROUND_DEPTH, dev)
+        for i, phase in enumerate(RELIGHT_ROUND_PHASES):
+            R.set_disco_phase(scene0, spots, phase, out=live)
+            moved = R.set_disco_phase(scene0, spots, phase)
+            for rd in range(2):
+                before = read_launches()
+                ms, out = timed_once(lambda: unit(
+                    rays, seed=relight_seed(i, rd)).clone())
+                if i:           # past the warm-up and the capture
+                    graphed_ms.append(ms)
+                    launches.append({k: v - before[k] for k, v in
+                                     read_launches().items()})
+                ms, want = timed_once(lambda: eager(
+                    moved, relight_generator(i, rd, dev)))
+                eager_ms.append(ms)
+                check(torch.equal(out, want), f"relight rounds {label}: "
+                      f"frame {i} (phase {phase}) round {rd}: the graphed "
+                      "round differs from the eager round")
+            frames.append(out)
+    peak = peak_mb()
+    check(not torch.equal(frames[0], frames[1]),
+          f"relight rounds {label}: the disco frames do not differ")
+    check(len(captures) == 1 and all(x == want_launches for x in launches),
+          f"relight rounds {label}: {len(captures)} captures, launches a "
+          f"replay {launches}, {want_launches} expected")
+    return {"kernel": kernel, "rays": rays.shape[0],
+            "spp": RELIGHT_SPP_ROUND, "depth": RELIGHT_ROUND_DEPTH,
+            "spots": RELIGHT_ROUND_SPOTS, "phases": RELIGHT_ROUND_PHASES,
+            "eager_ms_per_round": statistics.median(eager_ms),
+            "graphed_ms_per_round": statistics.median(graphed_ms),
+            "eager_round_ms": eager_ms, "graphed_round_ms": graphed_ms,
+            "launches_per_replay": {k: v for k, v in launches[0].items()
+                                    if v},
+            "peak_memory_mb": peak, "capture_s": captures,
+            "static_faces": scene0.tracer.n_faces,
+            "sub_scene_faces": scene0.dyn_tracer.n_faces,
+            "frame_means": [float(np.mean(f.cpu().numpy())) for f in frames]}
+
+
+def eager_validation(tracer, em, params, rays, step):
+    """The validation frame as the hook rendered it eagerly: per chunk of
+    VAL_CHUNK rays, path_tracing_single then path_tracing from
+    val_generator(step, c)."""
+    import functools
+
+    import torch
+
+    from iris_tpu_torch.core.vecmath import normalize
+    from iris_tpu_torch.models.brdf import ngp_brdf_apply
+    from iris_tpu_torch.render.integrator import (
+        path_tracing, path_tracing_single)
+    from iris_tpu_torch.train.validation import VAL_CHUNK, val_generator
+
+    em = dataclasses.replace(em, radiance=params["radiance"])
+    mat_fn = functools.partial(ngp_brdf_apply, params["material"])
+    lt, lf = [], []
+    with torch.no_grad():
+        for c, rc in enumerate(torch.split(rays, VAL_CHUNK)):
+            gen = val_generator(step, c, rays.device)
+            xs, ds = rc[:, :3], normalize(rc[:, 3:6])
+            lt.append(path_tracing_single(gen, tracer, em, mat_fn, xs, ds,
+                                          rc[:, 6:9], rc[:, 9:12], TRAIN_SPP))
+            lf.append(path_tracing(gen, tracer, em, mat_fn, xs, ds,
+                                   rc[:, 6:9], rc[:, 9:12], TRAIN_SPP,
+                                   INDIR_DEPTH))
+    return torch.cat(lt), torch.cat(lf)
+
+
+def validation_check(label, tracer, em, ngp, crf, rays, seed):
+    """Phase 19 (c) on one scene: the trainers' validation render (a 240 x
+    320 frame, spp 32, depth 5: 9 chunks of 8,192 rays and one of 3,072)
+    through make_validation_hook with a GraphContext shared with a
+    make_train_chunk of 2 steps of the benchmark loss with Adam, as the
+    trainer CLIs share it: after the chunk's eager warm-up, then after
+    each of two replayed chunks (an in-place parameter update each), the
+    hook's images against the eager render of the same parameters, bit for
+    bit; s a render each way, capture s, peak MB."""
+    import numpy as np
+    import torch
+
+    from iris_tpu_torch.train.loop import make_train_chunk
+    from iris_tpu_torch.train.optim import make_optimizer, named_leaves
+    from iris_tpu_torch.train.validation import make_validation_hook
+    from iris_tpu_torch.utils.graphs import GraphContext
+
+    dev = rays.device
+    val_rays, val_np = frame_240x320(dev)
+    p = bench_params(em, ngp, crf)
+    params = {"material": p["material"], "radiance": p["radiance"],
+              "crf_weight": p["crf_w"]}
+    bench_loss = make_bench_loss(tracer, em, crf, rays, TRAIN_SPP)
+
+    def loss_fn(q, batch, gen, samples=None):
+        return bench_loss({"material": q["material"],
+                           "radiance": q["radiance"],
+                           "crf_w": q["crf_weight"]}, batch, gen, samples)
+
+    fresh_peak()
+    ctx = GraphContext(dev)
+    opt = make_optimizer(learning_rate=1e-2)
+    state = opt.init(params)
+    chunk = make_train_chunk(loss_fn, opt, 2, graphs=ctx)
+    out_dir = os.path.join(RENDERS_DIR, label, "val")
+    hook = make_validation_hook(
+        tracer, em, crf, {"rays": val_np,
+                          "rgbs": np.zeros_like(val_np[:, :3])},
+        STAGE_HW, out_dir, val_step=VAL_RENDER_STEPS[1], spp=TRAIN_SPP,
+        indir_depth=INDIR_DEPTH, graphs=ctx)
+    graphed_s, eager_s, digests = [], [], []
+    with time_captures() as captures:
+        for k, step in enumerate(VAL_RENDER_STEPS):
+            chunk(params, state, [{}] * 2, seed, 2 * k)
+            digests.append(torch.cat([t.reshape(-1).float() for _, t in
+                                      named_leaves(params)]).sum().item())
+            t0 = time.perf_counter()
+            lt, lf, _ = hook.render(params, step)
+            torch.cuda.synchronize()
+            graphed_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            wt, wf = eager_validation(tracer, em, params, val_rays, step)
+            wt, wf = wt.cpu().numpy(), wf.cpu().numpy()
+            eager_s.append(time.perf_counter() - t0)
+            check(np.array_equal(lt, wt) and np.array_equal(lf, wf),
+                  f"validation {label} at step {step}: the graphed render "
+                  "differs from the eager render")
+        hook(VAL_RENDER_STEPS[-1], params, 0.0, {})     # the PNGs
+    peak = peak_mb()
+    check(len(set(digests)) == len(digests),
+          f"validation {label}: the chunks left the parameters as they were")
+    check(len(captures) == 3,
+          f"validation {label}: {len(captures)} captures, 3 expected (the "
+          "chunk, the 8,192-ray chunks, the last chunk)")
+    check(len(os.listdir(out_dir)) == 4,
+          f"validation {label}: files {sorted(os.listdir(out_dir))}")
+    return {"rays": val_rays.shape[0], "spp": TRAIN_SPP,
+            "depth": INDIR_DEPTH, "steps": list(VAL_RENDER_STEPS),
+            "graphed_s": graphed_s, "eager_s": eager_s,
+            "capture_s": captures, "peak_memory_mb": peak}
+
+
+def renders_phase(dev, seed, scenes):
+    """Phase 19, one-dispatch rendering, printed. `scenes` are (label,
+    kernel, (tracer, em, ngp, crf, mesh)) of the flagship and the 102K
+    scene. Returns the phase's stats (their launches under
+    "launches")."""
+    t_phase = time.perf_counter()
+    card = card_line()
+    rays = frame_rays(dev)
+    reset_launches()
+    bare = bare_replay_calls(1, dev)
+    stats = {"bare": bare}
+    for label, kernel, (tracer, em, ngp, crf, mesh) in scenes:
+        st = stats[label] = {
+            "round": render_round_check(label, kernel, tracer, em, ngp,
+                                        rays, seed, bare)}
+        r = st["round"]
+        print(f"renders {label} ({kernel}; {card}): a round of "
+              f"{r['rays']} rays at spp {SPP}, depth {INDIR_DEPTH}, graphed "
+              f"= eager bit for bit over 2 frames x {RENDER_ROUNDS} rounds "
+              f"and through render_frame; ms a round eager "
+              f"{r['eager_ms_per_round']:.3f}, graphed "
+              f"{r['graphed_ms_per_round']:.3f} (median of {RENDER_TIMED});"
+              f" peak memory eager {r['eager_peak_memory_mb']:.0f} MB, "
+              f"graphed {r['graphed_peak_memory_mb']:.0f} MB; capture "
+              f"{r['capture_s'][0]:.3f} s")
+        for name in ("eager", "graphed"):
+            rec = r["profile"][name]
+            print(f"renders {label} {name} round under torch.profiler: host "
+                  f"kernel-launch calls {rec['kernel_launch_calls']}, graph "
+                  f"launches {rec['graph_launch_calls']}, traversal "
+                  f"launches the kernels counted {rec['traversal_launches']}"
+                  f", kernels {rec.get('kernels', 'not measured')}, device "
+                  f"busy {rec['device_busy_ms']} ms of "
+                  f"{rec['ms_under_profiler']:.3f} ms, idle share "
+                  f"{rec['idle_share']} (against the unprofiled round "
+                  f"{rec['idle_share_unprofiled']})")
+        rl = st["relight"] = relight_round_check(label, kernel, mesh, em,
+                                                 ngp, seed)
+        print(f"renders {label} relight round ({card}): {rl['rays']} rays "
+              f"at spp {rl['spp']}, depth {rl['depth']}, {rl['spots']} "
+              f"spots, trees {rl['static_faces']} + {rl['sub_scene_faces']}"
+              f" faces, phases {rl['phases']}: graphed = eager bit for bit "
+              f"each round; ms a round eager {rl['eager_ms_per_round']:.2f},"
+              f" graphed {rl['graphed_ms_per_round']:.2f}; launches a "
+              f"replay {rl['launches_per_replay']}; peak memory "
+              f"{rl['peak_memory_mb']:.0f} MB; capture "
+              f"{rl['capture_s'][0]:.3f} s")
+        v = st["validation"] = validation_check(label, tracer, em, ngp, crf,
+                                                rays, seed)
+        print(f"renders {label} validation ({card}): {v['rays']} rays at "
+              f"spp {v['spp']}, depth {v['depth']}, at steps {v['steps']} "
+              f"after in-place updates by a replayed train chunk in the "
+              f"same pool: graphed = eager bit for bit; s a render graphed "
+              f"{[round(x, 3) for x in v['graphed_s']]}, eager "
+              f"{[round(x, 3) for x in v['eager_s']]}; captures "
+              f"{[round(x, 3) for x in v['capture_s']]} s; peak memory "
+              f"{v['peak_memory_mb']:.0f} MB")
+    stats["launches"] = read_launches()
+    stats["phase_s"] = time.perf_counter() - t_phase
+    print(f"renders: phase 19 took {stats['phase_s']:.1f} s")
+    return stats
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3928,6 +4375,9 @@ def main(argv=None) -> int:
                     help="run the one-dispatch training chunks (phase 18) on "
                     "the flagship and 102K scenes and a new flagship "
                     "dataset, and stop (no verdict line)")
+    ap.add_argument("--renders-only", action="store_true",
+                    help="run the one-dispatch renders (phase 19) on the "
+                    "flagship and 102K scenes, and stop (no verdict line)")
     ap.add_argument("--counts", action="store_true",
                     help="with --sweep-only: the plain versions' counters "
                     "at every packet width on the camera check rays")
@@ -4063,6 +4513,17 @@ def main(argv=None) -> int:
         for d in (STAGE_DIR, CHUNK_DIR):
             shutil.rmtree(d, ignore_errors=True)
         print("run: " + json.dumps({"chunks": chunks,
+                                    "total_s": time.perf_counter() - t_run}))
+        print(f"card: {card_line()}")
+        return 0
+
+    if args.renders_only:
+        flag, big = scene(FLAGSHIP_CLUTTER), scene(CLUTTER_102K)
+        renders = renders_phase(
+            dev, args.seed, (("flagship", "trace_union", flag),
+                             ("clutter102k", "trace_paired_streamed", big)))
+        shutil.rmtree(RENDERS_DIR, ignore_errors=True)
+        print("run: " + json.dumps({"renders": renders,
                                     "total_s": time.perf_counter() - t_run}))
         print(f"card: {card_line()}")
         return 0
@@ -4215,7 +4676,8 @@ def main(argv=None) -> int:
             launches[k] += v
 
     def report_render(label, stats, note=""):
-        print(f"{label}: {stats['rounds']} round(s){note} of "
+        print(f"{label}: {stats['rounds']} round(s){note}, each a CUDA "
+              f"graph replay, of "
               f"{stats['camera_samples_per_round']} camera samples, depth "
               f"{stats['depth']}: {stats['ms_per_round']:.2f} ms/round, "
               f"{stats['rays_per_s']:.0f} rays/s; launches "
@@ -4444,7 +4906,14 @@ def main(argv=None) -> int:
                                      "bake")),
         {k: v for k, v in scripts["bench"]["runs"].items()})
     add_launches(chunks)
-    for d in (STAGE_DIR, TOOLS_DIR, CHUNK_DIR):
+
+    # 19. one-dispatch rendering: the render round, a relight round and the
+    # validation render on both scenes
+    renders = renders_phase(
+        dev, args.seed, (("flagship", "trace_union", flag),
+                         ("clutter102k", "trace_paired_streamed", big)))
+    add_launches(renders)
+    for d in (STAGE_DIR, TOOLS_DIR, CHUNK_DIR, RENDERS_DIR):
         shutil.rmtree(d, ignore_errors=True)
 
     # 12-13. each kernel on the largest input a main path gave it; the five
@@ -4615,6 +5084,7 @@ def main(argv=None) -> int:
         "shading_cache_stages": stage_stats, "pipeline": pipe_stats,
         "relight": relight_stats, "tools": tools_stats,
         "parallel": par_stats, "scripts": scripts, "chunks": chunks,
+        "renders": renders,
         "five_on_102k_ms": turns, "five_on_102k_hits": agree,
         "packet_sweep_ms": sweep,
         "build_s": build_s, "total_s": time.perf_counter() - t_run}))
@@ -4623,7 +5093,7 @@ def main(argv=None) -> int:
               "main path")
     print(json.dumps({"kernels": rows}))
 
-    # 19. verdict
+    # 20. verdict
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

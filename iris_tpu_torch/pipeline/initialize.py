@@ -30,7 +30,7 @@ from iris_tpu_torch.pipeline.config import add_model_specific_args
 from iris_tpu_torch.train.checkpoint import (
     load_train_state, make_state_saver, opt_state_to_numpy, save_pytree,
 )
-from iris_tpu_torch.train.loop import run_training
+from iris_tpu_torch.train.loop import make_run_graphs, run_training
 from iris_tpu_torch.train.optim import make_optimizer, scale_updates_for_key
 from iris_tpu_torch.train.steps import (
     LossConfig, check_max_segments, make_initialize_loss, param_to_radiance,
@@ -115,6 +115,8 @@ def _train(args, group, samples_for_step):
 
     log_path = os.path.join("outputs", args.experiment_name,
                             "train_log.jsonl")
+    # one pool for the chunks' and the validation renders' graphs
+    graphs = make_run_graphs(dev, group)
     hooks = []
     if is_lead(group):      # rank 0 alone logs, validates and saves
         hooks.append(ScalarLogger(log_path))
@@ -126,7 +128,8 @@ def _train(args, group, samples_for_step):
                 val_step=args.val_step, spp=args.spp,
                 indir_depth=args.indir_depth, crf_gt=val_ds.crfs,
                 param_tx=(lambda p: {**p, "radiance": param_to_radiance(
-                    p["radiance"])}) if log_rad else None))
+                    p["radiance"])}) if log_rad else None,
+                graphs=graphs))
             hooks.append(make_material_diag_hook(tracer, vb, log_path,
                                                  val_step=args.val_step))
 
@@ -137,7 +140,7 @@ def _train(args, group, samples_for_step):
         start_step=start_step,
         state_hooks=[make_state_saver(state_out, args.save_every)],
         return_state=True, chunk_steps=args.chunk_steps,
-        samples_for_step=samples_for_step, group=group)
+        samples_for_step=samples_for_step, group=group, graphs=graphs)
     if not is_lead(group):
         return
     # the state file keeps the TRAINED leaf (log space when enabled), so

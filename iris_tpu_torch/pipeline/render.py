@@ -3,7 +3,9 @@ iris_tpu/pipeline/render.py; reference render.py): per frame, SPP-chunked
 path_tracing and an AOV pass (kd, a' = g0*ks + g1 + kd reflectance,
 roughness, metallic, emission, slf), denoise, CRF to LDR, PSNR/SSIM
 against the frame's LDR, metrics.txt. Every EXR and PNG keeps the JAX
-package's name. Runs on the card unless --device says otherwise.
+package's name. Runs on the card unless --device says otherwise; there a
+round (render_chunk + aov_chunk, the JAX package's two jitted dispatches)
+is one CUDA graph replay (make_render_round).
 
 Usage: python -m iris_tpu_torch.pipeline.render --dataset synthetic <root>
            --ldr_img_dir ldr --emitter_path <bake dir> --experiment_name x
@@ -36,6 +38,7 @@ from iris_tpu_torch.render.denoise import denoise_hdr
 from iris_tpu_torch.render.integrator import draw_uniform, path_tracing
 from iris_tpu_torch.train.checkpoint import load_pytree
 from iris_tpu_torch.utils.exr import write_exr
+from iris_tpu_torch.utils.graphs import GraphContext, GraphedUnit
 from iris_tpu_torch.utils.image import save_image
 from iris_tpu_torch.utils.metrics import psnr, ssim
 
@@ -99,19 +102,35 @@ def make_render_fns(tracer, em, mat_fn, spp, indir_depth):
     return render_chunk, aov_chunk
 
 
-def render_frame(render_chunk, aov_chunk, rays, n_rounds, gen):
-    """Average n_rounds of render_chunk + aov_chunk over the frame's rays
-    (a (B, 12) tensor on the render device). Returns numpy (l (B, 3),
-    [kd, a_prime, roughness, metallic, emission, slf])."""
-    l_full = None
-    aovs = None
-    for _ in range(n_rounds):
-        l = render_chunk(rays, gen)
-        a = aov_chunk(rays, gen)
-        l_full = l if l_full is None else l_full + l
-        aovs = list(a) if aovs is None else [p + q for p, q in zip(aovs, a)]
-    l_full = (l_full / n_rounds).cpu().numpy()
-    aovs = [(x / n_rounds).cpu().numpy() for x in aovs]
+def make_render_round(render_chunk, aov_chunk, device,
+                      graphs: GraphContext | None = None) -> GraphedUnit:
+    """One round of a frame as a unit, round(rays, seed=None) -> (l,
+    kd, a_prime, roughness, metallic, emission, slf): render_chunk then
+    aov_chunk over rays (B, 12), both drawing from the unit's generator.
+    On the card a call is one CUDA graph replay after a warm-up round, one
+    capture a ray count (utils.graphs.GraphedUnit; its outputs are
+    overwritten by the next call); on the CPU it runs eagerly."""
+
+    def round_(gen, rays):
+        return (render_chunk(rays, gen),) + tuple(aov_chunk(rays, gen))
+
+    return GraphedUnit(round_, device, graphs, "render_round")
+
+
+def render_frame(render_round, rays, n_rounds, seed):
+    """Average n_rounds of render_round (make_render_round) over the
+    frame's rays (a (B, 12) tensor on the render device), its generator
+    seeded `seed` and drawn round after round: the draws of
+    torch.Generator(device).manual_seed(seed) handed to n_rounds eager
+    render_chunk + aov_chunk calls. Returns numpy (l (B, 3), [kd,
+    a_prime, roughness, metallic, emission, slf])."""
+    acc = None
+    for rd in range(n_rounds):
+        out = render_round(rays, seed=seed if rd == 0 else None)
+        acc = ([x.clone() for x in out] if acc is None
+               else [p + q for p, q in zip(acc, out)])
+    l_full = (acc[0] / n_rounds).cpu().numpy()
+    aovs = [(x / n_rounds).cpu().numpy() for x in acc[1:]]
     return l_full, aovs
 
 
@@ -165,8 +184,8 @@ def main(argv=None):
         d.mkdir(exist_ok=True, parents=True)
         dirs[name] = d
 
-    render_chunk, aov_chunk = make_render_fns(tracer, em, mat_fn, args.spp,
-                                              args.indir_depth)
+    render_round = make_render_round(*make_render_fns(
+        tracer, em, mat_fn, args.spp, args.indir_depth), dev)
     n_rounds = max(args.SPP // args.spp, 1)
 
     n_frames = len(dataset)
@@ -176,9 +195,7 @@ def main(argv=None):
     for i in range(n_frames):
         fr = dataset.frame(i)
         rays = torch.from_numpy(np.ascontiguousarray(fr["rays"])).to(dev)
-        gen = torch.Generator(device=dev).manual_seed(i)
-        l_full, aovs = render_frame(render_chunk, aov_chunk, rays, n_rounds,
-                                    gen)
+        l_full, aovs = render_frame(render_round, rays, n_rounds, i)
         kd, a_prime, rough, metal, emission, slf_v = aovs
 
         img = denoise_hdr(l_full.reshape(h, w, 3),

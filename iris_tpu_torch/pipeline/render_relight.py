@@ -8,9 +8,11 @@ path tracer of render/relight.py. Runs on the card unless --device says
 otherwise.
 
 Every BVH is built once; frames differ only in tensor data (the disco
-phase). A frame's round `rd` draws from torch.Generator seeded by
-(frame, rd) (relight_generator), where the JAX package draws from
-fold_in(PRNGKey(frame), rd).
+phase, written in place). A frame's round `rd` draws from a generator
+seeded by (frame, rd) (relight_seed, relight_generator), where the JAX
+package draws from fold_in(PRNGKey(frame), rd). On the card a round is
+one CUDA graph replay (make_relight_round), where the JAX package calls
+one jitted relight_path_tracing (render_relight.py:219-235).
 
 Usage: python -m iris_tpu_torch.pipeline.render_relight --dataset
            synthetic <root> --ldr_img_dir ldr --experiment_name x/brdf1
@@ -41,6 +43,7 @@ from iris_tpu_torch.render.relight import (
     relight_path_tracing, set_disco_phase,
 )
 from iris_tpu_torch.train.checkpoint import load_pytree
+from iris_tpu_torch.utils.graphs import GraphContext, GraphedUnit
 from iris_tpu_torch.utils.image import save_image
 from iris_tpu_torch.utils.video import write_video
 
@@ -132,9 +135,55 @@ def shapes_from_yaml(cfg: dict, mesh_path: str):
     return shapes, depth, fov, disco
 
 
+def relight_seed(frame: int, rd: int) -> int:
+    """The seed of round `rd` of frame `frame`."""
+    return (frame << 32) | rd
+
+
 def relight_generator(frame: int, rd: int, dev) -> torch.Generator:
     """The generator of round `rd` of frame `frame`."""
-    return torch.Generator(device=dev).manual_seed((frame << 32) | rd)
+    return torch.Generator(device=dev).manual_seed(relight_seed(frame, rd))
+
+
+def make_relight_round(scene, spp: int, max_depth: int, device,
+                       graphs: GraphContext | None = None) -> GraphedUnit:
+    """One relight round as a unit, round(rays, seed=) -> (B, 3):
+    relight_path_tracing of `scene` over rays (B, 12) = [o, d, dxdu,
+    dydv]. The scene is read in place: move the disco ball with
+    set_disco_phase(..., out=scene). On the card a call is one CUDA graph
+    replay after a warm-up round (utils.graphs.GraphedUnit; its output is
+    overwritten by the next call); on the CPU it runs eagerly."""
+
+    def round_(gen, rays):
+        return relight_path_tracing(gen, scene, rays[..., :3],
+                                    rays[..., 3:6], rays[..., 6:9],
+                                    rays[..., 9:12], spp, max_depth)
+
+    return GraphedUnit(round_, device, graphs, "relight_round")
+
+
+def relight_frames(scene0, base_spots, rays_list, n_rounds: int, spp: int,
+                   max_depth: int, device, disco_T: float | None = None,
+                   graphs: GraphContext | None = None):
+    """Yield each frame's radiance (B, 3) as numpy, the mean of n_rounds
+    rounds (make_relight_round), round rd of frame i seeded
+    relight_seed(i, rd). With disco_T, frame i first turns the disco ball
+    of scene0 to 2 pi i / disco_T (set_disco_phase, in place on one
+    scene, so that every frame replays the same graph)."""
+    scene = scene0
+    if disco_T is not None:
+        scene = set_disco_phase(scene0, base_spots, 0.0)
+    relight_round = make_relight_round(scene, spp, max_depth, device, graphs)
+    for i, rays in enumerate(rays_list):
+        if disco_T is not None:
+            set_disco_phase(scene0, base_spots, 2 * np.pi * i / disco_T,
+                            out=scene)
+        r = torch.from_numpy(np.ascontiguousarray(rays, np.float32)).to(
+            device)
+        l = torch.zeros((r.shape[0], 3), device=device)
+        for rd in range(n_rounds):
+            l += relight_round(r, seed=relight_seed(i, rd))
+        yield (l / n_rounds).cpu().numpy()
 
 
 def main(argv=None):
@@ -229,19 +278,9 @@ def main(argv=None):
 
     n_rounds = max(args.SPP // args.spp, 1)
     frames = []
-    for i, rays in enumerate(rays_list):
-        if args.disco:
-            scene = set_disco_phase(scene0, base_spots,
-                                    2 * np.pi * i / args.disco_T)
-        else:
-            scene = scene0
-        r = torch.from_numpy(np.ascontiguousarray(rays, np.float32)).to(dev)
-        l = torch.zeros((r.shape[0], 3), device=dev)
-        for rd in range(n_rounds):
-            l += relight_path_tracing(
-                relight_generator(i, rd, dev), scene, r[..., :3],
-                r[..., 3:6], r[..., 6:9], r[..., 9:12], args.spp, max_depth)
-        l = (l / n_rounds).cpu().numpy()
+    for i, l in enumerate(relight_frames(
+            scene0, base_spots, rays_list, n_rounds, args.spp, max_depth,
+            dev, args.disco_T if args.disco else None)):
         img = denoise_hdr(l.reshape(h, w, 3), device=dev)
         with torch.no_grad():
             ldr = crf_forward(crf, torch.from_numpy(img.reshape(-1, 3))

@@ -1,10 +1,11 @@
 """Render a video along an interpolated camera trajectory (counterpart of
 iris_tpu/pipeline/render_video.py; reference render_video.py): a B-spline
 path through the dataset's poses (or its render_traj.npy), full path
-tracing per frame through pipeline/render.py's make_render_fns and
+tracing per frame through pipeline/render.py's make_render_round (on the
+card one CUDA graph replay a round, one capture for the trajectory) and
 render_frame, denoise, CRF, a boomerang video and the AOV videos. Frame i
-draws from torch.Generator seeded i, as render.main does. Runs on the
-card unless --device says otherwise.
+draws from a generator seeded i, as render.main does. Runs on the card
+unless --device says otherwise.
 
 Usage: python -m iris_tpu_torch.pipeline.render_video --dataset synthetic
            <root> --ldr_img_dir ldr --experiment_name x/brdf1
@@ -36,7 +37,9 @@ from iris_tpu_torch.pipeline.common import (
     load_emitter, load_scene, load_vslf, make_dataset,
 )
 from iris_tpu_torch.pipeline.config import add_model_specific_args
-from iris_tpu_torch.pipeline.render import make_render_fns, render_frame
+from iris_tpu_torch.pipeline.render import (
+    make_render_fns, make_render_round, render_frame,
+)
 from iris_tpu_torch.render.denoise import denoise_hdr
 from iris_tpu_torch.train.checkpoint import load_pytree
 from iris_tpu_torch.utils.gen_path import generate_interpolated_path
@@ -122,16 +125,15 @@ def main(argv=None):
     h, w = dataset.img_hw
     rays_list = trajectory_rays(dataset, args.n_interp, args.traj)
 
-    render_chunk, aov_chunk = make_render_fns(tracer, em, mat_fn, args.spp,
-                                              args.indir_depth)
+    # one unit, so one capture, for the whole trajectory
+    render_round = make_render_round(*make_render_fns(
+        tracer, em, mat_fn, args.spp, args.indir_depth), dev)
     n_rounds = max(args.SPP // args.spp, 1)
     frames = []
     aov_frames = {k: [] for k in AOV_VIDEOS}
     for i, rays in enumerate(rays_list):
         r = torch.from_numpy(np.ascontiguousarray(rays, np.float32)).to(dev)
-        gen = torch.Generator(device=dev).manual_seed(i)
-        l_full, aovs = render_frame(render_chunk, aov_chunk, r, n_rounds,
-                                    gen)
+        l_full, aovs = render_frame(render_round, r, n_rounds, i)
         kd, a_prime, rough, metal, emission, _ = aovs
         img = denoise_hdr(l_full.reshape(h, w, 3),
                           albedo=kd.reshape(h, w, 3), device=dev)

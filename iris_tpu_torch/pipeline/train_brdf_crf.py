@@ -32,7 +32,7 @@ from iris_tpu_torch.train.checkpoint import (
     load_pytree, load_train_state, make_state_saver, opt_state_to_numpy,
     save_pytree,
 )
-from iris_tpu_torch.train.loop import run_training
+from iris_tpu_torch.train.loop import make_run_graphs, run_training
 from iris_tpu_torch.train.optim import make_optimizer
 from iris_tpu_torch.train.steps import (
     LossConfig, check_max_segments, make_brdf_crf_loss,
@@ -121,6 +121,8 @@ def _train(args, group, samples_for_step):
 
     log_path = os.path.join("outputs", args.experiment_name,
                             "train_log.jsonl")
+    # one pool for the chunks' and the validation renders' graphs
+    graphs = make_run_graphs(dev, group)
     hooks = []
     if is_lead(group):      # rank 0 alone logs, validates and saves
         hooks.append(ScalarLogger(log_path))
@@ -131,7 +133,8 @@ def _train(args, group, samples_for_step):
                 tracer, em, crf, vb, val_ds.img_hw,
                 os.path.join("outputs", args.experiment_name, args.dir_val),
                 val_step=args.val_step, spp=args.spp,
-                indir_depth=args.indir_depth, crf_gt=val_ds.crfs))
+                indir_depth=args.indir_depth, crf_gt=val_ds.crfs,
+                graphs=graphs))
             hooks.append(make_material_diag_hook(tracer, vb, log_path,
                                                  val_step=args.val_step))
 
@@ -142,7 +145,7 @@ def _train(args, group, samples_for_step):
         start_step=start_step,
         state_hooks=[make_state_saver(state_out, args.save_every)],
         return_state=True, chunk_steps=args.chunk_steps,
-        samples_for_step=samples_for_step, group=group)
+        samples_for_step=samples_for_step, group=group, graphs=graphs)
     if not is_lead(group):
         return
     save_pytree(out, params)

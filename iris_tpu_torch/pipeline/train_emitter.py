@@ -30,7 +30,7 @@ from iris_tpu_torch.train.checkpoint import (
     load_pytree, load_train_state, make_state_saver, opt_state_to_numpy,
     save_pytree,
 )
-from iris_tpu_torch.train.loop import run_training
+from iris_tpu_torch.train.loop import make_run_graphs, run_training
 from iris_tpu_torch.train.optim import make_optimizer, scale_updates_for_key
 from iris_tpu_torch.train.steps import (
     LossConfig, make_train_emitter_loss, param_to_radiance, radiance_to_param,
@@ -108,6 +108,8 @@ def _train(args, group, samples_for_step):
                      radiance_log_space=log_rad)
     loss_fn = make_train_emitter_loss(tracer, em, material, crf, cfg)
 
+    # one pool for the chunks' and the validation renders' graphs
+    graphs = make_run_graphs(dev, group)
     hooks = []
     if is_lead(group):      # rank 0 alone logs, validates and saves
         hooks.append(ScalarLogger(os.path.join(
@@ -123,7 +125,8 @@ def _train(args, group, samples_for_step):
                 indir_depth=args.indir_depth, crf_gt=val_ds.crfs,
                 frozen={"material": material, "crf_weight": crf.weight},
                 param_tx=(lambda p: {**p, "radiance": param_to_radiance(
-                    p["radiance"])}) if log_rad else None))
+                    p["radiance"])}) if log_rad else None,
+                graphs=graphs))
 
     t0 = time.time()
     params, opt_state = run_training(
@@ -132,7 +135,7 @@ def _train(args, group, samples_for_step):
         start_step=start_step,
         state_hooks=[make_state_saver(state_out, args.save_every)],
         return_state=True, chunk_steps=args.chunk_steps,
-        samples_for_step=samples_for_step, group=group)
+        samples_for_step=samples_for_step, group=group, graphs=graphs)
     if not is_lead(group):
         return
     # the state file keeps the TRAINED leaf (log space when enabled), so

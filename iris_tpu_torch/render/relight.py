@@ -175,10 +175,14 @@ def rot_z(phase: float) -> np.ndarray:
 
 
 def set_disco_phase(base: RelightScene, base_spots: SpotLights | None,
-                    phase: float) -> RelightScene:
-    """A frame's disco-ball pose: the sub-scene rotated by `phase` about
-    its center by data updates alone (its emitter vertices, the spots and
-    the rays' rotation); no BVH is built."""
+                    phase: float, out: RelightScene | None = None
+                    ) -> RelightScene:
+    """A frame's disco-ball pose: the sub-scene of `base` (phase 0)
+    rotated by `phase` about its center by data updates alone (its emitter
+    vertices, the spots and the rays' rotation); no BVH is built. Returns
+    a new scene; with `out` (a scene this function returned for the same
+    base), writes the pose into out's tensors in place and returns out,
+    so that a captured round that reads them renders the new pose."""
     if base.dyn_tracer is None:
         raise ValueError("set_disco_phase: the scene has no sub-scene")
     c = base.dyn_center
@@ -194,7 +198,14 @@ def set_disco_phase(base: RelightScene, base_spots: SpotLights | None,
         spots = replace(base_spots,
                         position=_times(base_spots.position - c, rt) + c,
                         direction=_times(base_spots.direction, rt))
-    return replace(base, emitter=em, spots=spots, dyn_rot=rot)
+    if out is None:
+        return replace(base, emitter=em, spots=spots, dyn_rot=rot)
+    out.emitter.emitter_vertices.copy_(em.emitter_vertices)
+    if spots is not None:
+        out.spots.position.copy_(spots.position)
+        out.spots.direction.copy_(spots.direction)
+    out.dyn_rot.copy_(rot)
+    return out
 
 
 def empty_spots(device=None) -> SpotLights:

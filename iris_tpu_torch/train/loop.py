@@ -195,7 +195,7 @@ def make_train_chunk(loss_fn: Callable, optimizer: Optimizer, k_steps: int,
             return torch.stack(losses), _stack_aux(auxes, device)
 
         inputs.fill(batches)
-        graph = ctx.capture(body, gens)
+        graph = ctx.capture(body, gens, "train_chunk")
         return {"graph": graph, "inputs": inputs,
                 "bound": [t for _, t in named_leaves(params)],
                 "opt": opt_state["opt"]}
@@ -242,6 +242,17 @@ def make_train_chunk(loss_fn: Callable, optimizer: Optimizer, k_steps: int,
     return chunk
 
 
+def make_run_graphs(device, group=None) -> GraphContext | None:
+    """The GraphContext a trainer shares between run_training's chunks and
+    its validation renders (one pool: every output is copied out before
+    the next replay), or None where run_training captures nothing: off
+    the card, or with a RankGroup."""
+    device = torch.device(device)
+    if device.type != "cuda" or group is not None:
+        return None
+    return GraphContext(device)
+
+
 def _to_host(losses: torch.Tensor, auxes: dict):
     """The chunk's losses and auxes on the host in ONE copy (float64 holds
     every float32, bfloat16 and 32-bit integer exactly), each back in its
@@ -259,7 +270,8 @@ def run_training(loss_fn: Callable, params: dict, batches: Iterable,
                  hooks: list | None = None, opt_state: dict | None = None,
                  start_step: int = 0, state_hooks: list | None = None,
                  return_state: bool = False, chunk_steps: int = 1,
-                 samples_for_step: Callable | None = None, group=None):
+                 samples_for_step: Callable | None = None, group=None,
+                 graphs: GraphContext | None = None):
     """Drive training for steps [start_step, n_steps) over `batches`, an
     iterator of batch dicts already positioned at start_step (numpy arrays
     or tensors: each step's batch goes to the parameters' device once,
@@ -283,7 +295,9 @@ def run_training(loss_fn: Callable, params: dict, batches: Iterable,
     graph replay, as it is one lax.scan dispatch on the TPU: one copy of
     the stacked batches in, one host synchronisation out (its losses).
     Every chunk size of the run (the last chunk may be shorter) shares one
-    GraphContext. The generators and update math are chunk_steps=1's, and
+    GraphContext: `graphs`, where the caller gives one (a trainer CLI
+    shares it with its validation hook's graphs, make_run_graphs), else
+    the run's own. The generators and update math are chunk_steps=1's, and
     so are the bits. A chunk of one step is a plain step.
 
     samples_for_step(step) -> dict | None replaces a step's draws (the
@@ -312,7 +326,6 @@ def run_training(loss_fn: Callable, params: dict, batches: Iterable,
     step_fn = make_train_step(loss_fn, optimizer, group)
     device = _params_device(params)
     chunk_fns: dict = {}
-    graphs = None
     if group is not None and int(chunk_steps) > 1 and log_fn:
         log_fn(f"[run_training] data-parallel over {group.world_size} "
                f"ranks: each chunk of {int(chunk_steps)} runs its steps one "

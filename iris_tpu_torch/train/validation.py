@@ -7,7 +7,10 @@ log and the diag records are the JAX package's JSONL records, field for
 field. The validation frame renders in chunks of at most 8,192 pixels,
 each with its own generator (val_generator(step, c), the counterpart of
 fold_in(PRNGKey(step), c)); the last chunk is the frame's remainder, so no
-filler ray is traced and none can reach an image.
+filler ray is traced and none can reach an image. On the card a chunk is
+one CUDA graph replay (the JAX package's jitted render_chunk,
+validation.py:144), one capture for the full chunks and one for the
+remainder.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from iris_tpu_torch.models.brdf import ngp_brdf_apply
 from iris_tpu_torch.models.crf import crf_forward, get_crf
 from iris_tpu_torch.render.denoise import denoise_hdr
 from iris_tpu_torch.render.integrator import path_tracing, path_tracing_single
+from iris_tpu_torch.train.optim import named_leaves
+from iris_tpu_torch.utils.graphs import GraphContext, GraphedUnit
 from iris_tpu_torch.utils.image import save_image
 from iris_tpu_torch.utils.metric_crf import plot_crfs
 
@@ -104,12 +109,17 @@ def make_material_diag_hook(tracer, val_batch, jsonl_path: str,
     return hook
 
 
+def val_seed(step: int, chunk: int) -> int:
+    """The seed of one validation chunk's stream, from (step, chunk)."""
+    return (int(step) << 16) + int(chunk)
+
+
 def val_generator(step: int, chunk: int, device) -> torch.Generator:
     """The generator of one validation chunk: a stream from (step, chunk),
     the counterpart of fold_in(PRNGKey(step), chunk). path_tracing_single
     draws from it first, then path_tracing."""
     gen = torch.Generator(device=device)
-    gen.manual_seed((int(step) << 16) + int(chunk))
+    gen.manual_seed(val_seed(step, chunk))
     return gen
 
 
@@ -117,6 +127,7 @@ def make_validation_hook(
     tracer, em_template, crf_template, val_batch, img_hw,
     out_dir: str, val_step: int = 250, spp: int = 8, indir_depth: int = 5,
     crf_gt=None, frozen: dict | None = None, param_tx=None,
+    graphs: GraphContext | None = None,
 ):
     """Hook(step, params, loss, aux): every val_step, render the validation
     frame with both integrators from the CURRENT params, denoise, tone-map
@@ -125,7 +136,16 @@ def make_validation_hook(
     `frozen` supplies the leaves not trained (the fixed material and CRF of
     train_emitter), `param_tx` maps the trained leaves to model space (exp
     for --radiance_log_space). hook.render(params, step) returns
-    (L_train, L_full, CRF curves) as numpy."""
+    (L_train, L_full, CRF curves) as numpy.
+
+    On the card a chunk is one CUDA graph replay (utils.graphs.
+    GraphedUnit, its generator reseeded val_seed(step, c)), which reads
+    the parameter tensors in place: param_tx and the emitter's radiance
+    are applied inside it. A hook's graphs stay bound to the parameter
+    tensors of its first render (the trainers update them in place);
+    other ones raise. `graphs` is the GraphContext to capture in (the
+    trainer's, whose pool the chunks of run_training share; every output
+    is copied out before the next replay); None makes one."""
     frozen = frozen or {}
     param_tx = param_tx or (lambda p: p)
     os.makedirs(out_dir, exist_ok=True)
@@ -133,6 +153,7 @@ def make_validation_hook(
     rays = torch.from_numpy(np.asarray(val_batch["rays"], np.float32)).to(dev)
     h, w = img_hw
     ray_chunks = torch.split(rays, VAL_CHUNK)
+    live = {"params": None, "bound": None}
     exposure = val_batch.get("exposure")
     exposure = 1.0 if exposure is None else float(exposure)
 
@@ -147,19 +168,39 @@ def make_validation_hook(
         return params, em, crf
 
     @torch.no_grad()
-    def render(params, step):
-        params, em, crf = model(params)
+    def render_chunk(gen, rc):
+        params, em, _ = model(live["params"])
         mat_fn = functools.partial(ngp_brdf_apply, params["material"])
-        lt, lf = [], []
+        xs, ds = rc[:, :3], normalize(rc[:, 3:6])
+        dxdu, dydv = rc[:, 6:9], rc[:, 9:12]
+        return (path_tracing_single(gen, tracer, em, mat_fn, xs, ds, dxdu,
+                                    dydv, spp),
+                path_tracing(gen, tracer, em, mat_fn, xs, ds, dxdu, dydv,
+                             spp, indir_depth))
+
+    unit = GraphedUnit(render_chunk, dev, graphs, "validation_chunk")
+
+    @torch.no_grad()
+    def render(params, step):
+        leaves = [t for _, t in named_leaves(params)]
+        if unit.ctx is not None:
+            bound = live["bound"] = live["bound"] or leaves
+            if len(leaves) != len(bound) or any(
+                    a is not b for a, b in zip(leaves, bound)):
+                raise ValueError(
+                    "a validation hook's graphs read the parameter tensors "
+                    "of its first render; make a new hook for other ones")
+        live["params"] = params
+        lt = torch.empty((rays.shape[0], 3), device=dev)
+        lf = torch.empty((rays.shape[0], 3), device=dev)
+        off = 0
         for c, rc in enumerate(ray_chunks):
-            gen = val_generator(step, c, dev)
-            xs, ds = rc[:, :3], normalize(rc[:, 3:6])
-            dxdu, dydv = rc[:, 6:9], rc[:, 9:12]
-            lt.append(path_tracing_single(gen, tracer, em, mat_fn, xs, ds,
-                                          dxdu, dydv, spp))
-            lf.append(path_tracing(gen, tracer, em, mat_fn, xs, ds, dxdu,
-                                   dydv, spp, indir_depth))
-        return (torch.cat(lt).cpu().numpy(), torch.cat(lf).cpu().numpy(),
+            got_t, got_f = unit(rc, seed=val_seed(step, c))
+            lt[off:off + rc.shape[0]].copy_(got_t)
+            lf[off:off + rc.shape[0]].copy_(got_f)
+            off += rc.shape[0]
+        _, _, crf = model(params)
+        return (lt.cpu().numpy(), lf.cpu().numpy(),
                 get_crf(crf).cpu().numpy())
 
     def hook(step, params, loss, aux):

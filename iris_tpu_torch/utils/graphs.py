@@ -1,31 +1,41 @@
-"""CUDA graphs: many steps in one dispatch (the port's counterpart of one
-jitted lax.scan, iris_tpu/train/loop.py:55-90 and
-iris_tpu/utils/timing.py:91-115).
+"""CUDA graphs: a jitted unit of the JAX package in one dispatch (the
+port's counterpart of one jitted lax.scan, iris_tpu/train/loop.py:55-90
+and iris_tpu/utils/timing.py:91-115, and of the jitted render units,
+iris_tpu/pipeline/render.py:37-75, render_relight.py:219 and
+train/validation.py:144).
 
-A training step of the port is about a thousand kernel launches, and on
-the card the host takes longer to issue them than the card takes to run
-them. A CUDA graph records the launches of a function once (capture) and
-issues all of them again with one call (replay). train.loop.
-make_train_chunk captures K optimizer steps, utils.timing.bench_scan
-`iters` benchmark calls. What a graph holds static, and how each replay
-stays the eager run's:
+A training step of the port is about a thousand kernel launches, a
+render round about five thousand, and on the card the host takes longer
+to issue them than the card takes to run them. A CUDA graph records the
+launches of a function once (capture) and issues all of them again with
+one call (replay). train.loop.make_train_chunk captures K optimizer
+steps, utils.timing.bench_scan `iters` benchmark calls, GraphedUnit one
+render round, relight round or validation chunk. What a graph holds
+static, and how each replay stays the eager run's:
 
 - Inputs. A replay reads the tensors the capture read, at the same
   addresses: the parameters and the optimizer state (updated in place),
-  and StaticBatches, the (K, B, ...) batch columns of a chunk in one
-  device buffer, filled before each replay by ONE host-to-device copy
-  from pinned memory (the JAX package's one device_put of the stacked
-  chunk, loop.py:146-148).
+  a scene's tensors (updated in place), StaticBatches, the (K, B, ...)
+  batch columns of a chunk in one device buffer, filled before each
+  replay by ONE host-to-device copy from pinned memory (the JAX
+  package's one device_put of the stacked chunk, loop.py:146-148), and a
+  GraphedUnit's static inputs, each filled by one copy before each
+  replay.
 - Generators. Each call slot draws from a torch.Generator of its own,
-  registered with the graph (CUDAGraph.register_generator_state) and
-  reseeded before every replay: its Philox seed and offset are read at
-  replay time, so slot j of a replay draws what a fresh generator with
-  that seed draws eagerly (train.loop.step_generator). No draw may use
-  the default generator or an unregistered one.
+  registered with the graph (CUDAGraph.register_generator_state): its
+  Philox seed and offset are read at replay time, and the offset then
+  advances by what the graph draws. Reseeded before a replay, slot j
+  draws what a fresh generator with that seed draws eagerly
+  (train.loop.step_generator); not reseeded, it draws on where the last
+  draw left it, as eager calls would (a render frame's rounds). No draw
+  may use the default generator or an unregistered one.
 - Memory. Every graph of a GraphContext allocates from one pool
   (torch.cuda.graph_pool_handle): what a graph's calls free during its
   capture is reused inside it, and the outputs it returns live there,
-  overwritten by the next replay.
+  overwritten by the next replay of any graph of the pool: a caller
+  folds or copies them out before it replays again (graphs of one pool
+  may then replay in any order, their temporaries being written before
+  they are read within each replay).
 - Warm-up. Work that must not fall inside a capture (a kernel library's
   build, Adam's lazily made state, cuBLAS's workspace of the capture
   stream, a grid's level constants) happens in an eager run on the
@@ -126,20 +136,22 @@ class GraphContext:
             yield
         caller.wait_stream(self.stream)
 
-    def capture(self, fn, generators=()) -> "Graph":
+    def capture(self, fn, generators=(), name="") -> "Graph":
         """Capture fn() into a Graph of this context (its outputs are
-        Graph.outputs). The context must be warm."""
+        Graph.outputs; `name` says what it runs, for observers). The
+        context must be warm."""
         if not self.warm:
             raise RuntimeError("a graph is captured after a warm-up run on "
                                "its context's stream (on_stream)")
-        return Graph(self, fn, generators)
+        return Graph(self, fn, generators, name)
 
 
 class Graph:
-    """One captured CUDA graph: its outputs, its registered generators and
-    the host seconds its capture took (capture_s)."""
+    """One captured CUDA graph: its name, its outputs, its registered
+    generators and the host seconds its capture took (capture_s)."""
 
-    def __init__(self, ctx: GraphContext, fn, generators=()):
+    def __init__(self, ctx: GraphContext, fn, generators=(), name=""):
+        self.name = name
         self.graph = _cuda_graph()
         self.generators = list(generators)
         for gen in self.generators:
@@ -151,13 +163,16 @@ class Graph:
             observer.captured(self)
 
     def replay(self, seeds=()):
-        """Reseed the slot generators (one seed each) and replay on the
-        caller's stream; returns the outputs, which the next replay
-        overwrites."""
-        seeds = list(seeds)
-        if len(seeds) != len(self.generators):
-            raise ValueError(f"{len(seeds)} seeds for "
-                             f"{len(self.generators)} generators")
+        """Reseed the slot generators (one seed each; None: each draws on
+        from its present state) and replay on the caller's stream; returns
+        the outputs, which the next replay overwrites."""
+        if seeds is None:
+            seeds = []
+        else:
+            seeds = list(seeds)
+            if len(seeds) != len(self.generators):
+                raise ValueError(f"{len(seeds)} seeds for "
+                                 f"{len(self.generators)} generators")
         for gen, seed in zip(self.generators, seeds):
             gen.manual_seed(seed)
         if not _OBSERVERS:
@@ -239,3 +254,65 @@ class StaticBatches:
             self._copied.record()
         for key, col in self.device_cols.items():
             col.copy_(torch.stack([b[key] for b in batches]))
+
+
+class GraphedUnit:
+    """fn(gen, *inputs) -> a tensor or a tuple of tensors, one dispatch a
+    call on the card: the counterpart of one jax.jit over fixed-shape
+    inputs (a render round, a relight round, a validation chunk).
+
+    - gen is the unit's one generator (self.generator), registered with
+      each of its graphs. A call with seed= reseeds it first; a call
+      without one draws on from where the last call left it, eager or
+      replayed alike.
+    - inputs are tensors on the unit's device. A graph reads static
+      copies of them, filled by one copy before each replay; what fn
+      reads by closure (parameters, a scene) it reads in place, so those
+      tensors must keep their addresses between calls.
+    - One capture an input signature (shapes and dtypes): the first call
+      at a signature runs fn eagerly on the context's stream (the
+      warm-up: kernel builds, cached layouts, cuBLAS's workspace), the
+      second captures and replays, every later one replays.
+    - A replay's outputs live in the context's pool: the caller folds or
+      copies them out before the next call of any graph of the context.
+
+    graphs: the GraphContext to capture in (its pool shared with the
+    run's other graphs); None makes one on a CUDA device. On the CPU fn
+    runs eagerly, the CPU being the device the caller asked for. A
+    capture or replay that fails raises; nothing runs eagerly in its
+    place. name names its graphs."""
+
+    def __init__(self, fn, device, graphs: GraphContext | None = None,
+                 name="unit"):
+        self.fn, self.name = fn, name
+        self.device = torch.device(device)
+        self.generator = torch.Generator(device=self.device)
+        if graphs is None and self.device.type == "cuda":
+            graphs = GraphContext(self.device)
+        self.ctx = graphs
+        self.graphs: dict = {}       # signature -> (Graph, static inputs)
+        self.warmed: set = set()
+
+    def __call__(self, *inputs, seed=None):
+        if seed is not None:
+            self.generator.manual_seed(seed)
+        if self.ctx is None:
+            return self.fn(self.generator, *inputs)
+        key = tuple((tuple(t.shape), t.dtype) for t in inputs)
+        entry = self.graphs.get(key)
+        if entry is None and key not in self.warmed:
+            with self.ctx.on_stream():
+                out = self.fn(self.generator, *inputs)
+            self.warmed.add(key)
+            self.ctx.warm = True
+            return out
+        if entry is None:
+            static = [t.clone() for t in inputs]
+            graph = self.ctx.capture(
+                lambda: self.fn(self.generator, *static), [self.generator],
+                self.name)
+            entry = self.graphs[key] = (graph, static)
+        else:
+            for s, t in zip(entry[1], inputs):
+                s.copy_(t)
+        return entry[0].replay(None)

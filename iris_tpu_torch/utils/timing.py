@@ -163,7 +163,7 @@ def bench_scan(fn, seed: int, iters: int = 16, device=None,
             acc = fn(g) + acc * 1e-12
         return acc
 
-    graph = ctx.capture(chained, gens)
+    graph = ctx.capture(chained, gens, "bench_scan")
     graph.replay([seed + 1000 + i for i in range(iters)])
     seeds = [seed + i for i in range(iters)]
     times = [_elapsed_s(lambda: graph.replay(seeds)) / iters

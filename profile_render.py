@@ -11,7 +11,9 @@ For each cell of chip_smoke.py (the flagship scene and the 102,014-face
 clutter scene, 8,100 pixels) it runs the unit of work once to warm up,
 times it a few times without the profiler, and then once under
 torch.profiler (CPU and CUDA activities). The unit is one render round
-(render_chunk + aov_chunk at spp 8, depth 5) or, with --path train, one
+(render_chunk + aov_chunk at spp 8, depth 5) as the render CLIs run it,
+one CUDA graph replay (pipeline.render.make_render_round: its warm-up
+round and capture come before the timed rounds) or, with --path train, one
 train step (fwd+bwd of the benchmark loss at spp 32 = 259,200 camera
 samples, then Adam, one step of run_training) or, with --path refine, one
 chunk of refine_shading's diffuse bake (path_tracing_det_diff at spp 128,
@@ -28,8 +30,10 @@ prints
 the unit's wall time with and without the profiler, the summed device time
 of its kernels and the device's idle share against both, the number of
 kernels launched, the traversal kernels' share, and the kernels that took
-the most device time. The Chrome trace of each profiled unit is written
-next to --out (utils/profiling.device_trace). Needs one CUDA card.
+the most device time, and the host's kernel-launch and graph-launch calls
+of the unit (a replayed round: one graph launch and the two refills of its
+generator's seed and offset). The Chrome trace of each profiled unit is
+written next to --out (utils/profiling.device_trace). Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -119,14 +123,16 @@ def make_unit(path, n_clutter, seed, grid="4x16", policy="default"):
         return unit, kernel
 
     if path == "render":
-        from iris_tpu_torch.pipeline.render import make_render_fns
+        from iris_tpu_torch.pipeline.render import (
+            make_render_fns, make_render_round)
 
-        render_chunk, aov_chunk = make_render_fns(
-            tracer, em, demo_mat_fn(ngp), SPP, INDIR_DEPTH)
+        render_round = make_render_round(*make_render_fns(
+            tracer, em, demo_mat_fn(ngp), SPP, INDIR_DEPTH), dev)
+        render_round(rays, seed=seed)               # the eager warm-up
+        render_round(rays)                          # the capture
 
         def unit():
-            render_chunk(rays, gen)
-            aov_chunk(rays, gen)
+            render_round(rays)
             torch.cuda.synchronize()
 
         return unit, kernel
@@ -150,6 +156,7 @@ def make_unit(path, n_clutter, seed, grid="4x16", policy="default"):
 
 
 def profile_cell(label, path, n_clutter, seed, out, grid, policy):
+    from chip_smoke import launch_calls
     from iris_tpu_torch.utils.profiling import device_trace
 
     unit, kernel = make_unit(path, n_clutter, seed, grid, policy)
@@ -182,6 +189,10 @@ def profile_cell(label, path, n_clutter, seed, out, grid, policy):
           f"{max(0.0, 1 - busy_ms / plain_ms):.3f} without; {n_kernels} "
           f"kernels; traversal {trav_ms:.3f} ms = {trav_ms / busy_ms:.3f} "
           f"of device time")
+    calls = launch_calls(prof)
+    print(f"  host launch calls: {calls['kernel_launch_calls']} kernel "
+          f"launches, {calls['graph_launch_calls']} graph launches "
+          f"({calls['launch_calls']})")
     top = sorted(kernels, key=device_time_us, reverse=True)[:15]
     for e in top:
         print(f"  {device_time_us(e) / 1e3:8.3f} ms  x{e.count:<5d} "

@@ -977,3 +977,46 @@ def test_graphed_bench_scan_is_the_eager_calls(card):
     for s in seeds:
         acc = step(torch.Generator(device=card).manual_seed(s)) + acc * 1e-12
     assert torch.equal(out, acc)
+
+
+def test_replayed_render_round_is_the_eager_round(card):
+    """pipeline.render.make_render_round on the card (spp 4, depth 5, the
+    flagship scene): over 2 frames of 3 rounds (the first round the eager
+    warm-up, the second the capture), every round's radiance and six
+    AOVs equal render_chunk + aov_chunk run eagerly under a generator of
+    the same seed drawn round after round, every bit; the kernels count 8
+    trace_union launches in each replayed round, and one capture."""
+    from iris_tpu_torch.demo import demo_mat_fn, make_demo_scene
+    from iris_tpu_torch.pipeline.render import (
+        make_render_fns, make_render_round)
+    from iris_tpu_torch.utils.graphs import observing
+
+    tracer, em, ngp, _, _ = make_demo_scene(
+        n_clutter=32, slf_res=16, hash_levels=4, hash_features=16,
+        per_level_scale=-1.0, log2_table=14, device=card)
+    rays = _card_scene(card)[4]
+    rc, ac = make_render_fns(tracer, em, demo_mat_fn(ngp), 4, 5)
+    captures = []
+
+    class Captures:
+        def captured(self, graph):
+            captures.append(graph)
+
+        def replayed(self, graph, seeds, start, end):
+            pass
+
+    with observing(Captures()):
+        unit = make_render_round(rc, ac, card)
+        for frame in (3, 4):
+            gen = torch.Generator(device=card).manual_seed(frame)
+            for rd in range(3):
+                before = ci.launch_counts()["trace_union"]
+                got = [x.clone() for x in unit(
+                    rays, seed=frame if rd == 0 else None)]
+                torch.cuda.synchronize()
+                launched = ci.launch_counts()["trace_union"] - before
+                want = [rc(rays, gen)] + list(ac(rays, gen))
+                assert len(got) == 7 and all(
+                    torch.equal(a, b) for a, b in zip(got, want)), (frame, rd)
+                assert launched == 8, (frame, rd, launched)
+    assert len(captures) == 1

@@ -126,13 +126,12 @@ def test_validation_chunks_draw_their_own_streams(scene, tmp_path):
         pt, pe, init_emor_crf(device="cpu"), batch, (91, 91),
         str(tmp_path), spp=1, indir_depth=1)
     seen = []
-    real = validation.val_generator
+    real = validation.val_seed
     try:
-        validation.val_generator = lambda s, c, dev: (
-            seen.append((s, c)) or real(s, c, dev))
+        validation.val_seed = lambda s, c: seen.append((s, c)) or real(s, c)
         l_train, l_full, _ = hook.render({"material": pn}, 3)
     finally:
-        validation.val_generator = real
+        validation.val_seed = real
     assert seen == [(3, 0), (3, 1)]
     assert l_train.shape == l_full.shape == (91 * 91, 3)
 

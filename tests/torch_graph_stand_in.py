@@ -1,7 +1,10 @@
 """Stand-ins for the CUDA calls of iris_tpu_torch.utils.graphs (its
 _cuda_* functions), so that the CPU tests run its capture and replay
 logic: a captured function runs once at capture, where the card records
-its launches, and again at every replay, where the card issues them."""
+its launches, and again at every replay, where the card issues them. As
+on the card, a capture draws nothing from the registered generators (a
+replay draws from their state at replay time) and a replay writes its
+results into the tensors the capture returned."""
 
 import contextlib
 
@@ -19,6 +22,7 @@ class Graph:
 
     def __init__(self, rerun=True):
         self.fn, self.rerun, self.replays, self.generators = None, rerun, 0, []
+        self.outputs = None
 
     def register_generator_state(self, gen):
         self.generators.append(gen)
@@ -26,7 +30,19 @@ class Graph:
     def replay(self):
         self.replays += 1
         if self.rerun:
-            self.fn()
+            _write_into(self.outputs, self.fn())
+
+
+def _write_into(out, new):
+    """Copy a replay's results into the captured outputs, in place."""
+    if isinstance(out, torch.Tensor):
+        out.copy_(new)
+    elif isinstance(out, (tuple, list)):
+        for a, b in zip(out, new):
+            _write_into(a, b)
+    elif isinstance(out, dict):
+        for k in out:
+            _write_into(out[k], new[k])
 
 
 class Event:
@@ -42,7 +58,11 @@ class Event:
 
 def capture(graph, pool, stream, fn):
     graph.fn = fn
-    return fn()
+    states = [g.get_state() for g in graph.generators]
+    graph.outputs = fn()
+    for g, state in zip(graph.generators, states):
+        g.set_state(state)
+    return graph.outputs
 
 
 def use(monkeypatch, rerun=True):
