@@ -1,0 +1,6 @@
+"""Device kernels a unit, graph replays included, from the profiler. The
+unit is a training step."""
+
+
+def read(t):
+    return t.get("kernels_per_unit")
