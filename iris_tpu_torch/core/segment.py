@@ -30,6 +30,8 @@ import math
 
 import torch
 
+from iris_tpu_torch.utils.profiling import spanned
+
 # rows one thread adds in the first pass
 SPAN = 64
 
@@ -46,12 +48,13 @@ def _sum(data: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
                                 unsafe=True)
 
 
+@spanned("segment.sum")
 def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """values (N, ...) summed into (num_segments, ...) by segment_ids (N,)
     in [0, num_segments); empty segments are zero. Half-precision values
     are summed in float32 and rounded once; the result keeps the values'
-    dtype."""
+    dtype. The span segment.sum."""
     n = values.shape[0]
     wide = num_segments + n // SPAN + 1 >= 2 ** 31
     idt = torch.int64 if wide else torch.int32

@@ -41,6 +41,7 @@ from iris_tpu_torch.geometry.bvh import morton3d
 from iris_tpu_torch.models.emor import parse_emor_file
 from iris_tpu_torch.utils.exr import read_exr
 from iris_tpu_torch.utils.image import open_png
+from iris_tpu_torch.utils.profiling import span, spanned
 
 ROUGHNESS_LEVELS = 6
 
@@ -461,14 +462,19 @@ class RayBatcher:
     def batches_per_epoch(self):
         return math.ceil(self.n / self.batch_size)
 
+    @spanned("batcher.batch")
     def batch(self, step: int) -> dict:
+        """The batch of `step`: the span batcher.batch, with its sort the
+        span batcher.sort."""
         per_host = self.batch_size // self.pc
         b0 = (step % self.batches_per_epoch) * self.batch_size
         sel = self.idxs[b0 + self.pi * per_host: b0 + (self.pi + 1) * per_host]
         if len(sel) < per_host:  # wrap the epoch tail
             sel = np.concatenate([sel, self.idxs[: per_host - len(sel)]])
         if self.sort_batches and "rays" in self.bank:
-            order = sort_rays_spatially(self.bank["rays"][sel])
+            rays = self.bank["rays"][sel]
+            with span("batcher.sort"):
+                order = sort_rays_spatially(rays)
             sel = sel[order]
         return {k: v[sel] for k, v in self.bank.items()}
 

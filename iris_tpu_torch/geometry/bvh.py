@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from iris_tpu_torch.device import resolve_device
+from iris_tpu_torch.utils.profiling import spanned
 
 BIG = np.float32(3e38)
 
@@ -197,6 +198,7 @@ def _morton_arrays(triangles: np.ndarray, leaf_size: int):
     return nodes, tris_packed, depth
 
 
+@spanned("bvh.build")
 def build_bvh(triangles: np.ndarray, leaf_size: int = 4, method: str = "sah",
               device=None, policy: TraversalPolicy | None = None) -> Tracer:
     """Build the flat BVH from (F, 3, 3) triangle vertices.
@@ -204,7 +206,7 @@ def build_bvh(triangles: np.ndarray, leaf_size: int = 4, method: str = "sah",
     method: "sah" (default, native C++ builder, preorder layout; raises if
     it cannot be built) or "morton" (vectorized complete tree, heap
     layout). policy: the tracer's TraversalPolicy (default: the JAX
-    package's defaults)."""
+    package's defaults). The span bvh.build."""
     from iris_tpu_torch.geometry.bvh_native import build_sah_arrays
 
     dev = resolve_device(device)

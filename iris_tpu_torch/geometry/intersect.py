@@ -19,6 +19,7 @@ import torch
 from iris_tpu_torch.core.vecmath import double_sided, normalize
 from iris_tpu_torch.geometry import cuda_intersect as ci
 from iris_tpu_torch.geometry.bvh import Tracer, TraversalPolicy
+from iris_tpu_torch.utils.profiling import spanned
 
 __all__ = ["TraversalPolicy", "traversal_mode", "kernel_for", "ray_trace",
            "spatial_sort_perm", "ray_intersect", "ray_intersect_brute"]
@@ -124,6 +125,7 @@ def spatial_sort_perm(tracer: Tracer, xs: torch.Tensor, ds: torch.Tensor
     return torch.argsort((octant << 24) | key, stable=True)
 
 
+@spanned("geometry.intersect")
 def ray_intersect(tracer: Tracer, xs: torch.Tensor, ds: torch.Tensor,
                   sort: bool = False):
     """Reference-parity intersection (utils/path_tracing.py:17-48).
@@ -136,6 +138,7 @@ def ray_intersect(tracer: Tracer, xs: torch.Tensor, ds: torch.Tensor,
     Returns:
         positions (B,3), normals (B,3) unit & viewer-facing, uvs (B,2),
         idx (B,) original face index (-1 = miss), valid (B,) bool.
+    The span geometry.intersect.
     """
     perm = None
     if sort and tracer.n_faces >= 5000:

@@ -43,6 +43,13 @@ torch.Generator, or take a `samples` dict that overrides every draw:
 integer tensors) the level-block phases of the backward and forward
 subsampling. The parity tests replay the JAX package's key stream into
 that dict.
+
+An encode is the span hashgrid.encode and counts hashgrid.gather_bytes:
+the table bytes that any encode of its mode and estimator reads (each
+point's corners at each kept level, every feature at the precision the
+mode reads it), whatever the gathers of this implementation read besides
+(indices, materialised corners). Each backward is the span
+hashgrid.encode_bwd.
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ import torch
 
 from iris_tpu_torch.core.segment import segment_sum
 from iris_tpu_torch.parallel.sharding import draw_uniform, rank_rows
+from iris_tpu_torch.utils.profiling import count, spanned
 
 _PRIMES = (1, 2654435761, 805459861)
 
@@ -296,6 +304,7 @@ class _WeightedLookup(torch.autograd.Function):
         return _lookup_impl(table, idxs, weights, n_features, block)
 
     @staticmethod
+    @spanned("hashgrid.encode_bwd")
     def backward(ctx, g):
         idxs, weights = ctx.saved_tensors
         return (_flat_bwd(g, idxs, weights, *ctx.args),) + (None,) * 5
@@ -316,6 +325,7 @@ class _LookupStochBwd(torch.autograd.Function):
         return _lookup_impl(table, idxs, weights, n_features, block)
 
     @staticmethod
+    @spanned("hashgrid.encode_bwd")
     def backward(ctx, g):
         (chosen_idx,) = ctx.saved_tensors
         return (_scatter_chosen(g, chosen_idx, *ctx.args),) + (None,) * 11
@@ -335,6 +345,7 @@ class _StochLookup(torch.autograd.Function):
                                   packed, levels, tbl, fwd_block)
 
     @staticmethod
+    @spanned("hashgrid.encode_bwd")
     def backward(ctx, g):
         (chosen_idx,) = ctx.saved_tensors
         return (_scatter_chosen(g, chosen_idx, *ctx.args),) + (None,) * 10
@@ -436,6 +447,7 @@ class _RowWeighted(torch.autograd.Function):
         return _row_lookup(rows, idxs, weights)
 
     @staticmethod
+    @spanned("hashgrid.encode_bwd")
     def backward(ctx, g):
         idxs, weights = ctx.saved_tensors
         # every corner's rows in one corner-major segment sum
@@ -455,6 +467,7 @@ class _RowStochBwd(torch.autograd.Function):
         return _row_lookup(rows, idxs, weights, gdtype)
 
     @staticmethod
+    @spanned("hashgrid.encode_bwd")
     def backward(ctx, g):
         (chosen_idx,) = ctx.saved_tensors
         phase, lt, levels, bwd_k, tsize, compact = ctx.args
@@ -474,6 +487,7 @@ class _RowStoch(torch.autograd.Function):
         return _row_cast(rows, gdtype)[chosen_idx].to(rows.dtype)
 
     @staticmethod
+    @spanned("hashgrid.encode_bwd")
     def backward(ctx, g):
         (chosen_idx,) = ctx.saved_tensors
         phase, lt, levels, bwd_k, tsize, compact = ctx.args
@@ -521,6 +535,7 @@ def _level_constants(cfg: HashGridConfig, dev: torch.device):
             torch.arange(cfg.n_levels, dtype=torch.int64, device=dev))
 
 
+@spanned("hashgrid.encode")
 def hashgrid_encode(table: torch.Tensor, cfg: HashGridConfig,
                     x: torch.Tensor, gen: torch.Generator | None = None,
                     samples: dict | None = None) -> torch.Tensor:
@@ -532,7 +547,7 @@ def hashgrid_encode(table: torch.Tensor, cfg: HashGridConfig,
     With `gen` or `samples` and cfg.stochastic_{bwd,fwd} it runs the
     unbiased stochastic-corner estimators; with neither, the exact encode
     (what renders use). `samples` overrides the draws: "u3"
-    (3, B*L_eff), "phase", "fphase"."""
+    (3, B*L_eff), "phase", "fphase". The span hashgrid.encode."""
     if cfg.row_gather:
         rows = table if table.dim() == 2 else table.reshape(
             cfg.n_levels * cfg.table_size, cfg.n_features)
@@ -624,6 +639,13 @@ def hashgrid_encode(table: torch.Tensor, cfg: HashGridConfig,
                                   cell[2] + bits[2])
 
     fdim = cfg.n_features
+    # one corner a point and level under the stochastic forward, else
+    # eight; bfloat16 features where the mode reads them so
+    half = (stoch and cfg.fwd_gather_dtype == "bfloat16" if cfg.row_gather
+            else cfg.packed_gather and fdim == 2)
+    count("hashgrid.gather_bytes",
+          (1 if stoch and cfg.stochastic_fwd else 8) * b * l_eff * fdim
+          * (2 if half else table.element_size()))
     if not cfg.row_gather:
         return _encode_flat(table, cfg, b, l, l_eff, fwd_k, fphase, bwd_k,
                             phase, stoch, chosen_idx,

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from iris_tpu_torch.utils.profiling import span
+
 
 def init_mlp(gen: torch.Generator, sizes: list[int], device) -> dict:
     """sizes = [in, hidden..., out]. He-uniform weights, zero biases."""
@@ -33,16 +35,17 @@ def apply_mlp(params: dict, x: torch.Tensor, bf16: bool = True
               ) -> torch.Tensor:
     """Forward pass with bf16 operands and f32 sums, or with bf16=False
     f32 operands (the implicit MLP of models/mlps.py); hidden activations
-    ReLU, linear head."""
+    ReLU, linear head. The span mlp.apply."""
     torch.backends.cuda.matmul.allow_tf32 = False
     n = len(params["w"])
     h = x
-    for i in range(n):
-        w, b = params["w"][i], params["b"][i]
-        if bf16:
-            h = _bf16_round(h) @ _bf16_round(w) + b
-        else:
-            h = h @ w + b
-        if i < n - 1:
-            h = torch.relu(h)
+    with span("mlp.apply"):
+        for i in range(n):
+            w, b = params["w"][i], params["b"][i]
+            if bf16:
+                h = _bf16_round(h) @ _bf16_round(w) + b
+            else:
+                h = h @ w + b
+            if i < n - 1:
+                h = torch.relu(h)
     return h

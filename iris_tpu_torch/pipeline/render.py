@@ -41,6 +41,7 @@ from iris_tpu_torch.utils.exr import write_exr
 from iris_tpu_torch.utils.graphs import GraphContext, GraphedUnit
 from iris_tpu_torch.utils.image import save_image
 from iris_tpu_torch.utils.metrics import psnr, ssim
+from iris_tpu_torch.utils.profiling import count, span
 
 AOV_DIRS = ("rgb", "diffuse", "a_prime", "roughness", "metallic", "emission",
             "slf", "merge")
@@ -109,10 +110,13 @@ def make_render_round(render_chunk, aov_chunk, device,
     aov_chunk over rays (B, 12), both drawing from the unit's generator.
     On the card a call is one CUDA graph replay after a warm-up round, one
     capture a ray count (utils.graphs.GraphedUnit; its outputs are
-    overwritten by the next call); on the CPU it runs eagerly."""
+    overwritten by the next call); on the CPU it runs eagerly. A round is
+    the span render.round and counts one render.rounds."""
 
     def round_(gen, rays):
-        return (render_chunk(rays, gen),) + tuple(aov_chunk(rays, gen))
+        with span("render.round"):
+            count("render.rounds", 1)
+            return (render_chunk(rays, gen),) + tuple(aov_chunk(rays, gen))
 
     return GraphedUnit(round_, device, graphs, "render_round")
 

@@ -31,6 +31,7 @@ from iris_tpu_torch.models.emitter import (
     Emitter, eval_emitter, sample_emitter,
 )
 from iris_tpu_torch.parallel.sharding import draw_uniform, rank_rows
+from iris_tpu_torch.utils.profiling import spanned
 
 MatFn = Callable[[torch.Tensor], dict]
 
@@ -66,6 +67,7 @@ def _mis_power2(pdf_a: torch.Tensor, pdf_b: torch.Tensor,
     return torch.where(torch.isinf(pdf_a) | (pdf_b == 0), 1.0, w)
 
 
+@spanned("integrator.bounce")
 def _nee_and_bounce(gen, tracer: Tracer, em: Emitter, mat_fn: MatFn,
                     position, wo, normal, mat, active, g_clamp: float,
                     mis_clamp: float, trace_roughness: float | None,
@@ -149,6 +151,7 @@ def _nee_and_bounce(gen, tracer: Tracer, em: Emitter, mat_fn: MatFn,
             mat_next, active_next, brdf_weight)
 
 
+@spanned("integrator.first_hit")
 def _first_hit(gen, tracer, em, mat_fn, rays_o, rays_d, dx_du, dy_dv, spp,
                samples):
     position, wi = _jitter_rays(gen, rays_o, rays_d, dx_du, dy_dv, spp,

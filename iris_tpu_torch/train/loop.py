@@ -31,6 +31,7 @@ from iris_tpu_torch.parallel.distributed import (
 from iris_tpu_torch.parallel.sharding import RankGenerator, shard_rows
 from iris_tpu_torch.train.optim import Optimizer, named_leaves
 from iris_tpu_torch.utils.graphs import GraphContext, StaticBatches
+from iris_tpu_torch.utils.profiling import count, span
 
 
 def value_and_grad(loss_fn: Callable, params: dict, batch: dict, gen,
@@ -76,13 +77,16 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer, group=None):
     """step(params, opt_state, batch, gen, samples=None) ->
     (params, opt_state, loss, aux). The parameters are updated in place
     and returned; opt_state comes from optimizer.init(params). With a
-    RankGroup the step is data-parallel (value_and_grad)."""
+    RankGroup the step is data-parallel (value_and_grad). A step is the
+    span train.step and counts one train.steps."""
 
     def step(params, opt_state, batch, gen, samples=None):
-        loss, aux, grads = value_and_grad(loss_fn, params, batch, gen,
-                                          samples, group)
-        with torch.no_grad():
-            optimizer.update(params, grads, opt_state)
+        with span("train.step"):
+            count("train.steps", 1)
+            loss, aux, grads = value_and_grad(loss_fn, params, batch, gen,
+                                              samples, group)
+            with torch.no_grad():
+                optimizer.update(params, grads, opt_state)
         return params, opt_state, loss, aux
 
     return step
@@ -256,9 +260,11 @@ def make_run_graphs(device, group=None) -> GraphContext | None:
 def _to_host(losses: torch.Tensor, auxes: dict):
     """The chunk's losses and auxes on the host in ONE copy (float64 holds
     every float32, bfloat16 and 32-bit integer exactly), each back in its
-    own dtype."""
+    own dtype: the span train.sync, the host's wait for the chunk."""
     cols = [losses] + list(auxes.values())
-    flat = torch.cat([c.reshape(-1).to(torch.float64) for c in cols]).cpu()
+    with span("train.sync"):
+        flat = torch.cat([c.reshape(-1).to(torch.float64)
+                          for c in cols]).cpu()
     out = [c.to(col.dtype).reshape(col.shape) for c, col in
            zip(flat.split([col.numel() for col in cols]), cols)]
     return out[0], dict(zip(auxes, out[1:]))
@@ -336,37 +342,39 @@ def run_training(loss_fn: Callable, params: dict, batches: Iterable,
     it = iter(batches)
     step = start_step
     while step < n_steps:
-        k_chunk = min(max(int(chunk_steps), 1), n_steps - step)
-        chunk = [next(it) for _ in range(k_chunk)]
-        if k_chunk > 1:
-            if device.type == "cuda" and group is None and graphs is None:
-                graphs = GraphContext(device)
-            if k_chunk not in chunk_fns:
-                chunk_fns[k_chunk] = make_train_chunk(
-                    loss_fn, optimizer, k_chunk, group, graphs)
-            params, opt_state, losses, auxes = chunk_fns[k_chunk](
-                params, opt_state, chunk, seed, step, samples_for_step)
-            losses, auxes = _to_host(losses, auxes)
-            results = [(step + j, losses[j], {k: v[j] for k, v in
-                                              auxes.items()})
-                       for j in range(k_chunk)]
-        else:
-            samples = samples_for_step(step) if samples_for_step else None
-            params, opt_state, loss, aux = step_fn(
-                params, opt_state, batch_to_device(chunk[0], device),
-                step_generator(seed, step, device, group), samples)
-            results = [(step, loss, aux)]
-        for s, loss, aux in results:
-            if hooks:
-                for h in hooks:
-                    h(s, params, loss, aux)
-            if log_fn and (s % log_every == 0 or s == n_steps - 1):
-                log_fn(f"step {s:6d}  loss {float(loss):.6f}  " + "  ".join(
-                    f"{k}={float(v):.5f}" for k, v in (aux or {}).items())
-                    + f"  [{time.time() - t0:.1f}s]")
-        if state_hooks:
-            for h in state_hooks:
-                h(step + k_chunk - 1, params, opt_state)
+        with span("train.chunk"):
+            k_chunk = min(max(int(chunk_steps), 1), n_steps - step)
+            chunk = [next(it) for _ in range(k_chunk)]
+            if k_chunk > 1:
+                if device.type == "cuda" and group is None and graphs is None:
+                    graphs = GraphContext(device)
+                if k_chunk not in chunk_fns:
+                    chunk_fns[k_chunk] = make_train_chunk(
+                        loss_fn, optimizer, k_chunk, group, graphs)
+                params, opt_state, losses, auxes = chunk_fns[k_chunk](
+                    params, opt_state, chunk, seed, step, samples_for_step)
+                losses, auxes = _to_host(losses, auxes)
+                results = [(step + j, losses[j], {k: v[j] for k, v in
+                                                  auxes.items()})
+                           for j in range(k_chunk)]
+            else:
+                samples = samples_for_step(step) if samples_for_step else None
+                params, opt_state, loss, aux = step_fn(
+                    params, opt_state, batch_to_device(chunk[0], device),
+                    step_generator(seed, step, device, group), samples)
+                results = [(step, loss, aux)]
+            for s, loss, aux in results:
+                if hooks:
+                    for h in hooks:
+                        h(s, params, loss, aux)
+                if log_fn and (s % log_every == 0 or s == n_steps - 1):
+                    log_fn(f"step {s:6d}  loss {float(loss):.6f}  "
+                           + "  ".join(f"{k}={float(v):.5f}" for k, v
+                                       in (aux or {}).items())
+                           + f"  [{time.time() - t0:.1f}s]")
+            if state_hooks:
+                for h in state_hooks:
+                    h(step + k_chunk - 1, params, opt_state)
         step += k_chunk
     if return_state:
         return params, opt_state

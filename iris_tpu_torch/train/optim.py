@@ -33,6 +33,7 @@ from dataclasses import dataclass, field
 import torch
 
 from iris_tpu_torch.models.brdf import NGPBRDF
+from iris_tpu_torch.utils.profiling import span
 
 
 def named_leaves(tree, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
@@ -219,16 +220,18 @@ class Optimizer:
 
     def update(self, params: dict, grads: dict, opt_state: dict) -> None:
         """One optimizer step, in place: grads maps leaf names to
-        gradients (a leaf without one is left alone)."""
-        for name, leaf in named_leaves(params):
-            leaf.grad = grads.get(name)
-            if leaf.grad is None and self.weight_decay:
-                # optax decays a leaf whose gradient is zero as well
-                leaf.grad = torch.zeros_like(leaf)
-        opt_state["opt"].step()
-        opt_state["sched"].step()
-        for _, leaf in named_leaves(params):
-            leaf.grad = None
+        gradients (a leaf without one is left alone). The span
+        optim.<optimizer>, lower case (optim.adam)."""
+        with span("optim." + self.optimizer.lower()):
+            for name, leaf in named_leaves(params):
+                leaf.grad = grads.get(name)
+                if leaf.grad is None and self.weight_decay:
+                    # optax decays a leaf whose gradient is zero as well
+                    leaf.grad = torch.zeros_like(leaf)
+            opt_state["opt"].step()
+            opt_state["sched"].step()
+            for _, leaf in named_leaves(params):
+                leaf.grad = None
 
 
 def make_optimizer(learning_rate: float = 1e-3, weight_decay: float = 0.0,

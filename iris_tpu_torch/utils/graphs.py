@@ -47,6 +47,9 @@ static, and how each replay stays the eager run's:
 - Observers. observing(observer) tells an instrument of every capture
   and replay (their host seconds, seeds and CUDA events), so that timers
   and checks read graphs without reaching into this module.
+- Spans. Each capture runs inside utils.profiling.capturing: the spans
+  opened in it become timing marks of the graph, stamped at every replay,
+  and its counts the graph's per-replay tally (profiling.report()).
 - No fallback. A capture or replay that fails raises; nothing runs the
   steps eagerly in its place.
 
@@ -57,10 +60,11 @@ that the CPU tests can exercise the rest with stand-ins.
 from __future__ import annotations
 
 import contextlib
-import time
 
 import numpy as np
 import torch
+
+from iris_tpu_torch.utils import profiling
 
 
 def _cuda_stream(device):
@@ -132,7 +136,7 @@ class GraphContext:
         ordered after the caller's stream and before its later work."""
         caller = _cuda_current_stream(self.device)
         self.stream.wait_stream(caller)
-        with _cuda_on(self.stream):
+        with profiling.span("graph.warmup"), _cuda_on(self.stream):
             yield
         caller.wait_stream(self.stream)
 
@@ -148,7 +152,9 @@ class GraphContext:
 
 class Graph:
     """One captured CUDA graph: its name, its outputs, its registered
-    generators and the host seconds its capture took (capture_s)."""
+    generators, the host seconds its capture took (capture_s, the
+    graph.capture span's) and the marks and tallies its capture recorded
+    (marks, a profiling.Capture)."""
 
     def __init__(self, ctx: GraphContext, fn, generators=(), name=""):
         self.name = name
@@ -156,9 +162,10 @@ class Graph:
         self.generators = list(generators)
         for gen in self.generators:
             self.graph.register_generator_state(gen)
-        t0 = time.perf_counter()
-        self.outputs = _cuda_capture(self.graph, ctx.pool, ctx.stream, fn)
-        self.capture_s = time.perf_counter() - t0
+        with profiling.capturing(name) as (self.marks, sp):
+            self.outputs = _cuda_capture(self.graph, ctx.pool, ctx.stream,
+                                         fn)
+        self.capture_s = sp.seconds
         for observer in list(_OBSERVERS):
             observer.captured(self)
 
@@ -175,6 +182,7 @@ class Graph:
                                  f"{len(self.generators)} generators")
         for gen, seed in zip(self.generators, seeds):
             gen.manual_seed(seed)
+        profiling.replayed(self.marks)
         if not _OBSERVERS:
             self.graph.replay()
             return self.outputs
@@ -226,6 +234,7 @@ class StaticBatches:
                        for key in self.keys} for j in range(self.k)]
         self._copied = None
 
+    @profiling.spanned("train.fill")
     def fill(self, batches) -> None:
         if len(batches) != self.k:
             raise ValueError(f"{len(batches)} batches for a chunk of "

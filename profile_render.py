@@ -27,18 +27,22 @@ trace_dense_streamed (the three packet walks run at their shipped packet
 width; the wrappers' width= argument is for measurements: chip_smoke.py
 --sweep-only times every instantiated width on a train step's rays). It
 prints
-the unit's wall time with and without the profiler, the summed device time
-of its kernels and the device's idle share against both, the number of
-kernels launched, the traversal kernels' share, and the kernels that took
-the most device time, and the host's kernel-launch and graph-launch calls
-of the unit (a replayed round: one graph launch and the two refills of its
-generator's seed and offset). The Chrome trace of each profiled unit is
-written next to --out (utils/profiling.device_trace). Needs one CUDA card.
+the unit's wall time with and without the profiler, the device's busy time
+(the union of its kernels' intervals, so that kernels that overlap count
+once) and idle share against both, the number of kernels launched, the
+traversal kernels' share, and the kernels that took the most device time,
+the host's kernel-launch and graph-launch calls of the unit (a replayed
+round: one graph launch and the two refills of its generator's seed and
+offset), and the unit's spans (utils/profiling.report: the device spans of
+each graph it replayed, timed by the graph's own marks, and the host
+spans it opened). The Chrome trace of each profiled unit is written next
+to --out (utils/profiling.device_trace). Needs one CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
@@ -65,6 +69,35 @@ def device_kernels(prof):
     if not kernels:
         raise RuntimeError("the profiler recorded no device kernels")
     return kernels
+
+
+def busy_us(trace_path) -> float:
+    """Microseconds of the union of the kernels' intervals in a Chrome
+    trace: time in which at least one kernel ran."""
+    with open(trace_path) as f:
+        kern = sorted((e["ts"], e["ts"] + e["dur"])
+                      for e in json.load(f)["traceEvents"]
+                      if e.get("cat") == "kernel")
+    total, end = 0.0, float("-inf")
+    for s, e in kern:
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def print_spans(rep):
+    """The span table of profiling.report(): each graph's device spans
+    (calls, ms, self ms) of its last replay, then the host spans."""
+    for graph, g in rep["graphs"].items():
+        print(f"  device spans of {graph} (counts {g['counts']}):")
+        for name, s in sorted(g["spans"].items(), key=lambda kv: -kv[1]["ms"]):
+            print(f"    {s['ms']:9.3f} ms  self {s['self_ms']:9.3f} ms  "
+                  f"x{s['calls']:<4d} {name}")
+    print("  host spans:")
+    for name, s in sorted(rep["host"].items(), key=lambda kv: -kv[1]["s"]):
+        print(f"    {s['s'] * 1e3:9.3f} ms  self {s['self_s'] * 1e3:9.3f} ms  "
+              f"x{s['calls']:<4d} {name}")
 
 
 def policies():
@@ -157,7 +190,7 @@ def make_unit(path, n_clutter, seed, grid="4x16", policy="default"):
 
 def profile_cell(label, path, n_clutter, seed, out, grid, policy):
     from chip_smoke import launch_calls
-    from iris_tpu_torch.utils.profiling import device_trace
+    from iris_tpu_torch.utils import profiling
 
     unit, kernel = make_unit(path, n_clutter, seed, grid, policy)
     label = f"{label} {grid} {kernel}"
@@ -169,14 +202,16 @@ def profile_cell(label, path, n_clutter, seed, out, grid, policy):
         plain_ms.append((time.perf_counter() - t0) * 1e3)
     plain_ms = sorted(plain_ms)[1]
     name = os.path.splitext(os.path.basename(out))[0]
-    with device_trace(os.path.dirname(os.path.abspath(out)),
-                      f"{name}_{path}_{label.replace(' ', '_')}") as prof:
+    logdir = os.path.dirname(os.path.abspath(out))
+    trace = f"{name}_{path}_{label.replace(' ', '_')}"
+    profiling.reset()
+    with profiling.device_trace(logdir, trace) as prof:
         t0 = time.perf_counter()
         unit()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
     kernels = device_kernels(prof)
-    busy_ms = sum(device_time_us(e) for e in kernels) / 1e3
+    busy_ms = busy_us(os.path.join(logdir, trace + ".json")) / 1e3
     n_kernels = sum(e.count for e in kernels)
     trav_ms = sum(device_time_us(e) for e in kernels
                   if "trace_" in e.key and "_kernel" in e.key) / 1e3
@@ -202,6 +237,7 @@ def profile_cell(label, path, n_clutter, seed, out, grid, policy):
                      key=lambda e: e.count, reverse=True)[:10]
     print("  most frequent aten ops: " + ", ".join(
         f"{e.key[6:]} x{e.count}" for e in cpu_ops))
+    print_spans(profiling.report())
 
 
 def main(argv=None) -> int:

@@ -66,9 +66,11 @@ def capture(graph, pool, stream, fn):
 
 
 def use(monkeypatch, rerun=True):
-    """Put the stand-ins in place; returns the list the graphs made are
-    appended to."""
-    from iris_tpu_torch.utils import graphs
+    """Put the stand-ins in place (a capture's timing marks included);
+    returns the list the graphs made are appended to."""
+    from iris_tpu_torch.utils import graphs, profiling
+
+    monkeypatch.setattr(profiling, "_cuda_event", lambda: Event(True))
 
     made = []
 
