@@ -11,6 +11,7 @@
     python3 chip_smoke.py --drivers-only
     python3 chip_smoke.py --chunks-only
     python3 chip_smoke.py --renders-only
+    python3 chip_smoke.py --encode-only
 
 Needs one NVIDIA card (sm_90a: H100/H200), nvcc and g++. It builds the
 traversal kernels from iris_tpu_torch/csrc/traverse.cu and the SAH builder
@@ -155,7 +156,13 @@ from csrc/bvh_builder.cpp, then:
    instantiation; trace_union's row adds its time and bound on the
    518,400 rays of the 102K train step, and the rows of trace_union and
    trace_paired_streamed their numbers on phase 14's traffic under
-   "relight_traffic";
+   "relight_traffic"; last, after phase 20, the rows "encode" and "pack"
+   of the hash grid's kernels: their launches on the main paths (phases
+   4-19, as the kernels counted them on the card, by phase under
+   "launches_by_phase"; an encode in every render round and training
+   chunk of phases 11, 14, 18 and 19) and phase 20's error, times and
+   bounds at the render cell's shape (the packed encode and its words) and
+   the row rows under "rows" and "rows_bf16";
 14. (run right after phase 11, its traffic held in phase 13) drives the
    consumers of phase 11's trained scene on both datasets, each CLI
    through its main(argv) on the card with brdf1's checkpoint (the 4 x 16
@@ -309,7 +316,19 @@ from csrc/bvh_builder.cpp, then:
    relight replays' launches (1 + 3 D) on each tree; the disco frames
    different; the parameters moved between validation renders. Phases
    4, 5, 9, 11 (render) and 14 now run and time rounds as graph replays;
-20. prints the card line again and, last, the run's JSON verdict.
+20. the hash grid's exact encode kernel (models/cuda_hashgrid.py,
+   csrc/hashgrid.cu) at the cells' shapes: 614,400 points x 32 levels of
+   the packed 32 x 2 x 2^19 grid (a render round's encode) and 262,144
+   points x 4 levels of the 4 x 16 x 2^19 row grid (a training step's
+   exact encode), float32 and bfloat16 reads; each held bit for bit
+   against encode_plain on the card, one launch a call counted by the
+   kernel; ms a call (median of 20, L2 flushed) beside its bound (the
+   bytes it cannot avoid at 3.35 TB/s: each table entry its points touch
+   once, the points, the output) and encode_plain's time, the bytes of
+   every corner's read printed beside; the packed words made each encode
+   by the pack kernel, held against _pack_bf16, counted and timed beside
+   it, its bound the float32 table read and the words written once;
+21. prints the card line again and, last, the run's JSON verdict.
 
 Any failed check raises, and the script then exits non-zero with no
 verdict line. It imports nothing of JAX or of the JAX package.
@@ -342,6 +361,10 @@ phase 18 alone, bench.measure included (no verdict line).
 
 --renders-only runs phases 1-2, builds the flagship and 102K scenes, then
 phase 19 alone (no verdict line).
+
+--encode-only runs phases 1-2, then phase 20 alone (no verdict line).
+--chunks-only and --renders-only also print the hash grid kernels'
+launches in their phase and check that the encode kernel ran.
 
 --sweep-only runs phases 1-2, builds the 102,014-face scene, takes the
 518,400 rays of one train step and runs the width sweep of phase 12 alone
@@ -459,6 +482,20 @@ RELIGHT_ROUND_SPOTS = 40       # relight_1's disco lights and spots
 RELIGHT_ROUND_PHASES = (0.0, 0.7, 1.9)
 VAL_RENDER_STEPS = (0, 10, 20)
 RENDERS_DIR = os.path.join("outputs", "chip_smoke_renders")
+# phase 20: the encode kernel at the cells' grids (benchmark/configs/) and
+# points (a render round's 614,400 samples; a training step's 262,144
+# path-traced first hits)
+ENCODE_CASES = (
+    ("render", "packed", 614_400,
+     dict(n_levels=32, n_features=2, log2_table_size=19, base_resolution=16,
+          per_level_scale=1.3)),
+    ("train", "rows", 262_144,
+     dict(n_levels=4, n_features=16, log2_table_size=19, base_resolution=16,
+          per_level_scale=15.045777687353615, row_gather=True)),
+    ("train", "rows_bf16", 262_144,
+     dict(n_levels=4, n_features=16, log2_table_size=19, base_resolution=16,
+          per_level_scale=15.045777687353615, row_gather=True)),
+)
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx")
 # phase 14: the consumers of phase 11's trained scene; relight_demo.sh's
@@ -535,8 +572,9 @@ def card_line() -> str:
 
 
 def build_all():
-    """Start both native builds together; returns (seconds, ptxas lines)."""
+    """Start the native builds together; returns (seconds, ptxas lines)."""
     from iris_tpu_torch.geometry import bvh_native, cuda_intersect
+    from iris_tpu_torch.models import cuda_hashgrid
 
     results, errors = {}, []
 
@@ -548,7 +586,8 @@ def build_all():
 
     t0 = time.perf_counter()
     threads = [threading.Thread(target=run, args=(n, f)) for n, f in
-               (("traverse", cuda_intersect.build), ("bvh", bvh_native.build))]
+               (("traverse", cuda_intersect.build), ("bvh", bvh_native.build),
+                ("hashgrid", cuda_hashgrid.build))]
     for t in threads:
         t.start()
     for t in threads:
@@ -556,7 +595,9 @@ def build_all():
     if errors:
         raise errors[0]
     cuda_intersect.get_lib()
-    ptxas = [ln.strip() for ln in results["traverse"][1].splitlines()
+    cuda_hashgrid.get_lib()
+    ptxas = [ln.strip() for name in ("traverse", "hashgrid")
+             for ln in results[name][1].splitlines()
              if "registers" in ln or "spill" in ln or "Compiling" in ln]
     return time.perf_counter() - t0, ptxas
 
@@ -637,6 +678,17 @@ def read_launches():
 
     counts = ci.launch_counts()
     return {name: counts[name] for name in KERNELS}
+
+
+def take_encode_launches():
+    """The hash grid's kernels' launches since the last call (or since
+    their library was loaded), as they counted them on the card, replays
+    included: {"encode": n, "pack": n}; zeroes the counts."""
+    from iris_tpu_torch.models import cuda_hashgrid
+
+    counts = cuda_hashgrid.launch_counts()
+    cuda_hashgrid.reset_launch_counts()
+    return counts
 
 
 class record_largest_trace:
@@ -4344,6 +4396,115 @@ def renders_phase(dev, seed, scenes):
     return stats
 
 
+def encode_phase(dev, seed, flush):
+    """Phase 20, the encode kernel at the cells' shapes, printed. Returns
+    its stats by case."""
+    import torch
+
+    from iris_tpu_torch.models import cuda_hashgrid
+    from iris_tpu_torch.models import hashgrid as H
+
+    card = card_line()
+    stats = {}
+    for unit, mode, n, grid in ENCODE_CASES:
+        cfg = H.HashGridConfig(**grid)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        table = H.init_hashgrid(gen, cfg, dev).uniform_(-0.3, 0.3,
+                                                        generator=gen)
+        x = torch.rand((n, 3), generator=gen, device=dev)
+        lt = cfg.n_levels * cfg.table_size
+        levels = H._level_constants(cfg, dev)
+        before = cuda_hashgrid.launch_counts()
+        words = cuda_hashgrid.pack(table, lt) if mode == "packed" else table
+        args = (words, x, levels[:3], mode, cfg.n_levels, cfg.n_features,
+                cfg.log2_table_size)
+        got = cuda_hashgrid.encode(*args)
+        check(cuda_hashgrid.launch_counts() == {
+            "encode": before["encode"] + 1,
+            "pack": before["pack"] + (mode == "packed")},
+              f"encode {mode}: the kernels counted their launches")
+        want = cuda_hashgrid.encode_plain(*args)
+        check(torch.equal(got, want), f"encode {mode}: kernel = plain")
+        err = (got - want).abs().max().item()
+        del got, want
+        ms = time_ms(lambda: cuda_hashgrid.encode(*args), 20, flush)
+        plain_ms = time_ms(lambda: cuda_hashgrid.encode_plain(*args), 20,
+                           flush)
+        # the bytes the encode cannot avoid: each table entry its points
+        # touch, once, at the precision read; the points; the output
+        idxs, _ = H._corners(*H._cells(x, *levels, cfg.table_size,
+                                       cfg.n_levels))
+        touched = torch.zeros(lt, dtype=torch.bool, device=dev)
+        touched[idxs.reshape(-1)] = True
+        entries = int(touched.sum())
+        del idxs, touched
+        entry = 4 if mode == "packed" else 4 * cfg.n_features
+        out_bytes = n * cfg.n_levels * cfg.n_features * 4
+        nbytes = entries * entry + n * 12 + out_bytes
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        # every corner's read, as the kernel issues them (from L2, mostly)
+        corner_bytes = n * cfg.n_levels * 8 * entry
+        rec = {"unit": unit, "points": n, "levels": cfg.n_levels,
+               "features": cfg.n_features, "max_abs_err": err, "ms": ms,
+               "bound_ms": bound_ms, "bytes": nbytes,
+               "entries_touched": entries, "table_entries": lt,
+               "corner_bytes": corner_bytes,
+               "plain_ms": plain_ms}
+        line = (f"encode {mode} ({card}): {n} points x {cfg.n_levels} "
+                f"levels x {cfg.n_features} features, kernel = plain bit "
+                f"for bit; {ms:.4f} ms a call (median of 20, L2 flushed), "
+                f"bound {bound_ms:.4f} ms ({nbytes} B at 3.35 TB/s: "
+                f"{entries} of {lt} entries touched, points, output; the "
+                f"corners' reads {corner_bytes} B), plain {plain_ms:.3f} ms")
+        if mode == "packed":
+            check(torch.equal(words, H._pack_bf16(table, lt)),
+                  "pack = _pack_bf16")
+            pack_ms = time_ms(lambda: cuda_hashgrid.pack(table, lt), 20,
+                              flush)
+            pack_plain_ms = time_ms(lambda: H._pack_bf16(table, lt), 20,
+                                    flush)
+            # the float32 table read and the words written, once
+            pack_bytes = lt * 2 * 4 + lt * 4
+            rec.update(pack_ms=pack_ms, pack_plain_ms=pack_plain_ms,
+                       pack_bytes=pack_bytes,
+                       pack_bound_ms=pack_bytes / HBM_BYTES_PER_S * 1e3)
+            line += (f"; the words: pack {pack_ms:.4f} ms (bound "
+                     f"{rec['pack_bound_ms']:.4f} ms, {pack_bytes} B), "
+                     f"_pack_bf16 {pack_plain_ms:.4f} ms")
+        stats[mode] = rec
+        print(line)
+    return stats
+
+
+def encode_rows(main_launches, encode):
+    """The "encode" and "pack" rows of the kernels line: the kernels'
+    launches on the main paths (main_launches, by phase) and phase 20's
+    stats (encode)."""
+    src = "iris_tpu_torch/csrc/hashgrid.cu"
+    none = "none: XLA runs the encode (iris_tpu/models/hashgrid.py)"
+    packed = encode["packed"]
+    rows = []
+    for name, ms, plain_ms, bound_ms, err, extra in (
+            ("encode", packed["ms"], packed["plain_ms"], packed["bound_ms"],
+             max(rec["max_abs_err"] for rec in encode.values()),
+             {"points": packed["points"], "plain_input": "the same points",
+              **{mode: encode[mode] for mode in encode
+                 if mode != "packed"}}),
+            ("pack", packed["pack_ms"], packed["pack_plain_ms"],
+             packed["pack_bound_ms"], 0.0,
+             {"entries": packed["table_entries"],
+              "plain_input": "the same table"})):
+        rows.append({
+            "name": name, "route": "cuda", "source": src, "replaces": none,
+            "launches": sum(c[name] for c in main_launches.values()),
+            "launches_by_phase": {p: c[name]
+                                  for p, c in main_launches.items()},
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+            **extra})
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4378,6 +4539,9 @@ def main(argv=None) -> int:
     ap.add_argument("--renders-only", action="store_true",
                     help="run the one-dispatch renders (phase 19) on the "
                     "flagship and 102K scenes, and stop (no verdict line)")
+    ap.add_argument("--encode-only", action="store_true",
+                    help="run the hash grid's encode kernel at the cells' "
+                    "shapes (phase 20), and stop (no verdict line)")
     ap.add_argument("--counts", action="store_true",
                     help="with --sweep-only: the plain versions' counters "
                     "at every packet width on the camera check rays")
@@ -4410,7 +4574,8 @@ def main(argv=None) -> int:
 
     # 2. build
     build_s, ptxas = build_all()
-    print(f"build: {build_s:.1f} s (nvcc traverse.cu + g++ bvh_builder.cpp)")
+    print(f"build: {build_s:.1f} s (nvcc traverse.cu and hashgrid.cu + g++ "
+          "bvh_builder.cpp)")
     for ln in ptxas:
         print(f"  ptxas: {ln}")
     configs, lines = packet_configs(leaf_size=4)
@@ -4506,24 +4671,42 @@ def main(argv=None) -> int:
     if args.chunks_only:
         flag, big = scene(FLAGSHIP_CLUTTER), scene(CLUTTER_102K)
         root, bake = chunks_dataset(dev, args.seed)
+        take_encode_launches()
         chunks = chunks_phase(
             dev, args.seed, (("flagship", "trace_union", flag),
                              ("clutter102k", "trace_paired_streamed", big)),
             root, bake)
+        hg = take_encode_launches()
+        print(f"chunks: the hash grid's kernels counted {hg}")
+        check(hg["encode"] > 0, "no encode kernel launched in phase 18")
         for d in (STAGE_DIR, CHUNK_DIR):
             shutil.rmtree(d, ignore_errors=True)
-        print("run: " + json.dumps({"chunks": chunks,
+        print("run: " + json.dumps({"chunks": chunks, "hashgrid_launches": hg,
                                     "total_s": time.perf_counter() - t_run}))
         print(f"card: {card_line()}")
         return 0
 
     if args.renders_only:
         flag, big = scene(FLAGSHIP_CLUTTER), scene(CLUTTER_102K)
+        take_encode_launches()
         renders = renders_phase(
             dev, args.seed, (("flagship", "trace_union", flag),
                              ("clutter102k", "trace_paired_streamed", big)))
+        hg = take_encode_launches()
+        print(f"renders: the hash grid's kernels counted {hg}")
+        check(hg["encode"] > 0, "no encode kernel launched in phase 19")
         shutil.rmtree(RENDERS_DIR, ignore_errors=True)
         print("run: " + json.dumps({"renders": renders,
+                                    "hashgrid_launches": hg,
+                                    "total_s": time.perf_counter() - t_run}))
+        print(f"card: {card_line()}")
+        return 0
+
+    if args.encode_only:
+        flush = torch.empty(64 * 2 ** 20 // 4, dtype=torch.float32,
+                            device=dev)
+        encode = encode_phase(dev, args.seed, flush)
+        print("run: " + json.dumps({"encode": encode,
                                     "total_s": time.perf_counter() - t_run}))
         print(f"card: {card_line()}")
         return 0
@@ -4685,6 +4868,10 @@ def main(argv=None) -> int:
               f"{[round(x, 4) for x in stats['hdr_mean']]}, mean LDR "
               f"{[round(x, 4) for x in stats['ldr_mean']]}")
 
+    # the hash grid's kernels' launches on the main paths, by phase
+    take_encode_launches()
+    hg_launches = {}
+
     # 4. the flagship frame
     rays = frame_rays(dev)
     flag_stats, _ = render_scene(
@@ -4840,6 +5027,7 @@ def main(argv=None) -> int:
     add_launches(t_stats)
     report_train("ref32x2 flat flagship", t_stats)
     ref_stats["flat_trace_union"] = {"render": r_stats, "train": t_stats}
+    hg_launches["4-9"] = take_encode_launches()
     # card against CPU, both modes
     for mode, ngp in (("packed", flat[2]), ("flat", flat_ngp)):
         frac, worst = small_reference_check(flat[0], flat[1], ngp, dev,
@@ -4859,6 +5047,7 @@ def main(argv=None) -> int:
     for st in stage_stats.values():
         for stage in STAGES:
             add_launches(st[stage])
+    hg_launches["10"] = take_encode_launches()
 
     # 11. the training stages and the render CLI on the same datasets
     pipe_stats, train_traffic = pipeline_phase(dev, args.seed,
@@ -4866,6 +5055,7 @@ def main(argv=None) -> int:
     for st in pipe_stats.values():
         for name in PIPE_CLIS:
             add_launches(st[name])
+    hg_launches["11"] = take_encode_launches()
 
     # 14. the relight and video CLIs on phase 11's trained scenes
     relight_stats, relight_traffic = relight_phase(dev, args.seed)
@@ -4873,6 +5063,7 @@ def main(argv=None) -> int:
         for run in st.values():
             if isinstance(run, dict) and "launches" in run:
                 add_launches(run)
+    hg_launches["14"] = take_encode_launches()
 
     # 15. the dataset-preparation tools on phase 11's datasets and two
     # full-size ones
@@ -4882,12 +5073,14 @@ def main(argv=None) -> int:
         for tool in TOOLS:
             if isinstance(st, dict) and tool in st:
                 add_launches(st[tool])
+    hg_launches["15"] = take_encode_launches()
 
     # 16. the data-parallel trainer on phase 11's datasets and bakes
     par_stats = parallel_phase(dev, args.seed)
     for st in par_stats.values():
         for run in ("no_group", "nccl_1", "gloo_2"):
             add_launches(st[run])
+    hg_launches["16"] = take_encode_launches()
 
     # 17. the root scripts' twins: bench, bench_components, bench_scaling and
     # the graft entry
@@ -4895,6 +5088,7 @@ def main(argv=None) -> int:
     scripts = scripts_phase(dev, {"flagship": flag_train,
                                   "clutter102k": big_train})
     add_launches({"launches": read_launches()})
+    hg_launches["17"] = take_encode_launches()
 
     # 18. one-dispatch chunks: the benchmark loss on both scenes, then
     # initialize on phase 11's flagship dataset and bake
@@ -4906,6 +5100,7 @@ def main(argv=None) -> int:
                                      "bake")),
         {k: v for k, v in scripts["bench"]["runs"].items()})
     add_launches(chunks)
+    hg_launches["18"] = take_encode_launches()
 
     # 19. one-dispatch rendering: the render round, a relight round and the
     # validation render on both scenes
@@ -4913,6 +5108,11 @@ def main(argv=None) -> int:
         dev, args.seed, (("flagship", "trace_union", flag),
                          ("clutter102k", "trace_paired_streamed", big)))
     add_launches(renders)
+    hg_launches["19"] = take_encode_launches()
+    print(f"the hash grid's kernels' launches by phase: {hg_launches}")
+    for phase in ("11", "14", "18", "19"):
+        check(hg_launches[phase]["encode"] > 0,
+              f"no encode kernel launched in phase {phase}")
     for d in (STAGE_DIR, TOOLS_DIR, CHUNK_DIR, RENDERS_DIR):
         shutil.rmtree(d, ignore_errors=True)
 
@@ -5088,12 +5288,17 @@ def main(argv=None) -> int:
         "five_on_102k_ms": turns, "five_on_102k_hits": agree,
         "packet_sweep_ms": sweep,
         "build_s": build_s, "total_s": time.perf_counter() - t_run}))
+
+    # 20. the hash grid's encode kernel at the cells' shapes
+    encode = encode_phase(dev, args.seed, flush)
+    print("encode: " + json.dumps(encode))
+    rows += encode_rows(hg_launches, encode)
     for row in rows:
         check(row["launches"] > 0, f"{row['name']} was never launched on a "
               "main path")
     print(json.dumps({"kernels": rows}))
 
-    # 20. verdict
+    # 21. verdict
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -83,13 +83,12 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import os
-import shutil
 import threading
 
 import torch
 
 from iris_tpu_torch.geometry.bvh import Tracer
-from iris_tpu_torch.native_build import build_shared
+from iris_tpu_torch.native_build import build_shared, nvcc
 
 T_MISS = 3e37
 _MT_EPS = 1e-9
@@ -167,22 +166,12 @@ _LOCK = threading.Lock()
 _LIB = None
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
-    if path is None:
-        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the traversal kernels cannot "
-                           "be built (set CUDA_HOME or put nvcc on PATH)")
-    return path
-
-
 def build() -> tuple[str, str]:
     """Compile csrc/traverse.cu if needed: (library path, nvcc output,
     which holds ptxas' register and spill report; "" when the library was
     already up to date)."""
-    return build_shared([_nvcc()] + NVCC_FLAGS, SOURCE, "libtraverse.so")
+    return build_shared([nvcc("the traversal kernels")] + NVCC_FLAGS,
+                        SOURCE, "libtraverse.so")
 
 
 def get_lib() -> ctypes.CDLL:

@@ -25,8 +25,15 @@ mode's is level-major and feature-minor, (B, L*F). Either is a fixed
 permutation that the first MLP layer absorbs.
 
 These are gathers, scatters and elementwise passes that the JAX package
-leaves to XLA, so plain PyTorch is their port. Every scatter of a backward
-is a segment sum whose order the indices fix (core/segment.py), so a
+leaves to XLA, so plain PyTorch is their port, with one exception: on the
+card the exact 8-corner forward (every encode but the stochastic
+forward's) is one kernel launch (csrc/hashgrid.cu through
+models/cuda_hashgrid.py), which computes the cells, indices, weights and
+trilinear sums in registers and writes the output once in its final
+layout, bit-equal to the plain version below; a CPU tensor runs that plain
+version, and a backward that needs the eight corners recomputes them with
+it from the saved points. Every scatter of a backward is a segment sum
+whose order the indices fix (core/segment.py), so a
 training step gives the same gradient bits twice on the card, where
 `index_add_` would add with atomics. Nothing in the encode reads the
 device back, and nothing copies from the host once a grid's level
@@ -49,7 +56,8 @@ the table bytes that any encode of its mode and estimator reads (each
 point's corners at each kept level, every feature at the precision the
 mode reads it), whatever the gathers of this implementation read besides
 (indices, materialised corners). Each backward is the span
-hashgrid.encode_bwd.
+hashgrid.encode_bwd. Each launch of the kernel counts
+hashgrid.encode_kernel.
 """
 
 from __future__ import annotations
@@ -61,6 +69,7 @@ import numpy as np
 import torch
 
 from iris_tpu_torch.core.segment import segment_sum
+from iris_tpu_torch.models import cuda_hashgrid
 from iris_tpu_torch.parallel.sharding import draw_uniform, rank_rows
 from iris_tpu_torch.utils.profiling import count, spanned
 
@@ -184,10 +193,14 @@ def _unpack_bf16(words):
 def _lookup_packed_impl(table, idxs, weights, block):
     """_lookup_impl for two features read from the packed bf16 words: one
     gather per corner, float32 accumulation (hashgrid.py:192-211)."""
-    packed = _pack_bf16(table, block)
+    return _lookup_words(_pack_bf16(table, block), idxs, weights)
+
+
+def _lookup_words(packed, idxs, weights):
+    """(2, M): the packed words' two features summed over the corners."""
     m = idxs.shape[1]
-    acc0 = torch.zeros(m, dtype=torch.float32, device=table.device)
-    acc1 = torch.zeros(m, dtype=torch.float32, device=table.device)
+    acc0 = torch.zeros(m, dtype=torch.float32, device=packed.device)
+    acc1 = torch.zeros(m, dtype=torch.float32, device=packed.device)
     for k in range(idxs.shape[0]):
         g0, g1 = _unpack_bf16(packed[idxs[k]])
         acc0 = acc0 + g0 * weights[k]
@@ -426,6 +439,13 @@ def _row_cast(rows, gdtype):
     return rows
 
 
+def _row_bwd(g, idxs, weights, lt):
+    """Exact cotangent of the row lookup: g (M, F) times each corner's
+    weight, every corner's rows in one corner-major segment sum."""
+    rows = (weights[:, :, None] * g[None]).reshape(-1, g.shape[1])
+    return segment_sum(rows, idxs.reshape(-1), lt)
+
+
 def _row_lookup(rows, idxs, weights, gdtype=None):
     """Sum over corners k of rows[idxs[k]] * weights[k]: idxs (8, M)."""
     rcast = _row_cast(rows, gdtype)
@@ -450,9 +470,7 @@ class _RowWeighted(torch.autograd.Function):
     @spanned("hashgrid.encode_bwd")
     def backward(ctx, g):
         idxs, weights = ctx.saved_tensors
-        # every corner's rows in one corner-major segment sum
-        rows = (weights[:, :, None] * g[None]).reshape(-1, g.shape[1])
-        return segment_sum(rows, idxs.reshape(-1), ctx.lt), None, None
+        return _row_bwd(g, idxs, weights, ctx.lt), None, None
 
 
 class _RowStochBwd(torch.autograd.Function):
@@ -566,8 +584,6 @@ def hashgrid_encode(table: torch.Tensor, cfg: HashGridConfig,
     keyed = gen is not None or samples is not None
     stoch = keyed and (cfg.stochastic_bwd or cfg.stochastic_fwd)
 
-    # int64 index math: the low log2(T) bits of the products and XORs are
-    # those of the JAX package's uint32 math, and masks keep only those
     res, res_u, dense_ok, level_ids = _level_constants(cfg, dev)
     if cfg.fwd_level_sample and keyed and not cfg.stochastic_fwd:
         raise ValueError("fwd_level_sample requires stochastic_fwd")
@@ -589,28 +605,16 @@ def hashgrid_encode(table: torch.Tensor, cfg: HashGridConfig,
     else:
         fwd_k = 0
         l_eff = l
-    level_off = level_ids * t
 
-    x = torch.clamp(x, 0.0, 1.0)
-    # flat (M,) = (B*L_eff,) arrays: m = query*L_eff + level
-    res_f = res_u.expand(b, l_eff).reshape(-1)
-    dense_f = dense_ok.expand(b, l_eff).reshape(-1)
-    off_f = level_off.expand(b, l_eff).reshape(-1)
+    # On the card the exact 8-corner forward is one kernel launch, which
+    # builds none of the plain index arrays; only the stochastic corner
+    # needs them there
+    kernel = _kernel_runs(x) and not (stoch and cfg.stochastic_fwd)
 
-    def corner_index(cx, cy, cz):
-        dense = cx + res_f * (cy + res_f * cz)
-        hashed = (cx * _PRIMES[0] ^ cy * _PRIMES[1]
-                  ^ cz * _PRIMES[2]) & (t - 1)
-        idx = torch.where(dense_f, dense, hashed) + off_f
-        # out-of-range reads clamp, as JAX gathers do
-        return torch.clamp(idx, 0, l * t - 1)
+    def cells(x):
+        return _cells(x, res, res_u, dense_ok, level_ids, t, l)
 
-    cell, frac = [], []
-    for c in range(3):
-        p = (x[:, c:c + 1] * res[None, :]).reshape(-1)
-        c0 = torch.floor(p)
-        cell.append(c0.to(torch.int64))
-        frac.append((p - c0).detach())
+    plain = cells(x) if stoch or not kernel else None
 
     # level-block subsampling of the backward scatter: one shared phase per
     # step; with fwd_level_sample it nests inside the fwd-sampled levels
@@ -627,6 +631,7 @@ def hashgrid_encode(table: torch.Tensor, cfg: HashGridConfig,
 
     chosen_idx = None
     if stoch:
+        corner_index, cell, frac = plain
         # separable corner sampling: per-axis Bernoulli(frac)
         # the flat index is query-major (m = query*L_eff + level), so a
         # data-parallel rank's queries are a contiguous run of axis 1
@@ -646,16 +651,24 @@ def hashgrid_encode(table: torch.Tensor, cfg: HashGridConfig,
     count("hashgrid.gather_bytes",
           (1 if stoch and cfg.stochastic_fwd else 8) * b * l_eff * fdim
           * (2 if half else table.element_size()))
+    if kernel:
+        # the row modes read bfloat16 only under the stochastic backward,
+        # as _RowStochBwd does
+        gdtype = (cfg.fwd_gather_dtype if stoch and cfg.stochastic_bwd
+                  else None)
+        return _KernelEncode.apply(rows if cfg.row_gather else table, x, cfg,
+                                   chosen_idx, phase, bwd_k, gdtype,
+                                   lambda x: _corners(*cells(x)))
     if not cfg.row_gather:
         return _encode_flat(table, cfg, b, l, l_eff, fwd_k, fphase, bwd_k,
                             phase, stoch, chosen_idx,
-                            lambda: _corners(corner_index, cell, frac))
+                            lambda: _corners(*plain))
     compact = cfg.bwd_scatter_dtype if cfg.bwd_compact_scatter else None
     if stoch and cfg.stochastic_fwd:
         fr = row_stoch(rows, chosen_idx, phase, l_eff, bwd_k, t, compact,
                        cfg.fwd_gather_dtype)
     else:
-        idxs, weights = _corners(corner_index, cell, frac)
+        idxs, weights = _corners(*plain)
         if stoch and cfg.stochastic_bwd:
             fr = row_stoch_bwd(rows, idxs, weights, chosen_idx, phase, l_eff,
                                bwd_k, t, compact, cfg.fwd_gather_dtype)
@@ -669,6 +682,95 @@ def hashgrid_encode(table: torch.Tensor, cfg: HashGridConfig,
             2, fphase, (fr * float(l // fwd_k)).reshape(b, fwd_k, 1, fdim))
         return z.reshape(b, l * fdim)
     return fr.reshape(b, l_eff * fdim)
+
+
+def _kernel_runs(x) -> bool:
+    """Whether an exact forward of points x runs as the kernel: on the
+    card."""
+    return x.device.type == "cuda"
+
+
+def _cells(x, res, res_u, dense_ok, level_ids, t, l):
+    """The plain index math at the levels of the (L_eff,) constants:
+    (corner_index, cell, frac), cell and frac three flat (M,) = (B*L_eff,)
+    arrays, m = query*L_eff + level, and corner_index the table index of
+    a corner's cells. int64: the low log2(T) bits of the products and XORs
+    are those of the JAX package's uint32 math, and masks keep only
+    those."""
+    b, l_eff = x.shape[0], res.shape[0]
+    level_off = level_ids * t
+    x = torch.clamp(x, 0.0, 1.0)
+    res_f = res_u.expand(b, l_eff).reshape(-1)
+    dense_f = dense_ok.expand(b, l_eff).reshape(-1)
+    off_f = level_off.expand(b, l_eff).reshape(-1)
+
+    def corner_index(cx, cy, cz):
+        dense = cx + res_f * (cy + res_f * cz)
+        hashed = (cx * _PRIMES[0] ^ cy * _PRIMES[1]
+                  ^ cz * _PRIMES[2]) & (t - 1)
+        idx = torch.where(dense_f, dense, hashed) + off_f
+        # out-of-range reads clamp, as JAX gathers do
+        return torch.clamp(idx, 0, l * t - 1)
+
+    cell, frac = [], []
+    for c in range(3):
+        p = (x[:, c:c + 1] * res[None, :]).reshape(-1)
+        c0 = torch.floor(p)
+        cell.append(c0.to(torch.int64))
+        frac.append((p - c0).detach())
+    return corner_index, cell, frac
+
+
+class _KernelEncode(torch.autograd.Function):
+    """The exact 8-corner forward as one kernel launch on the card
+    (cuda_hashgrid.encode), in the mode's final layout: (B, F*L) or, in row
+    mode, (B, L*F). The backward is the plain version's: with chosen_idx
+    the stochastic estimators' one-corner scatter (_LookupStochBwd,
+    _RowStochBwd), else the exact scatter to all eight corners
+    (_WeightedLookup, _RowWeighted), whose indices and weights
+    `corners(x)` recomputes from the saved points with the plain index
+    math."""
+
+    @staticmethod
+    def forward(ctx, table, x, cfg, chosen_idx, phase, bwd_k, gdtype,
+                corners):
+        ctx.save_for_backward(chosen_idx, x)
+        ctx.args = (cfg, phase, bwd_k, corners, table.shape[0])
+        l, t, nf = cfg.n_levels, cfg.table_size, cfg.n_features
+        if cfg.row_gather:
+            mode = "rows_bf16" if gdtype == "bfloat16" else "rows"
+        elif cfg.packed_gather and nf == 2:
+            mode, table = "packed", cuda_hashgrid.pack(table, l * t)
+        else:
+            mode = "flat"
+        return cuda_hashgrid.encode(
+            table, x.contiguous(), _level_constants(cfg, x.device)[:3], mode,
+            l, nf, cfg.log2_table_size)
+
+    @staticmethod
+    @spanned("hashgrid.encode_bwd")
+    def backward(ctx, g):
+        chosen_idx, x = ctx.saved_tensors
+        cfg, phase, bwd_k, corners, n = ctx.args
+        l, t, nf, b = cfg.n_levels, cfg.table_size, cfg.n_features, x.shape[0]
+        if cfg.row_gather:
+            g = g.reshape(b * l, nf)
+            if chosen_idx is None:
+                d = _row_bwd(g, *corners(x), n)
+            else:
+                d = _row_scatter_chosen(
+                    g, chosen_idx, phase, n, l, bwd_k, t,
+                    cfg.bwd_scatter_dtype if cfg.bwd_compact_scatter
+                    else None)
+        else:
+            # (B, F*L) -> the plain lookups' (F, M)
+            g = g.reshape(b, nf, l).transpose(0, 1).reshape(nf, b * l)
+            if chosen_idx is None:
+                d = _flat_bwd(g, *corners(x), nf, l * t, n)
+            else:
+                d = _scatter_chosen(g, chosen_idx, phase, nf, l * t, n, l,
+                                    bwd_k, t, cfg.bwd_compact_scatter)
+        return (d,) + (None,) * 7
 
 
 def _corners(corner_index, cell, frac):

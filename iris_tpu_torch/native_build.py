@@ -10,9 +10,24 @@ load a half-written library. A failed build raises: nothing falls back.
 from __future__ import annotations
 
 import os
+import shutil
 import subprocess
 
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+
+
+def nvcc(what: str) -> str:
+    """The CUDA compiler: nvcc on PATH, else under CUDA_HOME
+    (/usr/local/cuda). Raises, naming `what` cannot be built, if neither
+    has it."""
+    path = shutil.which("nvcc")
+    if path is None:
+        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(f"nvcc not found: {what} cannot be built (set "
+                           "CUDA_HOME or put nvcc on PATH)")
+    return path
 
 
 def build_shared(cmd: list[str], src: str, name: str,

@@ -1020,3 +1020,173 @@ def test_replayed_render_round_is_the_eager_round(card):
                     torch.equal(a, b) for a, b in zip(got, want)), (frame, rd)
                 assert launched == 8, (frame, rd, launched)
     assert len(captures) == 1
+
+
+# the hash grid's exact encode kernel (models/cuda_hashgrid.py) at the
+# cells' grids: dense levels 0-6 and hashed 7-31 (packed), dense level 0
+# and hashed 1-3 (rows)
+HASH_GRIDS = {
+    "ref32x2": dict(n_levels=32, n_features=2, log2_table_size=19,
+                    base_resolution=16, per_level_scale=1.3),
+    "prod4x16": dict(n_levels=4, n_features=16, log2_table_size=19,
+                     base_resolution=16, per_level_scale=15.045777687353615,
+                     row_gather=True),
+}
+HASH_MODES = {"packed": ("ref32x2", {}),
+              "flat": ("ref32x2", {"packed_gather": False}),
+              "rows": ("prod4x16", {}),
+              "rows_bf16": ("prod4x16", {"fwd_gather_dtype": "bfloat16"})}
+
+
+def _hash_case(card, mode, n):
+    """A grid of the mode's cell, its table uniform in +-0.3, and n points
+    in [-0.1, 1.1]^3, the first four on the box's faces and corners."""
+    from iris_tpu_torch.models import hashgrid as H
+
+    grid, extra = HASH_MODES[mode]
+    cfg = H.HashGridConfig(**HASH_GRIDS[grid], stochastic_fwd=False,
+                           **extra)
+    gen = torch.Generator(device=card).manual_seed(7)
+    table = H.init_hashgrid(gen, cfg, card).uniform_(-0.3, 0.3,
+                                                     generator=gen)
+    x = torch.rand((n, 3), generator=gen, device=card) * 1.2 - 0.1
+    faces = torch.tensor([[0, 0, 0], [1, 1, 1], [0, 1, 0.5], [1, 0, 1]],
+                         device=card)
+    x[:4] = faces[:min(n, 4)]
+    return cfg, table, x
+
+
+def _kernel_args(cfg, table, x, mode):
+    from iris_tpu_torch.models import hashgrid as H
+
+    lt = cfg.n_levels * cfg.table_size
+    return (H._pack_bf16(table, lt) if mode == "packed" else table, x,
+            H._level_constants(cfg, x.device)[:3], mode, cfg.n_levels,
+            cfg.n_features, cfg.log2_table_size)
+
+
+@pytest.mark.parametrize("mode", list(HASH_MODES))
+@pytest.mark.parametrize("n", [0, 1, 4133])
+def test_hashgrid_kernel_matches_plain(card, mode, n):
+    """The kernel against encode_plain on the card, bit for bit, twice,
+    one launch a call (none for no points); hashgrid_encode takes it for
+    the mode (rows_bf16: under the stochastic backward)."""
+    from iris_tpu_torch.models import cuda_hashgrid
+    from iris_tpu_torch.models import hashgrid as H
+
+    cfg, table, x = _hash_case(card, mode, n)
+    args = _kernel_args(cfg, table, x, mode)
+    before = cuda_hashgrid.launch_counts()["encode"]
+    got = cuda_hashgrid.encode(*args)
+    again = cuda_hashgrid.encode(*args)
+    assert cuda_hashgrid.launch_counts()["encode"] == before + 2 * (n > 0)
+    want = cuda_hashgrid.encode_plain(*args)
+    assert got.shape == want.shape == (n, cfg.n_levels * cfg.n_features)
+    assert torch.equal(got, want) and torch.equal(again, want)
+    gen = (torch.Generator(device=card).manual_seed(3)
+           if mode == "rows_bf16" else None)
+    assert torch.equal(H.hashgrid_encode(table, cfg, x, gen), want)
+
+
+def test_hashgrid_pack_is_pack_bf16(card):
+    """The one-pass pack kernel makes _pack_bf16's words: ties to even of
+    both signs, the largest finite floats, infinities and NaN included;
+    it counts its launches, and no encode's."""
+    from iris_tpu_torch.models import cuda_hashgrid
+    from iris_tpu_torch.models import hashgrid as H
+
+    cfg, table, _ = _hash_case(card, "packed", 1)
+    special = torch.tensor(
+        [0x3F808000, 0x3F818000, 0xBF808000, 0xBF818000, 0x7F7FFFFF,
+         0x7F800000, 0xFF800000, 0x7FC00000, 0x80000000],
+        dtype=torch.int64).to(torch.int32).view(torch.float32)
+    table[:special.numel()] = special.to(card)
+    table[-special.numel():] = special.to(card)
+    block = table.numel() // 2
+    before = cuda_hashgrid.launch_counts()
+    assert torch.equal(cuda_hashgrid.pack(table, block),
+                       H._pack_bf16(table, block))
+    odd = table[:2 * 1001]
+    assert torch.equal(cuda_hashgrid.pack(odd, 1001), H._pack_bf16(odd, 1001))
+    after = cuda_hashgrid.launch_counts()
+    assert after == {"encode": before["encode"], "pack": before["pack"] + 2}
+    cuda_hashgrid.reset_launch_counts()
+    assert cuda_hashgrid.launch_counts() == {"encode": 0, "pack": 0}
+
+
+def test_hashgrid_kernel_replays_from_a_graph(card):
+    """The encode captured in a utils/graphs.Graph: each replay is an eager
+    call's bits, on the points the buffer holds at the replay; the kernel
+    counts every replay's launch and the graph's tally counts one
+    hashgrid.encode_kernel."""
+    from iris_tpu_torch.models import cuda_hashgrid
+    from iris_tpu_torch.models import hashgrid as H
+    from iris_tpu_torch.utils import graphs
+
+    cfg, table, x = _hash_case(card, "packed", 4133)
+    ctx = graphs.GraphContext(card)
+    with ctx.on_stream():
+        eager = H.hashgrid_encode(table, cfg, x)
+    ctx.warm = True
+    g = ctx.capture(lambda: H.hashgrid_encode(table, cfg, x),
+                    name="probe_encode")
+    assert g.marks.tally["hashgrid.encode_kernel"] == 1
+    before = cuda_hashgrid.launch_counts()["encode"]
+    assert torch.equal(g.replay(), eager)
+    x.copy_(x.flip(0))
+    got = g.replay().clone()
+    assert cuda_hashgrid.launch_counts()["encode"] == before + 2
+    assert torch.equal(got, H.hashgrid_encode(table, cfg, x))
+    assert not torch.equal(got, eager)
+
+
+@pytest.mark.parametrize("mode,keyed", [
+    ("packed", False), ("packed", True), ("rows", False), ("rows", True),
+    ("rows_bf16", True)])
+def test_hashgrid_kernel_gradient_is_the_plain_paths(card, monkeypatch, mode,
+                                                     keyed):
+    """A table that needs a gradient: the kernel path's features and table
+    gradient (the exact backward from the recomputed corners, or the
+    stochastic one at the same draws) are the plain path's on the card,
+    bit for bit."""
+    from iris_tpu_torch.models import hashgrid as H
+
+    cfg, table, x = _hash_case(card, mode, 4133)
+
+    def run():
+        tb = table.clone().requires_grad_(True)
+        gen = torch.Generator(device=card).manual_seed(5) if keyed else None
+        out = H.hashgrid_encode(tb, cfg, x, gen)
+        g = torch.linspace(-1, 1, out.numel(), device=card).reshape(out.shape)
+        (d,) = torch.autograd.grad(out, tb, g)
+        return out, d
+
+    got = run()
+    monkeypatch.setattr(H, "_kernel_runs", lambda x: False)
+    want = run()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_hashgrid_kernel_refuses_what_it_does_not_take(card):
+    from iris_tpu_torch.models import cuda_hashgrid
+
+    cfg, table, x = _hash_case(card, "rows", 64)
+    args = _kernel_args(cfg, table, x, "rows")
+    bad = {0: [table.half(), table.reshape(-1), table.cpu(), table.t()],
+           1: [x.double(), x[:, :2].contiguous(), x.cpu(),
+               x.t().contiguous().t()],
+           3: ["nearest", "packed"]}
+    for pos, values in bad.items():
+        for v in values:
+            with pytest.raises(ValueError, match="encode kernel"):
+                cuda_hashgrid.encode(*args[:pos], v, *args[pos + 1:])
+    # a row the lanes do not divide: 6 features
+    with pytest.raises(ValueError, match="encode kernel"):
+        cuda_hashgrid.encode(table[:, :6].contiguous(), *args[1:5], 6,
+                             *args[6:])
+    flat = table.reshape(-1)
+    for t, block in ((flat, flat.numel()), (flat.half(), flat.numel() // 2),
+                     (flat.cpu(), flat.numel() // 2), (table, 8),
+                     (flat[::2], flat.numel() // 4)):
+        with pytest.raises(ValueError, match="encode kernel"):
+            cuda_hashgrid.pack(t, block)

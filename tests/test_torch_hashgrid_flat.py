@@ -425,3 +425,84 @@ def test_encode_rejects_a_row_table_without_row_gather():
     with pytest.raises(ValueError, match="needs row_gather"):
         th.hashgrid_encode(torch.zeros((8 << 10, 2)), cfg,
                            torch.zeros((4, 3)))
+
+
+# the kernel path of the exact forward (models/cuda_hashgrid.py), held on
+# the CPU with its plain version in the kernel's place: dense levels 0-2
+# ((res + 1)^3 <= 256) and hashed levels 3-7
+KERNEL_GRID = dict(n_levels=8, log2_table_size=8, base_resolution=2,
+                   per_level_scale=1.5)
+KERNEL_CASES = [
+    ("packed", dict(), False),
+    ("packed", dict(bwd_level_sample=4), True),
+    ("flat", dict(n_features=3, packed_gather=False), False),
+    ("flat", dict(packed_gather=False, bwd_compact_scatter=False), True),
+    ("rows", dict(n_features=8, row_gather=True), False),
+    ("rows", dict(n_features=16, row_gather=True, bwd_level_sample=2), True),
+    ("rows_bf16", dict(n_features=16, row_gather=True, bwd_level_sample=2,
+                       fwd_gather_dtype="bfloat16"), True),
+]
+
+
+def _kernel_case(extra):
+    cfg = th.HashGridConfig(**KERNEL_GRID, stochastic_bwd=True,
+                            stochastic_fwd=False, **extra)
+    rng = np.random.default_rng(21)
+    table = tt(rng.uniform(-1, 1, cfg.n_levels * cfg.table_size
+                           * cfg.n_features).astype(np.float32))
+    if cfg.row_gather:
+        table = table.reshape(-1, cfg.n_features)
+    # past both ends of the box, and on its faces: the clamp and the
+    # res + 1 corner
+    x = rng.uniform(-0.1, 1.1, (67, 3)).astype(np.float32)
+    x[:4] = [[0, 0, 0], [1, 1, 1], [0, 1, 0.5], [1, 0, 1]]
+    return cfg, table, tt(x)
+
+
+@pytest.mark.parametrize("mode,extra,keyed", KERNEL_CASES)
+def test_kernel_path_is_the_plain_path(monkeypatch, mode, extra, keyed):
+    """hashgrid_encode's kernel path (_KernelEncode), with encode_plain in
+    the kernel's place: the features and the table gradient are the plain
+    path's, bit for bit (the exact backward from the corners recomputed,
+    the stochastic one from the same draws); on a CPU tensor the plain
+    path runs and counts no kernel launch."""
+    from iris_tpu_torch.models import cuda_hashgrid
+    from iris_tpu_torch.utils import profiling
+
+    cfg, table, x = _kernel_case(extra)
+    launched = []
+
+    def kernel(*args):
+        launched.append(args[3])
+        return cuda_hashgrid.encode_plain(*args)
+
+    def run():
+        tb = table.clone().requires_grad_(True)
+        gen = torch.Generator().manual_seed(5) if keyed else None
+        out = th.hashgrid_encode(tb, cfg, x, gen)
+        g = torch.linspace(-1, 1, out.numel()).reshape(out.shape)
+        (d,) = torch.autograd.grad(out, tb, g)
+        return out, d
+
+    monkeypatch.setattr(cuda_hashgrid, "encode", kernel)
+    monkeypatch.setattr(cuda_hashgrid, "pack", th._pack_bf16)
+    profiling.reset()
+    plain = run()
+    assert launched == []
+    assert "hashgrid.encode_kernel" not in profiling.report()["counts"]
+    monkeypatch.setattr(th, "_kernel_runs", lambda x: True)
+    got = run()
+    assert launched == [mode]
+    assert all(torch.equal(a, b) for a, b in zip(got, plain))
+
+
+def test_kernel_wrapper_refuses_a_cpu_tensor():
+    from iris_tpu_torch.models import cuda_hashgrid
+
+    cfg, table, x = _kernel_case(dict(bwd_level_sample=4))
+    levels = th._level_constants(cfg, x.device)[:3]
+    with pytest.raises(ValueError, match="not on the card"):
+        cuda_hashgrid.encode(th._pack_bf16(table, table.numel() // 2), x,
+                             levels, "packed", 8, 2, 8)
+    with pytest.raises(ValueError, match="not on the card"):
+        cuda_hashgrid.pack(table, table.numel() // 2)
