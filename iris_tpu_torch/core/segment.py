@@ -30,7 +30,7 @@ import math
 
 import torch
 
-from iris_tpu_torch.utils.profiling import spanned
+from iris_tpu_torch.utils.profiling import count, spanned
 
 # rows one thread adds in the first pass
 SPAN = 64
@@ -54,8 +54,10 @@ def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
     """values (N, ...) summed into (num_segments, ...) by segment_ids (N,)
     in [0, num_segments); empty segments are zero. Half-precision values
     are summed in float32 and rounded once; the result keeps the values'
-    dtype. The span segment.sum."""
+    dtype. The span segment.sum; the rows it sorts count as
+    segment.rows."""
     n = values.shape[0]
+    count("segment.rows", n)
     wide = num_segments + n // SPAN + 1 >= 2 ** 31
     idt = torch.int64 if wide else torch.int32
     sorted_ids, order = torch.sort(segment_ids.to(idt), stable=True)

@@ -21,7 +21,7 @@ is folded in via flags instead of parallel classes.
 
 RayBatcher replaces DataLoader+resample (synthetic_ldr.py:379-390): a
 permuted index stream, re-permuted per epoch, strided per host for
-multi-host training.
+multi-host training, gathering each batch where the bank is held.
 """
 
 from __future__ import annotations
@@ -31,13 +31,13 @@ import math
 import os
 
 import numpy as np
+import torch
 
 from iris_tpu_torch.const import GAMMA
 from iris_tpu_torch.data.rays import (
     concat_rays, get_direction_k, get_ray_directions_blender,
     get_rays_blender, opengl_cam_to_opencv, read_cam_params, to_world_k,
 )
-from iris_tpu_torch.geometry.bvh import morton3d
 from iris_tpu_torch.models.emor import parse_emor_file
 from iris_tpu_torch.utils.exr import read_exr
 from iris_tpu_torch.utils.image import open_png
@@ -419,26 +419,54 @@ def load_dataset(dataset: str, path: str, scene: str = "", **kw):
     raise ValueError(f"unknown dataset type {dataset}")
 
 
-def sort_rays_spatially(rays: np.ndarray, n_buckets: int = 1 << 10):
-    """Order indices so nearby/parallel rays are adjacent: sort by direction
-    octant then origin Morton code. Restores tile coherence for the union
-    traversal after random permutation batching.
+_MORTON_STEPS = ((32, 0x1F00000000FFFF), (16, 0x1F0000FF0000FF),
+                 (8, 0x100F00F00F00F00F), (4, 0x10C30C30C30C30C3),
+                 (2, 0x1249249249249249))
 
-    Host twin of geometry/intersect.spatial_sort_perm (used for
-    secondary rays); keep their key structure in sync."""
+
+def sort_rays_spatially(rays: torch.Tensor) -> torch.Tensor:
+    """Order indices so nearby/parallel rays are adjacent: sort by direction
+    octant then origin Morton code (bvh.morton3d's 21-bit quantisation and
+    bit spread, in int64 and the three axes at once: 63 bits at most, so
+    the sign bit stays clear), stable, on the rays' device. Restores tile
+    coherence for the union traversal after random permutation batching.
+
+    Twin of geometry/intersect.spatial_sort_perm (used for secondary
+    rays); keep their key structure in sync."""
     o, d = rays[:, 0:3], rays[:, 3:6]
-    octant = ((d[:, 0] > 0).astype(np.int64) * 4
-              + (d[:, 1] > 0).astype(np.int64) * 2
-              + (d[:, 2] > 0).astype(np.int64))
-    lo, hi = o.min(0), o.max(0)
-    m = morton3d((o - lo) / np.maximum(hi - lo, 1e-9)).astype(np.int64)
-    key = octant * (1 << 48) + (m >> np.int64(15))
-    return np.argsort(key, kind="stable")
+    lo, hi = torch.aminmax(o, dim=0)
+    q = torch.clamp((o - lo) / torch.clamp(hi - lo, min=1e-9)
+                    * float(1 << 21), 0, (1 << 21) - 1).to(torch.int64)
+    q &= 0x1FFFFF
+    for shift, mask in _MORTON_STEPS:
+        q = (q | (q << shift)) & mask
+    axis = torch.arange(3, device=rays.device)
+    # the axes' bits are disjoint: their sum is their or
+    m = torch.sum(q << axis, 1)
+    octant = torch.sum((d > 0).to(torch.int64) << (2 - axis), 1)
+    return torch.sort(octant * (1 << 48) + (m >> 15), stable=True).indices
+
+
+def place_bank(bank: dict, device) -> dict:
+    """A pixel bank's columns as RayBatcher's tensors: on `device` where the
+    bank is held in RAM, so that each batch is gathered and ordered there;
+    on the host, without a copy, where pixel_bank memory-maps it from
+    disk."""
+    if any(isinstance(v, np.memmap) for v in bank.values()):
+        device = "cpu"
+    return {k: torch.as_tensor(np.ascontiguousarray(v)).to(device)
+            if isinstance(v, np.ndarray) else v.to(device)
+            for k, v in bank.items()}
 
 
 class RayBatcher:
     """Permutation pixel batching with per-epoch resample and per-host
     striding (replaces InvDataset.resample + DataLoader).
+
+    The bank's columns are numpy arrays (read in place on the host) or
+    tensors of one device (place_bank); a batch is a dict of tensors,
+    gathered where the bank is held, with the epoch's permutation copied
+    there when the epoch starts.
 
     sort_batches=True spatially re-orders each batch (direction octant +
     origin Morton) — loss-invariant, but keeps the tiled union traversal
@@ -447,7 +475,8 @@ class RayBatcher:
     def __init__(self, bank: dict, batch_size: int, seed: int = 0,
                  process_index: int = 0, process_count: int = 1,
                  sort_batches: bool = True):
-        self.bank = bank
+        self.bank = {k: torch.as_tensor(v) for k, v in bank.items()}
+        self.device = next(iter(self.bank.values())).device
         self.n = len(next(iter(bank.values())))
         self.batch_size = batch_size
         self.rng = np.random.default_rng(seed)
@@ -456,7 +485,8 @@ class RayBatcher:
         self.resample()
 
     def resample(self):
-        self.idxs = self.rng.permutation(self.n)
+        self.idxs = torch.from_numpy(self.rng.permutation(self.n)).to(
+            self.device)
 
     @property
     def batches_per_epoch(self):
@@ -470,13 +500,13 @@ class RayBatcher:
         b0 = (step % self.batches_per_epoch) * self.batch_size
         sel = self.idxs[b0 + self.pi * per_host: b0 + (self.pi + 1) * per_host]
         if len(sel) < per_host:  # wrap the epoch tail
-            sel = np.concatenate([sel, self.idxs[: per_host - len(sel)]])
+            sel = torch.cat([sel, self.idxs[: per_host - len(sel)]])
         if self.sort_batches and "rays" in self.bank:
-            rays = self.bank["rays"][sel]
+            rays = self.bank["rays"].index_select(0, sel)
             with span("batcher.sort"):
                 order = sort_rays_spatially(rays)
-            sel = sel[order]
-        return {k: v[sel] for k, v in self.bank.items()}
+            sel = sel.index_select(0, order)
+        return {k: v.index_select(0, sel) for k, v in self.bank.items()}
 
     def __iter__(self):
         return self.iter_from(0)

@@ -17,7 +17,7 @@ import os
 import time
 from argparse import ArgumentParser
 
-from iris_tpu_torch.data.datasets import RayBatcher
+from iris_tpu_torch.data.datasets import RayBatcher, place_bank
 from iris_tpu_torch.device import resolve_device
 from iris_tpu_torch.models.crf import init_emor_crf
 from iris_tpu_torch.parallel.distributed import is_lead
@@ -97,7 +97,7 @@ def _train(args, group, samples_for_step):
                            has_part=bool(args.has_part))
     bank = dataset.pixel_bank(keys=("rays", "rgbs", "segmentation",
                                     "int_albedo"))
-    batcher = RayBatcher(bank, mesh_batch_size(
+    batcher = RayBatcher(place_bank(bank, dev), mesh_batch_size(
         args.batch_size, group and group.world_size, stage))
     if args.max_epochs:
         args.max_steps = args.max_epochs * batcher.batches_per_epoch

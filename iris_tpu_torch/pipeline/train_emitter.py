@@ -17,7 +17,7 @@ import time
 from argparse import ArgumentParser
 from dataclasses import replace as dc_replace
 
-from iris_tpu_torch.data.datasets import RayBatcher
+from iris_tpu_torch.data.datasets import RayBatcher, place_bank
 from iris_tpu_torch.device import resolve_device
 from iris_tpu_torch.models.crf import init_emor_crf
 from iris_tpu_torch.parallel.distributed import is_lead
@@ -96,7 +96,7 @@ def _train(args, group, samples_for_step):
 
     dataset = make_dataset(args, "train")
     bank = dataset.pixel_bank(keys=("rays", "rgbs"))
-    batcher = RayBatcher(bank, mesh_batch_size(
+    batcher = RayBatcher(place_bank(bank, dev), mesh_batch_size(
         args.batch_size, group and group.world_size, stage))
     if args.max_epochs:
         args.max_steps = args.max_epochs * batcher.batches_per_epoch

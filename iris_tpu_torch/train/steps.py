@@ -53,6 +53,7 @@ from iris_tpu_torch.models.crf import (
 from iris_tpu_torch.parallel.sharding import draw_uniform, rank_rows
 from iris_tpu_torch.render.integrator import path_tracing_single
 from iris_tpu_torch.utils.losses import mse, scale_invariant_mse, segment_mean
+from iris_tpu_torch.utils.profiling import count, span, spanned
 
 
 @dataclass
@@ -132,7 +133,8 @@ def check_max_segments(segmentation, max_segments: int):
 
 class _Gather1d(torch.autograd.Function):
     """x[idx] for 1-D x and flat idx with an explicit backward, a segment
-    sum in an order the indices fix (_gather1d, steps.py:105-123)."""
+    sum in an order the indices fix (_gather1d, steps.py:105-123), the
+    span loss.propagation_bwd."""
 
     @staticmethod
     def forward(ctx, x, idx):
@@ -141,6 +143,7 @@ class _Gather1d(torch.autograd.Function):
         return x[idx]
 
     @staticmethod
+    @spanned("loss.propagation_bwd")
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
         return segment_sum(g, idx, ctx.n), None
@@ -150,6 +153,7 @@ def _gather1d(x, idx):
     return _Gather1d.apply(x, idx)
 
 
+@spanned("loss.propagation")
 def propagation_loss(gen, seg, valid, pos_n, albedo_d, roughness, metallic,
                      cfg: LossConfig, u: torch.Tensor | None = None):
     """Reference train_brdf_crf.py:240-290 as a fixed-shape estimator
@@ -162,20 +166,22 @@ def propagation_loss(gen, seg, valid, pos_n, albedo_d, roughness, metallic,
     mean, summed. Pixels are sorted by segment id (stable; invalid pixels
     get a sentinel id and sort last), so a pixel's segment is the run
     [searchsorted-left, searchsorted-right) of the sorted keys and a
-    partner is start + floor(u * count). `u` (B, n_pairs) overrides the
-    draws."""
+    partner is start + floor(u * n_seg). `u` (B, n_pairs) overrides the
+    draws. The span loss.propagation; the pairs count as
+    loss.partner_pairs."""
     b = seg.shape[0]
     sort_key = torch.where(valid, seg, cfg.max_segments)
     order = torch.argsort(sort_key, stable=True)
     sorted_key = sort_key[order].contiguous()
     start = torch.searchsorted(sorted_key, sort_key, right=False)
-    count = torch.searchsorted(sorted_key, sort_key, right=True) - start
+    n_seg = torch.searchsorted(sorted_key, sort_key, right=True) - start
 
     if u is None:
         u = draw_uniform(gen, (b, cfg.n_pairs), seg.device)
+    count("loss.partner_pairs", u.numel())
     j_sorted = start[:, None] + torch.minimum(
-        (u * count[:, None]).to(torch.int64),
-        torch.clamp(count[:, None] - 1, min=0))
+        (u * n_seg[:, None]).to(torch.int64),
+        torch.clamp(n_seg[:, None] - 1, min=0))
     jf = order[j_sorted.reshape(-1)]                     # (B*P,) originals
 
     d2a = torch.sum((albedo_d[jf].reshape(b, -1, 3)
@@ -311,16 +317,16 @@ def make_brdf_crf_loss(tracer, crf_template: EmorCRF, cfg: LossConfig,
                else mat_fn(params, positions, gen, s_mat))
         albedo, metallic, roughness = (mat["albedo"], mat["metallic"],
                                        mat["roughness"])
-        kd = albedo * (1.0 - metallic)
-        ks = 0.04 * (1.0 - metallic) + albedo * metallic
-
-        ld_shade = kd * batch["diffuse"]
-        ls_shade = ks * lerp_specular(batch["specular0"], roughness) \
-            + lerp_specular(batch["specular1"], roughness)
-        l = ld_shade + ls_shade
-
-        crf = dc_replace(crf_template, weight=params["crf_weight"])
-        rows = {"ldr": crf_forward(crf, l, batch.get("exposure")),
+        with span("loss.shade"):
+            kd = albedo * (1.0 - metallic)
+            ks = 0.04 * (1.0 - metallic) + albedo * metallic
+            ld_shade = kd * batch["diffuse"]
+            ls_shade = ks * lerp_specular(batch["specular0"], roughness) \
+                + lerp_specular(batch["specular1"], roughness)
+            l = ld_shade + ls_shade
+            crf = dc_replace(crf_template, weight=params["crf_weight"])
+            ldr = crf_forward(crf, l, batch.get("exposure"))
+        rows = {"ldr": ldr,
                 "valid": valid, "albedo": albedo, "metallic": metallic,
                 "roughness": roughness}
         if not cfg.has_part:

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from iris_tpu_torch.core.segment import segment_sum
+from iris_tpu_torch.utils.profiling import spanned
 
 
 def compute_scale(source: torch.Tensor, target: torch.Tensor
@@ -44,11 +45,13 @@ def scale_shift_invariant_mse(source, target):
                        - target) ** 2)
 
 
+@spanned("loss.segment_means")
 def segment_mean(values: torch.Tensor, seg_ids: torch.Tensor,
                  num_segments: int, weights: torch.Tensor | None = None):
     """Weighted per-segment mean, per segment AND gathered back to the
     elements. values (B, C) or (B,), seg_ids (B,) int64 in
-    [0, num_segments) (reference train_brdf_crf.py:225-238)."""
+    [0, num_segments) (reference train_brdf_crf.py:225-238). The span
+    loss.segment_means."""
     v = values if values.dim() > 1 else values[:, None]
     if weights is None:
         weights = torch.ones(v.shape[0], dtype=v.dtype, device=v.device)

@@ -920,6 +920,106 @@ def test_graphed_chunks_match_eager_steps(card):
     assert na == nb == 2 * 11
 
 
+def test_graphed_brdf_crf_semantic_chunks_match_eager_steps(card):
+    """The train_brdf_crf loss with the semantic propagation loss at its
+    published sizes (batch 8,192, 1,024 partners a pixel, the 32 x 2 x
+    2^19 packed grid's one-corner estimators) through run_training: 7 Adam
+    steps in chunks of 3 (eager, captured and replayed, then a one-step
+    chunk) against 7 single steps: the same losses, auxes, parameters and
+    moments, every bit; the graph counts 8,388,608 partner pairs a step."""
+    import dataclasses
+
+    from iris_tpu_torch.demo import make_demo_scene
+    from iris_tpu_torch.models.crf import init_emor_crf
+    from iris_tpu_torch.train.loop import run_training
+    from iris_tpu_torch.train.optim import make_optimizer
+    from iris_tpu_torch.train.steps import LossConfig, make_brdf_crf_loss
+    from iris_tpu_torch.utils import profiling
+
+    tracer, _, ngp, _, _ = make_demo_scene(
+        n_clutter=60, slf_res=8, hash_levels=32, log2_table=19, device=card)
+    ngp = dataclasses.replace(ngp, cfg=dataclasses.replace(
+        ngp.cfg, stochastic_fwd=True, bwd_level_sample=8))
+    o, d, dxdu, dydv = camera_rays(91)
+    rays = np.concatenate([o, d, dxdu, dydv], -1).astype(np.float32)[:8192]
+    rng = np.random.default_rng(2)
+    b = rays.shape[0]
+
+    def batches():
+        s = 0
+        while True:
+            yield {"rays": np.roll(rays, 41 * s, 0),
+                   "rgbs": rng.uniform(size=(b, 3)).astype(np.float32),
+                   "exposure": np.ones((b, 1), np.float32),
+                   "diffuse": rng.uniform(size=(b, 3)).astype(np.float32),
+                   "specular0": rng.uniform(size=(b, 6, 3)).astype(
+                       np.float32),
+                   "specular1": rng.uniform(size=(b, 6, 3)).astype(
+                       np.float32),
+                   "segmentation": rng.integers(0, 128, b).astype(
+                       np.float32),
+                   "int_albedo": rng.uniform(size=(b, 3)).astype(
+                       np.float32)}
+            s += 1
+
+    def params():
+        return {"material": dataclasses.replace(
+                    ngp, table=(ngp.table * 3000.0).clone(),
+                    mlp={k: [t.clone() for t in v]
+                         for k, v in ngp.mlp.items()}),
+                "crf_weight": torch.zeros((3, 3), device=card)}
+
+    crf = init_emor_crf(device=card)
+    loss_fn = make_brdf_crf_loss(
+        tracer, crf, LossConfig(has_part=False, la=0.01, n_pairs=1024),
+        float(ngp.voxel_min), float(ngp.voxel_max))
+    runs = {}
+    for chunk in (3, 1):
+        rng = np.random.default_rng(2)
+        logs = []
+        profiling.reset()
+        p, st = run_training(
+            loss_fn, params(), batches(), make_optimizer(1e-3), 7, 5,
+            log_fn=None, hooks=[lambda s, p_, l, a: logs.append(
+                (s, l.item(), a["loss_seg"].item(), a["loss_c"].item()))],
+            return_state=True, chunk_steps=chunk)
+        torch.cuda.synchronize()
+        runs[chunk] = (logs, _state_bits(p, st), profiling.report())
+    (la, sa, ra), (lb, sb, _) = runs[3], runs[1]
+    assert la == lb and [s for s, *_ in la] == list(range(7))
+    assert all(x[2] > 0 for x in la)
+    assert len(sa) == len(sb) and all(torch.equal(x, y)
+                                      for x, y in zip(sa, sb))
+    g = ra["graphs"]["train_chunk"]
+    assert g["counts"]["loss.partner_pairs"] == 3 * 8192 * 1024
+    assert g["counts"]["train.steps"] == 3
+    assert {"loss.propagation", "loss.propagation_bwd", "loss.shade",
+            "loss.segment_means"} <= set(g["spans"])
+
+
+def test_card_batches_are_the_host_batches(card):
+    """RayBatcher over a bank held on the card (place_bank: each batch
+    gathered and spatially ordered there) gives the rows, in the order,
+    of the same bank read on the host, every bit, over two epochs of a
+    200,000-pixel bank at batch 8,192."""
+    from iris_tpu_torch.data.datasets import RayBatcher, place_bank
+
+    rng = np.random.default_rng(9)
+    n = 200_000
+    o, d, dxdu, dydv = camera_rays(448)
+    rays = np.concatenate([o, d, dxdu, dydv], -1).astype(np.float32)[:n]
+    bank = {"rays": rays,
+            "specular0": rng.uniform(size=(n, 6, 3)).astype(np.float32),
+            "segmentation": rng.integers(0, 128, n).astype(np.float32)}
+    host = RayBatcher(bank, 8192, seed=2 ** 31 + 1)
+    dev = RayBatcher(place_bank(bank, card), 8192, seed=2 ** 31 + 1)
+    for a, b, _ in zip(host.iter_from(0), dev.iter_from(0), range(50)):
+        for k in bank:
+            assert a[k].device.type == "cpu"
+            assert b[k].device.type == "cuda"
+            assert torch.equal(b[k].cpu(), a[k])
+
+
 def test_one_capture_replays_at_other_steps(card):
     """One captured chunk of 3 replayed at three step0 (its slot generators
     reseeded each time): each replay equals 3 eager steps from the same

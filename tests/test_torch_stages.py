@@ -178,7 +178,7 @@ def test_sort_rays_and_ray_batcher(run):
     j, t = _load_pair(run, split="train", img_dir="ldr")
     bank = t.pixel_bank(("rays", "rgbs"))
     _same(jdata.sort_rays_spatially(bank["rays"]),
-          tdata.sort_rays_spatially(bank["rays"]))
+          tdata.sort_rays_spatially(torch.from_numpy(bank["rays"])))
     for sort in (True, False):
         rj = jdata.RayBatcher(bank, 96, seed=4, sort_batches=sort)
         rt = tdata.RayBatcher(bank, 96, seed=4, sort_batches=sort)
